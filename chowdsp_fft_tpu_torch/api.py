@@ -1,0 +1,251 @@
+"""Public API: plans, real transforms and convolution helpers (PyTorch
+counterpart of ``chowdsp_fft_tpu/api.py``, without the complex surface).
+
+Semantics kept from the JAX package:
+
+- transforms are unscaled: irfft(rfft(x)) == N * x;
+- packed planes are (..., N/2) float32 re/im with DC in re[0] and Nyquist
+  in im[0];
+- unordered transforms pair with the packed convolve for
+  order-independent frequency-domain work. On the Hopper engine the
+  unordered layout is the JAX package's (``ops.tables.unordered_perm``);
+  on the Stockham engine it is the natural order.
+
+Results land on the input tensor's device. Engine dispatch:
+``engine="auto"`` takes the Hopper engine for the sizes it serves and the
+Stockham engine otherwise; an explicit engine that does not serve the
+plan raises ValueError. On a CPU tensor the Hopper engine runs its
+kernels' plain twins; on a CUDA tensor it launches the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .plans import (
+    FFT_BACKWARD,
+    FFT_COMPLEX,
+    FFT_FORWARD,
+    FFT_REAL,
+    FFTPlan,
+    InvalidSizeError,
+    cached_plan,
+    factorize,
+    is_valid_size,
+    make_plan,
+)
+from .ops import stockham
+from .ops.convolve import (
+    accumulate,
+    convolve_accumulate,
+    convolve_accumulate_packed,
+    multiply_spectra,
+)
+from .ops.layout import packed_planes_to_spectrum, spectrum_to_packed_planes
+
+__all__ = [
+    "FFT_FORWARD",
+    "FFT_BACKWARD",
+    "FFT_REAL",
+    "FFT_COMPLEX",
+    "FFTPlan",
+    "InvalidSizeError",
+    "make_plan",
+    "cached_plan",
+    "factorize",
+    "is_valid_size",
+    "available_engines",
+    "engine_for",
+    "engine_supports",
+    "rfft",
+    "irfft",
+    "rfft_unordered",
+    "irfft_unordered",
+    "rfft_packed",
+    "irfft_packed",
+    "rfft_packed_unordered",
+    "irfft_packed_unordered",
+    "convolve_accumulate",
+    "convolve_accumulate_packed",
+    "convolve_irfft_packed",
+    "multiply_spectra",
+    "accumulate",
+    "spectrum_to_packed_planes",
+    "packed_planes_to_spectrum",
+]
+
+# ---------------------------------------------------------------------------
+# Engine registry. The Hopper engine registers itself on import (see
+# ops/hopper_fft.py); the Stockham engine is always available.
+# ---------------------------------------------------------------------------
+
+_ENGINES: dict[str, dict] = {}
+_AUTO_ORDER = ("hopper", "stockham")
+
+
+def register_engine(
+    name: str,
+    fns: dict[str, Callable],
+    supports: Callable[[FFTPlan], bool],
+    prefers: Callable[[FFTPlan], bool] | None = None,
+):
+    """``supports`` gates explicit ``engine=name`` requests; ``prefers``
+    (default: ``supports``) gates what ``engine="auto"`` hands it."""
+    _ENGINES[name] = {
+        "fns": fns,
+        "supports": supports,
+        "prefers": supports if prefers is None else prefers,
+    }
+
+
+def _stockham_rfft_packed(x, plan=None):
+    return spectrum_to_packed_planes(stockham.rfft(x, plan))
+
+
+def _stockham_irfft_packed(re, im, plan=None):
+    return stockham.irfft(packed_planes_to_spectrum(re, im), plan)
+
+
+register_engine(
+    "stockham",
+    {
+        "rfft": stockham.rfft,
+        "irfft": stockham.irfft,
+        # Stockham output is naturally ordered; its "unordered" layout is
+        # the ordered one.
+        "rfft_unordered": stockham.rfft,
+        "irfft_unordered": stockham.irfft,
+        "rfft_packed": _stockham_rfft_packed,
+        "irfft_packed": _stockham_irfft_packed,
+        "rfft_packed_unordered": _stockham_rfft_packed,
+        "irfft_packed_unordered": _stockham_irfft_packed,
+    },
+    supports=lambda plan: True,
+)
+
+
+def _auto_name(plan: FFTPlan) -> str:
+    for name in _AUTO_ORDER:
+        e = _ENGINES.get(name)
+        if e is not None and e["prefers"](plan):
+            return name
+    raise AssertionError("stockham engine should always be available")
+
+
+def _pick_engine(plan: FFTPlan, engine: str) -> dict[str, Callable]:
+    if engine == "auto":
+        return _ENGINES[_auto_name(plan)]["fns"]
+    e = _ENGINES.get(engine)
+    if e is None:
+        raise ValueError(f"unknown engine {engine!r}; have {sorted(_ENGINES)}")
+    if not e["supports"](plan):
+        raise ValueError(f"engine {engine!r} does not support plan (N={plan.n}, kind={plan.kind})")
+    return e["fns"]
+
+
+# ---------------------------------------------------------------------------
+# Informational queries
+# ---------------------------------------------------------------------------
+
+
+def available_engines() -> tuple[str, ...]:
+    """Registered engine names, fastest first."""
+    names = [n for n in _AUTO_ORDER if n in _ENGINES]
+    return tuple(names + [n for n in _ENGINES if n not in names])
+
+
+def engine_for(n: int, kind: str = FFT_COMPLEX) -> str:
+    """Which engine ``engine="auto"`` selects for this transform."""
+    return _auto_name(cached_plan(n, kind))
+
+
+def engine_supports(name: str, n: int, kind: str = FFT_COMPLEX) -> bool:
+    """Whether an explicit ``engine=name`` request can serve this transform."""
+    e = _ENGINES.get(name)
+    if e is None:
+        raise ValueError(f"unknown engine {name!r}; have {sorted(_ENGINES)}")
+    return bool(e["supports"](cached_plan(n, kind)))
+
+
+# ---------------------------------------------------------------------------
+# Transforms (unscaled: irfft(rfft(x)) == N * x)
+# ---------------------------------------------------------------------------
+
+
+def rfft(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
+    """Real forward FFT -> canonical (..., N//2+1) complex64 spectrum."""
+    plan = plan or cached_plan(x.shape[-1], FFT_REAL)
+    return _pick_engine(plan, engine)["rfft"](x, plan)
+
+
+def irfft(spec: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
+    """Backward real FFT (unscaled): irfft(rfft(x)) == N * x -> (..., N) f32."""
+    plan = plan or cached_plan(2 * (spec.shape[-1] - 1), FFT_REAL)
+    return _pick_engine(plan, engine)["irfft"](spec, plan)
+
+
+def rfft_unordered(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
+    """Canonical-type spectrum in the engine's bin order, Nyquist last."""
+    plan = plan or cached_plan(x.shape[-1], FFT_REAL)
+    return _pick_engine(plan, engine)["rfft_unordered"](x, plan)
+
+
+def irfft_unordered(spec: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
+    plan = plan or cached_plan(2 * (spec.shape[-1] - 1), FFT_REAL)
+    return _pick_engine(plan, engine)["irfft_unordered"](spec, plan)
+
+
+def rfft_packed(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"):
+    """Real FFT -> packed half-spectrum planes ((..., N/2) f32 re, im):
+    re[k]/im[k] hold bin k for k in [1, N/2); re[0] = DC, im[0] = Nyquist."""
+    plan = plan or cached_plan(x.shape[-1], FFT_REAL)
+    return _pick_engine(plan, engine)["rfft_packed"](x, plan)
+
+
+def irfft_packed(
+    re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"
+) -> torch.Tensor:
+    """Unscaled inverse of :func:`rfft_packed`: (..., N) f32 == N * x."""
+    plan = plan or cached_plan(2 * re.shape[-1], FFT_REAL)
+    return _pick_engine(plan, engine)["irfft_packed"](re, im, plan)
+
+
+def rfft_packed_unordered(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"):
+    """Packed real FFT in the engine's bin order (bin 0 stays at index 0,
+    so convolve_accumulate_packed applies unchanged)."""
+    plan = plan or cached_plan(x.shape[-1], FFT_REAL)
+    return _pick_engine(plan, engine)["rfft_packed_unordered"](x, plan)
+
+
+def irfft_packed_unordered(
+    re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"
+) -> torch.Tensor:
+    plan = plan or cached_plan(2 * re.shape[-1], FFT_REAL)
+    return _pick_engine(plan, engine)["irfft_packed_unordered"](re, im, plan)
+
+
+def convolve_irfft_packed(
+    are: torch.Tensor,
+    aim: torch.Tensor,
+    bre: torch.Tensor,
+    bim: torch.Tensor,
+    scaling: float | torch.Tensor = 1.0,
+    plan: FFTPlan | None = None,
+    engine: str = "auto",
+    ordered: bool = True,
+) -> torch.Tensor:
+    """Fused spectral multiply + unscaled real inverse:
+    ``irfft_packed(convolve_accumulate_packed(A, B, scaling=scaling))``, one
+    kernel on the Hopper engine. B may be one shared spectrum (a filter)
+    broadcast over A's batch. Engines without the fused kernel run the same
+    unfused composition."""
+    plan = plan or cached_plan(2 * are.shape[-1], FFT_REAL)
+    eng = _pick_engine(plan, engine)
+    fn = eng.get("convolve_irfft_packed")
+    if fn is not None:
+        return fn(are, aim, bre, bim, plan=plan, scaling=scaling, ordered=ordered)
+    pr, pi = convolve_accumulate_packed((are, aim), (bre, bim), scaling=scaling)
+    key = "irfft_packed" if ordered else "irfft_packed_unordered"
+    return eng[key](pr, pi, plan)

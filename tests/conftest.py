@@ -29,3 +29,11 @@ import pytest  # noqa: E402
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0xC0FFEE)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device and nvcc; skips without them "
+        "(on the card: python -m pytest -m cuda tests/test_torch_cuda.py)",
+    )
