@@ -6,17 +6,37 @@ Needs one CUDA card, ``nvcc`` and the repo checkout (the kernels are built
 from ``chowdsp_fft_tpu_torch/csrc`` into ``build/hopper/`` on first use).
 Phases, each of which asserts:
 
-1. identify the card (name and power limit) and build the kernels;
-2. run K1-K3 against their plain PyTorch twins on the card and against
+1. identify the card (name and power limit), build the kernels (one nvcc
+   per source, in parallel) and check the size limits against Python's;
+2. run K1-K3 against their plain PyTorch versions on the card and against
    float64 numpy on the host, bound 2e-7*N (max abs error);
 3. BASELINE config 3 end to end: a 4096-tap FIR on 4 x 2^20-sample
    streams through ``stream.fir_filter_ols(block=8192)`` and
    ``stream.partitioned_fir_apply(block=1024)``, against a float64 FFT
    convolution (atol 5e-4 and 1e-3), plus ``PartitionedFIR.step_k``
    streaming against the offline result;
-4. the kernels carried the path: every launch count from phase 3 > 0, and
+4. K1-K3 carried config 3: every launch count from phase 3 > 0, and
    ``engine_for`` picks the Hopper engine at the path's sizes;
-5. timing at N=4096, B=1024 (kernel, plain twin, cuFFT), informational.
+5. timing at N=4096, B=1024 (kernel, plain version, cuFFT), informational;
+6. K4 and K5 against their plain versions and float64, bound 2e-7*N:
+   forward/backward x ordered/unordered, planes and complex64;
+7. BASELINE config 5 at its published width: ``models.SDRChain`` (256
+   channels) on one 2^24-sample capture of FM carriers plus noise,
+   against float64 definitions (scipy ``upfirdn`` decimators, the
+   channelizer's mixer definition): channelizer output, the occupied
+   channels' audio, each carrier's power in its channel; K5 carried it;
+8. a K4 path: ``stream.channelize`` with C = 1024 on the same capture,
+   against the mixer definition and against the same channelizer on K4's
+   plain version (every bin, 2e-7*C of the peak); K4 carried it;
+9. a K5-real path: ``PartitionedFIR(h, block=128)`` on config 3's streams
+   (N = 256), ``step_k`` against ``partitioned_fir_apply`` and float64;
+   both real K5 bodies carried it;
+10. coverage: every kernel record launched on its path, ``engine_for`` at
+    the complex and small sizes;
+11. timing (informational): K4 at N=4096, B=1024 against ``torch.fft.fft``,
+    K5 at N=256, B=32768 against ``torch.fft.ifft`` / ``rfft`` / ``irfft``,
+    each kernel's plain version, the config-5 chain's wall time per call
+    and its device time by kernel (``torch.profiler``).
 
 The line before the last is the kernel report as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure and when
@@ -37,6 +57,14 @@ import torch
 TOL = 2e-7  # times N: the JAX package's bound against float64
 HEADLINE = (4096, 1024)  # (N, rows): bench.py's shape
 CONFIG3 = {"streams": 4, "samples": 1 << 20, "taps": 4096}
+CONFIG5_SAMPLES = 1 << 24  # 0.67 s of IQ at 25 MS/s
+CARRIERS = (3, 17, 40, 61, 90, 170, 215, 250)  # occupied channels of the 256-channel bank
+EMPTY = (0, 10, 29, 128, 200, 240)  # channels with noise only
+CHANNEL_RTOL = 5e-5  # channelizer max error / reference peak (test_stream.py: 1e-4)
+AUDIO_ATOL = 1e-5  # occupied channels' demod and audio (radians per sample), max abs error
+AUDIO_SKIP = 32  # audio samples of filter transient (test_parallel.py drops 32)
+SMALL_TIMED = (256, 32768)  # K5 at config 5's channelizer shape
+K4_PATH = (1024, CONFIG5_SAMPLES // 1024)  # K4 at phase 8's channelizer shape
 
 
 def log(msg: str) -> None:
@@ -166,14 +194,335 @@ def time_ms(fn, args_list, iters: int = 20, rounds: int = 7, gap_s: float = 0.05
     return statistics.median(per_call)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: K4 and K5 against their plain versions and float64
+# ---------------------------------------------------------------------------
+
+
+def crandn(rng, shape) -> np.ndarray:
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def max_err(got, want) -> float:
+    """Max abs difference of two complex or real arrays/tensors."""
+    def host(a):
+        return a.detach().cpu().numpy().astype(np.complex128) if isinstance(a, torch.Tensor) else a
+    return float(np.abs(host(got) - host(want)).max()) if np.size(host(got)) else 0.0
+
+
+def phase6(ct, hopper_cfft, hopper_small, tables, dev, rng) -> dict[str, float]:
+    """Returns each K4/K5 kernel's worst max abs error against its plain
+    version (outputs of a backward transform divided by N)."""
+    worst = {k.name: 0.0 for k in (hopper_cfft.K4, hopper_small.K5_COMPLEX,
+                                   hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE)}
+
+    def note(kernel, key, err, bound):
+        if key.endswith("plain"):
+            worst[kernel.name] = max(worst[kernel.name], err)
+        require(err <= bound, f"{kernel.name} {key}: max abs err {err:.3e} > {bound:.3e}")
+
+    def complex_case(kernel, fn, plain, n, rows, orders):
+        plan = ct.cached_plan(n, ct.FFT_COMPLEX)
+        bound = TOL * n
+        z = crandn(rng, (rows, n))
+        spec64 = np.fft.fft(z.astype(np.complex128), axis=-1)
+        for ordered in orders:
+            sel = slice(None) if ordered else tables.cfft_unordered_perm(n)
+            for forward in (True, False):
+                src = z if forward else spec64[:, sel].astype(np.complex64)
+                want = spec64[:, sel] if forward else z.astype(np.complex128)
+                scale = 1.0 if forward else 1.0 / n
+                zt = torch.from_numpy(np.ascontiguousarray(src)).to(dev)
+                y = fn(zt, plan, forward, ordered)
+                p = plain(zt, plan, forward, ordered)
+                tag = f"N={n} rows={rows} {'fwd' if forward else 'bwd'} {'ord' if ordered else 'unord'}"
+                note(kernel, f"{tag} plain", max_err(y * scale, p * scale), bound)
+                note(kernel, f"{tag} f64", max_err(y * scale, want), bound)
+                planes = (zt.real.contiguous(), zt.imag.contiguous())
+                yr, yi = fn(planes, plan, forward, ordered)
+                note(kernel, f"{tag} planes == complex64", max_err(torch.complex(yr, yi), y), 0.0)
+
+    k4_shapes = ((4096, 1024), (384, 7), (640, 5), (1920, 3), (8192, 64), (hopper_cfft.MAX_CN, 8),
+                 K4_PATH)
+    for n, rows in k4_shapes:
+        complex_case(hopper_cfft.K4, hopper_cfft.cfft_kernel, hopper_cfft.cfft_plain, n, rows, (True, False))
+    log(f"phase 6 K4: worst max abs err vs plain {worst[hopper_cfft.K4.name]:.3e}")
+
+    def small_c(z, plan, forward, ordered):
+        return hopper_small.small_cfft_kernel(z, plan, forward)
+
+    def small_c_plain(z, plan, forward, ordered):
+        return hopper_small.small_cfft_plain(z, plan, forward)
+
+    for n, rows in ((8, 1), (32, 33), (64, 7), (256, 300), (480, 9), SMALL_TIMED):
+        complex_case(hopper_small.K5_COMPLEX, small_c, small_c_plain, n, rows, (True,))
+        plan = ct.cached_plan(n, ct.FFT_REAL)
+        bound = TOL * n
+        x64 = rng.standard_normal((rows, n))
+        xt = torch.from_numpy(x64.astype(np.float32)).to(dev)
+        re, im = hopper_small.small_rfft_kernel(xt, plan)
+        pre, pim = hopper_small.small_rfft_plain(xt, plan)
+        ref_re, ref_im = packed_ref(x64.astype(np.float32).astype(np.float64))
+        note(hopper_small.K5_REAL, f"N={n} rows={rows} plain", max(max_err(re, pre), max_err(im, pim)), bound)
+        note(hopper_small.K5_REAL, f"N={n} rows={rows} f64", max(max_err(re, ref_re), max_err(im, ref_im)), bound)
+        sre = torch.from_numpy(ref_re.astype(np.float32)).to(dev)
+        sim = torch.from_numpy(ref_im.astype(np.float32)).to(dev)
+        back = hopper_small.small_irfft_kernel(sre, sim, plan)
+        pback = hopper_small.small_irfft_plain(sre, sim, plan)
+        note(hopper_small.K5_REAL_INVERSE, f"N={n} rows={rows} plain", max_err(back / n, pback / n), bound)
+        note(hopper_small.K5_REAL_INVERSE, f"N={n} rows={rows} f64", max_err(back / n, x64.astype(np.float32)), bound)
+    torch.cuda.synchronize()
+    log("phase 6 ok: K4, K5 within 2e-7*N of their plain versions and float64; "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-8: BASELINE config 5 and the K4 channelizer, against float64
+# ---------------------------------------------------------------------------
+
+
+def make_capture(rng) -> np.ndarray:
+    """2^24 complex64 IQ samples: an FM carrier at the centre of each
+    occupied channel of the 256-channel bank (after the 2x front end),
+    each with its own tone, plus complex noise."""
+    t = CONFIG5_SAMPLES
+    n = np.arange(t, dtype=np.float64)
+    iq = 0.01 * (rng.standard_normal(t) + 1j * rng.standard_normal(t))
+    for i, ch in enumerate(CARRIERS):
+        f = (ch if ch < 128 else ch - 256) / 512.0  # cycles per wideband sample
+        tone = np.sin(2 * np.pi * (0.0005 + 0.0002 * i) * n)
+        phase = 2 * np.pi * f * n + 2 * np.pi * (0.1 / 512.0) * np.cumsum(tone)
+        iq += np.exp(1j * phase) / np.sqrt(len(CARRIERS))
+    return iq.astype(np.complex64)
+
+
+def mixer_reference(z64: np.ndarray, proto64: np.ndarray, channels: int, ch: int, steps: int) -> np.ndarray:
+    """Channel ``ch`` by definition (test_stream.py): mix down, prototype
+    low-pass, keep samples m*C + C-1, gain 1/C and the commutator phase.
+    (h * x)[m*C + C-1] == upfirdn(h, [0, x], 1, C)[m + 1]."""
+    from scipy.signal import upfirdn
+
+    mixed = z64 * np.exp(-2j * np.pi * ch * (np.arange(z64.size) % channels) / channels)
+    filt = upfirdn(proto64, np.concatenate([[0.0], mixed]), 1, channels)[1 : steps + 1]
+    return filt * np.exp(2j * np.pi * ch * (channels - 1) / channels) / channels
+
+
+def check_channels(name: str, got: torch.Tensor, z64: np.ndarray, proto64: np.ndarray, chans) -> float:
+    c, steps = got.shape[-2], got.shape[-1]
+    worst = 0.0
+    for ch in chans:
+        ref = mixer_reference(z64, proto64, c, ch, steps)
+        err = max_err(got[ch], ref) / float(np.abs(ref).max())
+        worst = max(worst, err)
+        require(err < CHANNEL_RTOL, f"{name} channel {ch}: max err / peak {err:.3e} >= {CHANNEL_RTOL}")
+    log(f"{name}: channels {list(chans)} max err / reference peak {worst:.3e} (bound {CHANNEL_RTOL})")
+    return worst
+
+
+def phase7(hf, models, stream, dev, capture: np.ndarray) -> dict[str, int]:
+    from scipy.signal import upfirdn
+
+    cfg = models.SDRChainConfig()
+    require(cfg.channels == 256, "config 5 is the 256-channel chain")
+    chain = models.SDRChain(cfg, device=dev)
+    iq = torch.from_numpy(capture).to(dev)
+    hf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio = chain(iq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in hf.KERNELS}
+    steps = CONFIG5_SAMPLES // (cfg.decimation * cfg.channels)
+    want_shape = (cfg.channels, steps // cfg.audio_decimation)
+    log(f"phase 7 config 5 (SDRChain, C=256, 2^24 samples) ran in {wall:.3f} s (first call, host clock); "
+        f"launches {launches}")
+    require(tuple(audio.shape) == want_shape and audio.dtype == torch.float32, f"audio {tuple(audio.shape)}")
+    require(bool(torch.isfinite(audio).all()), "non-finite audio")
+
+    # float64 references from the definitions, on the chain's own filters
+    front = chain.front_lp.double().cpu().numpy()
+    audio_lp = chain.audio_lp.double().cpu().numpy()
+    proto = stream.design_lowpass(cfg.channels * cfg.channel_taps_per_branch, 1.0 / cfg.channels)
+    proto64 = proto.double().numpy()
+    z64 = upfirdn(front, capture.astype(np.complex128), 1, cfg.decimation)[: CONFIG5_SAMPLES // cfg.decimation]
+    bank = chain.channelizer(chain.front_end(iq))
+    check_channels("phase 7 channelizer (C=256)", bank, z64, proto64, CARRIERS + EMPTY)
+
+    power = (bank.abs() ** 2).mean(-1).cpu().numpy()
+    quiet = np.delete(power, [c + d for c in CARRIERS for d in (-1, 0, 1) if 0 <= c + d < cfg.channels])
+    for ch in CARRIERS:
+        require(power[ch] > 100 * quiet.max(), f"carrier {ch}: power {power[ch]:.3e} vs quiet {quiet.max():.3e}")
+    log(f"phase 7 carriers: power in own channel / loudest quiet channel >= "
+        f"{min(power[ch] for ch in CARRIERS) / quiet.max():.1f}")
+
+    # The filter transient at the start puts phase steps near +-pi, where
+    # atan2 may land on either side: the demod is compared as wrapped
+    # phase differences, the audio after its transient (as test_parallel.py).
+    demod_err = audio_err = 0.0
+    for ch in CARRIERS:
+        ref = mixer_reference(z64, proto64, cfg.channels, ch, steps)
+        d = np.zeros(steps)
+        d[1:] = np.angle(ref[1:] * np.conj(ref[:-1])) * cfg.fm_gain
+        got = stream.fm_demod(bank[ch], gain=cfg.fm_gain).double().cpu().numpy()
+        # (sample 0 has no phase history: atan2 of signed zeros, as in the JAX package)
+        demod_err = max(demod_err, float(np.abs(np.angle(np.exp(1j * (got[1:] - d[1:])))).max()))
+        ref_audio = upfirdn(audio_lp, d, 1, cfg.audio_decimation)[: steps // cfg.audio_decimation]
+        audio_err = max(audio_err, max_err(audio[ch, AUDIO_SKIP:], ref_audio[AUDIO_SKIP:]))
+    log(f"phase 7 occupied channels: demod max wrapped err {demod_err:.3e}; audio (after "
+        f"{AUDIO_SKIP} samples) max abs err vs float64 {audio_err:.3e} (atol {AUDIO_ATOL})")
+    require(demod_err <= AUDIO_ATOL and audio_err <= AUDIO_ATOL, f"demod/audio error > {AUDIO_ATOL}")
+    log("phase 7 ok")
+    return launches
+
+
+def phase8(hf, stream, dev, capture: np.ndarray) -> dict[str, int]:
+    channels = K4_PATH[0]
+    iq = torch.from_numpy(capture).to(dev)
+    hf.reset_launch_counts()
+    bank = stream.channelize(iq, channels)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in hf.KERNELS}
+    log(f"phase 8 channelize(C=1024) on the capture: launches {launches}")
+    require(tuple(bank.shape) == (channels, K4_PATH[1]), f"bank {tuple(bank.shape)}")
+    # The same channelizer with K4's plain version (the Stockham engine's
+    # complex transform is cfft_plain's ordered path) on the same input:
+    # every bin of every row, relative to the output's peak, bound 2e-7*C.
+    plain = stream.channelize(iq, channels, engine="stockham")
+    rel = max_err(bank, plain) / float(plain.abs().max())
+    log(f"phase 8 channelize(C=1024) K4 vs its plain version: max abs err / peak {rel:.3e} "
+        f"(bound {TOL * channels:.3e})")
+    require(rel <= TOL * channels, f"channelize(C=1024) K4 vs plain: {rel:.3e} > {TOL * channels:.3e}")
+    proto64 = stream.design_lowpass(channels * 8, 1.0 / channels).double().numpy()
+    # The carriers sit on channel 2*ch of a 1024-channel bank at the wideband rate.
+    chans = tuple(sorted({2 * CARRIERS[0], 2 * CARRIERS[3], 1024 - 2 * (256 - CARRIERS[-1]), 0, 300, 700}))
+    check_channels("phase 8 channelizer (C=1024)", bank, capture.astype(np.complex128), proto64, chans)
+    log("phase 8 ok")
+    return launches
+
+
+def phase9(hf, stream, dev, x: torch.Tensor, h: torch.Tensor, ref: np.ndarray) -> dict[str, int]:
+    """PartitionedFIR at block 128 (N = 256) on config 3's streams."""
+    block = 128
+    s = x.shape[0]
+    hf.reset_launch_counts()
+    y_off = stream.partitioned_fir_apply(x, h, block=block)
+    fir = stream.PartitionedFIR(h, block=block)
+    state = fir.init_state((s,))
+    k_blocks, chunks = 64, 4
+    outs = []
+    for c in range(chunks):
+        xb = x[:, c * k_blocks * block : (c + 1) * k_blocks * block].reshape(s, k_blocks, block)
+        state, yk = fir.step_k(state, xb)
+        outs.append(yk.reshape(s, -1))
+    y_stream = torch.cat(outs, -1)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in hf.KERNELS}
+    log(f"phase 9 PartitionedFIR(block=128): launches {launches}")
+    err_f64 = float(np.abs(y_off.double().cpu().numpy() - ref).max())
+    err_stream = float((y_stream - y_off[:, : y_stream.shape[-1]]).abs().max())
+    log(f"phase 9 partitioned_fir_apply(block=128) vs float64 {err_f64:.3e} (atol 1e-3); "
+        f"step_k x{chunks} (K={k_blocks}) vs offline {err_stream:.3e} (atol 1e-5)")
+    require(err_f64 <= 1e-3, f"partitioned_fir_apply(block=128): {err_f64} > 1e-3")
+    require(err_stream <= 1e-5, f"step_k disagrees with partitioned_fir_apply: {err_stream}")
+    log("phase 9 ok")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: timing of K4/K5 and the config-5 chain
+# ---------------------------------------------------------------------------
+
+
+def kernel_device_times(fn) -> dict[str, float]:
+    """Device time (ms) by kernel name for one call of ``fn``, from
+    torch.profiler's device-side events only (not the aten ops that
+    launched them, which repeat the same time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def phase11(ct, hopper_cfft, hopper_small, models, dev, capture, card) -> dict[str, tuple[float, float]]:
+    timing: dict[str, tuple[float, float]] = {}
+    n, rows = HEADLINE
+    plan = ct.cached_plan(n, ct.FFT_COMPLEX)
+    zs = [torch.randn(rows, n, dtype=torch.complex64, device=dev) for _ in range(4)]
+    args = [(z,) for z in zs]
+    timing[hopper_cfft.K4.name] = (
+        time_ms(lambda z: hopper_cfft.cfft_kernel(z, plan, True, True), args),
+        time_ms(lambda z: hopper_cfft.cfft_plain(z, plan, True, True), args),
+    )
+    cufft = time_ms(lambda z: torch.fft.fft(z), args)
+    log(f"phase 11 K4 fft N={n} B={rows} complex64: kernel {timing[hopper_cfft.K4.name][0]:.4f} ms, "
+        f"plain {timing[hopper_cfft.K4.name][1]:.4f} ms, torch.fft.fft (cuFFT) {cufft:.4f} ms [{card}]")
+
+    n, rows = SMALL_TIMED
+    cplan, rplan = ct.cached_plan(n, ct.FFT_COMPLEX), ct.cached_plan(n, ct.FFT_REAL)
+    zs = [(torch.randn(rows, n, dtype=torch.complex64, device=dev),) for _ in range(2)]
+    xs = [(torch.randn(rows, n, device=dev),) for _ in range(2)]
+    specs = [hopper_small.small_rfft_kernel(x, rplan) for (x,) in xs]
+    timing[hopper_small.K5_COMPLEX.name] = (
+        time_ms(lambda z: hopper_small.small_cfft_kernel(z, cplan, False), zs),
+        time_ms(lambda z: hopper_small.small_cfft_plain(z, cplan, False), zs),
+    )
+    timing[hopper_small.K5_REAL.name] = (
+        time_ms(lambda x: hopper_small.small_rfft_kernel(x, rplan), xs),
+        time_ms(lambda x: hopper_small.small_rfft_plain(x, rplan), xs),
+    )
+    timing[hopper_small.K5_REAL_INVERSE.name] = (
+        time_ms(lambda r, i: hopper_small.small_irfft_kernel(r, i, rplan), specs),
+        time_ms(lambda r, i: hopper_small.small_irfft_plain(r, i, rplan), specs),
+    )
+    cu_i = time_ms(lambda z: torch.fft.ifft(z), zs)
+    cu_r = time_ms(lambda x: torch.fft.rfft(x), xs)
+    cspecs = [(torch.fft.rfft(x),) for (x,) in xs]
+    cu_ir = time_ms(lambda c: torch.fft.irfft(c, n=n), cspecs)
+    for k in (hopper_small.K5_COMPLEX, hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE):
+        log(f"phase 11 {k.name} N={n} B={rows}: kernel {timing[k.name][0]:.4f} ms, "
+            f"plain {timing[k.name][1]:.4f} ms [{card}]")
+    log(f"phase 11 cuFFT N={n} B={rows}: torch.fft.ifft {cu_i:.4f} ms, rfft {cu_r:.4f} ms, "
+        f"irfft {cu_ir:.4f} ms [{card}]")
+
+    chain = models.SDRChain(models.SDRChainConfig(), device=dev)
+    iq = torch.from_numpy(capture).to(dev)
+    chain(iq)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(7):
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        chain(iq)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    by_kernel = kernel_device_times(lambda: chain(iq))
+    device_ms = sum(by_kernel.values())
+    wall = statistics.median(walls)
+    log(f"phase 11 config 5 chain (2^24 samples): wall {wall:.3f} ms per call (median of 7, host clock), "
+        f"device {device_ms:.3f} ms, idle share {1 - device_ms / wall:.2f} [{card}]")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"  {ms:9.4f} ms  {name[:110]}")
+    return timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
 
     import chowdsp_fft_tpu_torch as ct
-    from chowdsp_fft_tpu_torch import stream
-    from chowdsp_fft_tpu_torch.ops import _cuda, hopper_fft as hf, tables
+    from chowdsp_fft_tpu_torch import models, stream
+    from chowdsp_fft_tpu_torch.ops import _cuda, hopper_cfft, hopper_small, tables
+    from chowdsp_fft_tpu_torch.ops import hopper_fft as hf
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(20261016)
@@ -184,8 +533,10 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     lib_path = _cuda.build()
-    max_n = _cuda.library().hopper_real_fft_max_n()
-    require(max_n == hf.MAX_N, f"kernel MAX_N {max_n} != hopper_fft.MAX_N {hf.MAX_N}")
+    lib = _cuda.library()
+    limits = (lib.hopper_real_fft_max_n(), lib.hopper_complex_fft_max_n(), lib.hopper_small_dft_max_n())
+    require(limits == (hf.MAX_N, hopper_cfft.MAX_CN, hopper_small.MAX_SMALL_N),
+            f"kernel limits (MAX_N, MAX_CN, MAX_SMALL_N) {limits} differ from Python's")
     log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.2f} s -> {lib_path}")
 
     # -- phase 2 ------------------------------------------------------------
@@ -239,7 +590,7 @@ def main() -> int:
     log("phase 3 ok")
 
     # -- phase 4 ------------------------------------------------------------
-    for k in hf.KERNELS:
+    for k in (hf.K1, hf.K2, hf.K3):
         require(launches[k.name] > 0, f"{k.name} was not launched on the main path")
     for n in (2048, 4096, 16384):
         require(ct.engine_for(n, "real") == "hopper", f"engine_for({n}) = {ct.engine_for(n, 'real')}")
@@ -273,14 +624,41 @@ def main() -> int:
     log(f"phase 5 torch.fft.rfft (cuFFT) N={n} B={rows}: {cufft_r:.4f} ms; "
         f"torch.fft.irfft: {cufft_i:.4f} ms [{card}]")
 
+    errs = {k.name: max(v for key, v in headline_err.items()
+                        if key.startswith(prefix) and key.endswith("twin"))
+            for k, prefix in ((hf.K1, "k1"), (hf.K2, "k2"), (hf.K3, "k3"))}
+
+    # -- phase 6 ------------------------------------------------------------
+    errs.update(phase6(ct, hopper_cfft, hopper_small, tables, dev, rng))
+
+    # -- phases 7-9: the paths, each read just after it runs -------------------
+    capture = make_capture(rng)
+    path5 = phase7(hf, models, stream, dev, capture)
+    launches.update({k: v for k, v in path5.items() if k == hopper_small.K5_COMPLEX.name})
+    path4 = phase8(hf, stream, dev, capture)
+    launches[hopper_cfft.K4.name] = path4[hopper_cfft.K4.name]
+    path_r = phase9(hf, stream, dev, x, h, ref)
+    for k in (hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE):
+        launches[k.name] = path_r[k.name]
+
+    # -- phase 10 -------------------------------------------------------------
+    for k in hf.KERNELS:
+        require(launches[k.name] > 0, f"{k.name} was not launched on its path")
+    for n, kind in ((256, "complex"), (1024, "complex"), (4096, "complex"), (hf.MAX_CN, "complex"),
+                    (8, "complex"), (480, "complex"), (256, "real"), (32, "real")):
+        require(ct.engine_for(n, kind) == "hopper", f"engine_for({n}, {kind}) = {ct.engine_for(n, kind)}")
+    for n, kind in ((16384, "complex"), (6, "real"), (576, "real")):
+        require(ct.engine_for(n, kind) == "stockham", f"engine_for({n}, {kind}) = {ct.engine_for(n, kind)}")
+    log(f"phase 10 ok: every kernel carried its path; launches {launches}")
+
+    # -- phase 11 -------------------------------------------------------------
+    timing.update(phase11(ct, hopper_cfft, hopper_small, models, dev, capture, card))
+
     kernels = []
     for k in hf.KERNELS:
-        prefix = {"rfft_packed_kernel": "k1", "irfft_packed_kernel": "k2",
-                  "convolve_irfft_packed_kernel": "k3"}[k.name]
-        err = max(v for key, v in headline_err.items() if key.startswith(prefix) and key.endswith("twin"))
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": launches[k.name], "max_abs_err": err,
+            "launches": launches[k.name], "max_abs_err": errs[k.name],
             "ms": timing[k.name][0], "plain_ms": timing[k.name][1],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

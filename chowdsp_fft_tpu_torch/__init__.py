@@ -1,15 +1,18 @@
 """chowdsp_fft_tpu_torch — the PyTorch and CUDA port of chowdsp_fft_tpu.
 
 It keeps the JAX package's public layouts and entry points and runs the
-packed real FFT and fast-convolution path on hand-written Hopper kernels
-(``ops/hopper_fft.py``, ``csrc/real_fft.cu``); every other size runs on
-the plain PyTorch Stockham engine. It imports ``torch`` and never ``jax``.
+transforms on hand-written Hopper kernels (``ops/hopper_fft.py``,
+``csrc/*.cu``): the packed real FFT and fast convolution (K1-K3), the
+complex FFT (K4) and the small-N direct DFT (K5); every other size runs
+on the plain PyTorch Stockham engine. It imports ``torch`` and never
+``jax``.
 
 Layers:
   plans   — factorization + twiddle tables
   ops     — Stockham engine (plain torch) + Hopper engine (CUDA kernels)
   api     — the public transform/convolve surface (re-exported here)
-  stream  — overlap-save FIR, single and partitioned
+  stream  — overlap-save FIR, polyphase resampling, channelizer, demod
+  models  — the SDR receiver chain
   convert — carry the JAX package's plans, filters and state across
 """
 
@@ -29,6 +32,14 @@ from .api import (  # noqa: F401
     engine_for,
     engine_supports,
     factorize,
+    fft,
+    fft_planes,
+    fft_planes_unordered,
+    fft_unordered,
+    ifft,
+    ifft_planes,
+    ifft_planes_unordered,
+    ifft_unordered,
     irfft,
     irfft_packed,
     irfft_packed_unordered,

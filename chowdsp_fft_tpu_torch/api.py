@@ -1,15 +1,20 @@
-"""Public API: plans, real transforms and convolution helpers (PyTorch
-counterpart of ``chowdsp_fft_tpu/api.py``, without the complex surface).
+"""Public API: plans, complex and real transforms and convolution helpers
+(PyTorch counterpart of ``chowdsp_fft_tpu/api.py``).
 
 Semantics kept from the JAX package:
 
-- transforms are unscaled: irfft(rfft(x)) == N * x;
+- transforms are unscaled in both directions: ifft(fft(x)) == N * x,
+  irfft(rfft(x)) == N * x;
+- complex transforms take and return complex64; the ``*_planes`` forms
+  take and return SoA float32 (re, im) planes;
 - packed planes are (..., N/2) float32 re/im with DC in re[0] and Nyquist
   in im[0];
-- unordered transforms pair with the packed convolve for
+- unordered transforms pair with the (packed) convolve for
   order-independent frequency-domain work. On the Hopper engine the
-  unordered layout is the JAX package's (``ops.tables.unordered_perm``);
-  on the Stockham engine it is the natural order.
+  unordered layouts are the JAX package's (``ops.tables.unordered_perm``
+  for real N on K1-K3, ``ops.tables.cfft_unordered_perm`` for complex N
+  on K4, natural order at the small-N sizes of K5); on the Stockham
+  engine they are the natural order.
 
 Results land on the input tensor's device. Engine dispatch:
 ``engine="auto"`` takes the Hopper engine for the sizes it serves and the
@@ -59,6 +64,14 @@ __all__ = [
     "available_engines",
     "engine_for",
     "engine_supports",
+    "fft",
+    "ifft",
+    "fft_unordered",
+    "ifft_unordered",
+    "fft_planes",
+    "ifft_planes",
+    "fft_planes_unordered",
+    "ifft_planes_unordered",
     "rfft",
     "irfft",
     "rfft_unordered",
@@ -108,19 +121,28 @@ def _stockham_irfft_packed(re, im, plan=None):
     return stockham.irfft(packed_planes_to_spectrum(re, im), plan)
 
 
+def _stockham_cfft_planes(re, im, plan=None, direction=FFT_FORWARD):
+    z = stockham.cfft(torch.complex(re.to(torch.float32), im.to(torch.float32)), plan, direction)
+    return z.real.contiguous(), z.imag.contiguous()
+
+
 register_engine(
     "stockham",
     {
+        "cfft": stockham.cfft,
         "rfft": stockham.rfft,
         "irfft": stockham.irfft,
         # Stockham output is naturally ordered; its "unordered" layout is
         # the ordered one.
+        "cfft_unordered": stockham.cfft,
         "rfft_unordered": stockham.rfft,
         "irfft_unordered": stockham.irfft,
         "rfft_packed": _stockham_rfft_packed,
         "irfft_packed": _stockham_irfft_packed,
         "rfft_packed_unordered": _stockham_rfft_packed,
         "irfft_packed_unordered": _stockham_irfft_packed,
+        "cfft_planes": _stockham_cfft_planes,
+        "cfft_planes_unordered": _stockham_cfft_planes,
     },
     supports=lambda plan: True,
 )
@@ -170,8 +192,66 @@ def engine_supports(name: str, n: int, kind: str = FFT_COMPLEX) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Transforms (unscaled: irfft(rfft(x)) == N * x)
+# Transforms (unscaled: ifft(fft(x)) == N * x, irfft(rfft(x)) == N * x)
 # ---------------------------------------------------------------------------
+
+
+def fft(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
+    """Ordered forward complex FFT over the last axis -> (..., N) complex64."""
+    plan = plan or cached_plan(x.shape[-1], FFT_COMPLEX)
+    return _pick_engine(plan, engine)["cfft"](x, plan, FFT_FORWARD)
+
+
+def ifft(spec: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
+    """Ordered backward complex FFT (unscaled: returns N * inverse)."""
+    plan = plan or cached_plan(spec.shape[-1], FFT_COMPLEX)
+    return _pick_engine(plan, engine)["cfft"](spec, plan, FFT_BACKWARD)
+
+
+def fft_unordered(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
+    """Forward complex FFT in the engine's bin order (one fixed
+    permutation per N, independent of the batch)."""
+    plan = plan or cached_plan(x.shape[-1], FFT_COMPLEX)
+    return _pick_engine(plan, engine)["cfft_unordered"](x, plan, FFT_FORWARD)
+
+
+def ifft_unordered(spec: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
+    """Backward complex FFT consuming the engine's bin order."""
+    plan = plan or cached_plan(spec.shape[-1], FFT_COMPLEX)
+    return _pick_engine(plan, engine)["cfft_unordered"](spec, plan, FFT_BACKWARD)
+
+
+def fft_planes(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    plan: FFTPlan | None = None,
+    engine: str = "auto",
+    direction: str = FFT_FORWARD,
+):
+    """Complex FFT on SoA float32 planes -> (re, im) planes (ordered),
+    unscaled both directions."""
+    plan = plan or cached_plan(re.shape[-1], FFT_COMPLEX)
+    return _pick_engine(plan, engine)["cfft_planes"](re, im, plan, direction)
+
+
+def ifft_planes(re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"):
+    return fft_planes(re, im, plan, engine, direction=FFT_BACKWARD)
+
+
+def fft_planes_unordered(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    plan: FFTPlan | None = None,
+    engine: str = "auto",
+    direction: str = FFT_FORWARD,
+):
+    """Planes complex FFT in the engine's bin order."""
+    plan = plan or cached_plan(re.shape[-1], FFT_COMPLEX)
+    return _pick_engine(plan, engine)["cfft_planes_unordered"](re, im, plan, direction)
+
+
+def ifft_planes_unordered(re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"):
+    return fft_planes_unordered(re, im, plan, engine, direction=FFT_BACKWARD)
 
 
 def rfft(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:

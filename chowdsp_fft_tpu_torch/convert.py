@@ -1,59 +1,101 @@
-"""Carry plans, filters and stream state from the JAX package to the port.
+"""Carry plans, filters, stream state and models from the JAX package to
+the port.
 
 Plain functions: they take the JAX package's arrays as numpy (e.g.
 ``np.asarray(jax_array)``) and return the port's objects, so both packages
 then compute the same thing on the same state. Unordered spectra keep
-their layout where both sides use the same one (the four-step permutation
-of ``ops.tables.unordered_perm`` on the JAX fused real kernel and on the
-Hopper engine); where one side runs in natural order (a Stockham engine,
-or a size outside the Hopper domain) they are reordered here.
+their layout where both sides use the same one (the four-step
+permutations of ``ops.tables.unordered_perm`` for real N on the JAX fused
+real kernel and on K1-K3, and of ``ops.tables.cfft_unordered_perm`` for
+complex N on the JAX complex kernel and on K4); where one side runs in
+natural order (a Stockham engine, the small-N direct DFT, or a size one
+kernel serves and the other does not) they are reordered here. A complex
+spectrum from the JAX two-level composite is refused.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from . import api
-from .ops.tables import LANES, inverse_perm, unordered_perm
-from .plans import FFT_REAL, FFTPlan, InvalidSizeError, StagePlan, factorize, make_plan
+from .models.sdr import SDRChain, SDRChainConfig
+from .ops import hopper_cfft, hopper_fft
+from .ops.tables import (
+    LANES,
+    cfft_inverse_perm,
+    cfft_unordered_perm,
+    inverse_perm,
+    is_smooth_multiple,
+    unordered_perm,
+)
+from .plans import FFT_COMPLEX, FFT_REAL, FFTPlan, StagePlan, make_plan
 from .stream.ols import PartitionedFIR
 
 __all__ = [
     "plan_from_numpy",
     "partitioned_fir_from_numpy",
     "fir_state_from_numpy",
+    "cfft_unordered_from_numpy",
+    "sdr_chain_from_numpy",
     "jax_unordered_is_permuted",
+    "jax_cfft_is_composite",
 ]
 
-# Largest real N the JAX package's fused real kernel serves; above it, and
-# at N <= 256, its packed "unordered" layout is the natural order.
-_JAX_MAX_FUSED_REAL = 1 << 17
+# Largest N the JAX package's single Stockham kernels serve (real and
+# complex); above it, and at N <= 256, their "unordered" layouts are the
+# natural order, except the complex composite's (see below).
+_JAX_MAX_N = 1 << 17
+# Largest N of the JAX package's small-N direct DFT.
+_JAX_MAX_SMALL_N = 511
 
 
 def jax_unordered_is_permuted(n: int, engine: str = "auto") -> bool:
-    """Whether the JAX package's unordered packed layout for a real N under
-    ``engine`` is the four-step permutation (else it is natural order)."""
-    if engine == "stockham" or n % LANES or not 2 * LANES < n <= _JAX_MAX_FUSED_REAL:
+    """Whether the JAX package's unordered layout for N under ``engine`` is
+    its kernels' four-step permutation (else it is natural order). Holds
+    for real N (the packed layout: the JAX real composite is always
+    ordered) and for complex N outside :func:`jax_cfft_is_composite`."""
+    return engine != "stockham" and 2 * LANES < n <= _JAX_MAX_N and is_smooth_multiple(n)
+
+
+def jax_cfft_is_composite(n: int, engine: str = "auto") -> bool:
+    """Whether the JAX package runs complex N under ``engine`` as its
+    two-level composite: above its single kernel, or a medium smooth size
+    that is not a multiple of 128 (576, 960, ...) on an explicit
+    ``engine="pallas"`` (``auto`` sends those to its Stockham engine). The
+    composite's unordered layout depends on its factor split and batch
+    cap: natural order (v2) or digit-transposed sub-transform layouts (v1)."""
+    if engine == "stockham" or n <= _JAX_MAX_SMALL_N:
         return False
-    try:
-        factorize(n // LANES)
-    except InvalidSizeError:
+    if n <= _JAX_MAX_N and is_smooth_multiple(n):
         return False
-    return True
+    return engine != "auto" or n % LANES == 0
+
+
+def _port_engine(n: int, kind: str, engine: str) -> str:
+    return api.engine_for(n, kind) if engine == "auto" else engine
 
 
 def _port_unordered_is_permuted(n: int, engine: str) -> bool:
-    name = api.engine_for(n, FFT_REAL) if engine == "auto" else engine
-    return name == "hopper"
+    """The port's real unordered layout is permuted only where K1-K3 serve
+    N; at the K5 sizes the Hopper engine's layout is the natural order."""
+    return _port_engine(n, FFT_REAL, engine) == "hopper" and hopper_fft._in_domain(n)
 
 
-def _relayout(a: np.ndarray, n: int, src_permuted: bool, dst_permuted: bool) -> np.ndarray:
+def _port_cfft_unordered_is_permuted(n: int, engine: str) -> bool:
+    """The port's complex unordered layout is permuted only where K4 serves N."""
+    return _port_engine(n, FFT_COMPLEX, engine) == "hopper" and hopper_cfft.in_domain(n)
+
+
+def _relayout(a: np.ndarray, n: int, src_permuted: bool, dst_permuted: bool,
+              perm=unordered_perm, inv=inverse_perm) -> np.ndarray:
+    """Unordered (``perm(n)``) <-> natural order (``inv(n)`` undoes it)."""
     if src_permuted == dst_permuted:
         return a
-    return a[..., inverse_perm(n)] if src_permuted else a[..., unordered_perm(n)]
+    return a[..., inv(n)] if src_permuted else a[..., perm(n)]
 
 
 def plan_from_numpy(
@@ -131,3 +173,52 @@ def fir_state_from_numpy(state: dict, fir: PartitionedFIR, src_engine: str = "au
             a = _relayout(a, fir.n, src, dst)
         out[key] = torch.tensor(a, device=dev)
     return out
+
+
+def cfft_unordered_from_numpy(
+    spec: np.ndarray,
+    src_engine: str = "auto",
+    engine: str = "auto",
+    device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """A JAX ``fft_unordered`` spectrum ((..., N) complex, taken under JAX
+    engine ``src_engine``) as the port's ``fft_unordered`` layout under
+    ``engine``, complex64 on ``device``. The JAX complex kernel permutes
+    256 < N <= 2^17, the port's K4 only up to MAX_CN; between the two one
+    side is natural and the other permuted. Raises ValueError where JAX
+    ran N as its composite (:func:`jax_cfft_is_composite`), whose
+    unordered layout is not carried over: take JAX's ordered ``fft``
+    spectrum there instead."""
+    spec = np.asarray(spec, np.complex64)
+    n = spec.shape[-1]
+    if jax_cfft_is_composite(n, src_engine):
+        raise ValueError(
+            f"complex N={n} under JAX engine {src_engine!r} runs the two-level composite, whose "
+            "unordered layout is not carried over; convert the ordered spectrum (fft) instead"
+        )
+    src = jax_unordered_is_permuted(n, src_engine)
+    dst = _port_cfft_unordered_is_permuted(n, engine)
+    spec = _relayout(spec, n, src, dst, cfft_unordered_perm, cfft_inverse_perm)
+    return torch.tensor(np.ascontiguousarray(spec), device=device)
+
+
+def sdr_chain_from_numpy(
+    config,
+    front_lp: np.ndarray,
+    audio_lp: np.ndarray,
+    hpoly: np.ndarray,
+    device: torch.device | str = "cpu",
+) -> SDRChain:
+    """A port ``SDRChain`` holding the JAX chain's filters (``chain.front_lp``,
+    ``chain.audio_lp``, ``chain.channelizer.hpoly`` as numpy). ``config``
+    is the port's ``SDRChainConfig`` or the JAX one (same fields)."""
+    if not isinstance(config, SDRChainConfig):
+        config = SDRChainConfig(**{f.name: getattr(config, f.name) for f in dataclasses.fields(SDRChainConfig)})
+    chain = SDRChain(config, device=device)
+    for buf, value in ((chain.front_lp, front_lp), (chain.audio_lp, audio_lp),
+                       (chain.channelizer.hpoly, hpoly)):
+        value = np.asarray(value, np.float32)
+        if value.shape != tuple(buf.shape):
+            raise ValueError(f"filter shape {value.shape} != the config's {tuple(buf.shape)}")
+        buf.copy_(torch.tensor(value))
+    return chain

@@ -22,7 +22,8 @@
 //
 // Design: one thread block per row. The row is staged in shared memory as
 // N/2 complex points (x[2m] + i x[2m+1]); the half-length complex FFT runs
-// there as the plan's mixed-radix {4,2,3,5} Stockham stages, ping-ponging
+// there as the plan's mixed-radix {4,2,3,5} Stockham stages (stockham.cuh,
+// shared with the complex kernel), ping-ponging
 // between two padded shared buffers (8.25N bytes per block, so N <= 16384
 // fits in 132 KB), then the half-complex split/merge gives the real
 // spectrum. Each
@@ -33,144 +34,16 @@
 // on the host), read through the read-only cache; no sinf/cosf in kernel.
 // Rows are independent, so a ragged batch needs no padding or masking.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stockham.cuh"
+
+#ifndef CHOWDSP_MAX_N
+#error "build with -DCHOWDSP_MAX_N=<largest real N> (ops/_cuda.py passes it)"
+#endif
 
 namespace {
 
-constexpr int kMaxStages = 32;
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxN = 16384;  // 8.25N bytes of shared memory per block
-
-struct Radices {
-  int count;
-  int r[kMaxStages];
-};
-
-// Shared-memory slot of complex element i: one float2 of padding after
-// every 32. The unordered layout gathers (K1) and scatters (K2, K3) with
-// stride N1 across a warp, and radix-R stages write with stride R; the
-// padding spreads both over the banks instead of piling them on one.
-__device__ __forceinline__ int slot(int i) { return i + (i >> 5); }
-__host__ __device__ constexpr int padded(int m) { return m + (m >> 5); }
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-__device__ __forceinline__ float2 cscale(float2 a, float s) { return make_float2(a.x * s, a.y * s); }
-__device__ __forceinline__ float2 cconj(float2 a) { return make_float2(a.x, -a.y); }
-// (x + iy) * i * SIGN
-template <int SIGN>
-__device__ __forceinline__ float2 mul_i(float2 a) { return make_float2(-SIGN * a.y, SIGN * a.x); }
-
-// cos/sin(2*pi*k/R) for the dense radix-3/5 butterflies, float64-rounded.
-template <int R> struct Roots;
-template <> struct Roots<3> {
-  static __device__ __forceinline__ float c(int k) {
-    const float v[3] = {1.0f, -0.5f, -0.5f};
-    return v[k];
-  }
-  static __device__ __forceinline__ float s(int k) {
-    const float v[3] = {0.0f, 0.86602540378443865f, -0.86602540378443865f};
-    return v[k];
-  }
-};
-template <> struct Roots<5> {
-  static __device__ __forceinline__ float c(int k) {
-    const float v[5] = {1.0f, 0.30901699437494742f, -0.80901699437494742f,
-                        -0.80901699437494742f, 0.30901699437494742f};
-    return v[k];
-  }
-  static __device__ __forceinline__ float s(int k) {
-    const float v[5] = {0.0f, 0.95105651629515357f, 0.58778525229247313f,
-                        -0.58778525229247313f, -0.95105651629515357f};
-    return v[k];
-  }
-};
-
-// Radix-R DFT of v[0..R) in place; SIGN = -1 forward, +1 backward.
-template <int R, int SIGN>
-__device__ __forceinline__ void butterfly(float2* v) {
-  if constexpr (R == 2) {
-    const float2 a = v[0], b = v[1];
-    v[0] = cadd(a, b);
-    v[1] = csub(a, b);
-  } else if constexpr (R == 4) {
-    const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
-    const float2 t2 = cadd(v[1], v[3]), t3 = mul_i<SIGN>(csub(v[1], v[3]));
-    v[0] = cadd(t0, t2);
-    v[1] = cadd(t1, t3);
-    v[2] = csub(t0, t2);
-    v[3] = csub(t1, t3);
-  } else {
-    float2 out[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      float2 acc = v[0];
-#pragma unroll
-      for (int k = 1; k < R; ++k) {
-        const int e = (j * k) % R;
-        const float2 w = make_float2(Roots<R>::c(e), SIGN * Roots<R>::s(e));
-        acc = cadd(acc, cmul(v[k], w));
-      }
-      out[j] = acc;
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) v[j] = out[j];
-  }
-}
-
-// One Stockham stage over a length-M complex row in shared memory.
-// Input viewed as (R, m, s), output as (m, R, s): butterfly t = p*s + q
-// reads src[k*(M/R) + t], twiddles output j by W_n^(j*p) (the stage's
-// (R, m) table, conjugated for SIGN = +1), writes dst[p*R*s + j*s + q].
-template <int R, int SIGN>
-__device__ void stage(const float2* __restrict__ src, float2* __restrict__ dst,
-                      int M, int s, const float2* __restrict__ tw) {
-  const int nb = M / R;
-  const int m = nb / s;
-  for (int t = threadIdx.x; t < nb; t += blockDim.x) {
-    const int p = t / s;
-    const int q = t - p * s;
-    float2 v[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = src[slot(k * nb + t)];
-    butterfly<R, SIGN>(v);
-    const int out = p * R * s + q;
-    dst[slot(out)] = v[0];
-#pragma unroll
-    for (int j = 1; j < R; ++j) {
-      float2 w = __ldg(tw + j * m + p);
-      if (SIGN > 0) w = cconj(w);
-      dst[slot(out + j * s)] = cmul(v[j], w);
-    }
-  }
-}
-
-// Run all stages; returns the buffer that holds the natural-order result.
-template <int SIGN>
-__device__ float2* run_stages(float2* a, float2* b, int M, const Radices& rad,
-                              const float2* __restrict__ tw) {
-  int s = 1;
-  for (int i = 0; i < rad.count; ++i) {
-    const int r = rad.r[i];
-    switch (r) {
-      case 2: stage<2, SIGN>(a, b, M, s, tw); break;
-      case 3: stage<3, SIGN>(a, b, M, s, tw); break;
-      case 4: stage<4, SIGN>(a, b, M, s, tw); break;
-      default: stage<5, SIGN>(a, b, M, s, tw); break;
-    }
-    __syncthreads();
-    tw += M / s;  // this stage's table holds r * m = M / s entries
-    s *= r;
-    float2* t = a;
-    a = b;
-    b = t;
-  }
-  return a;
-}
+constexpr int kMaxN = CHOWDSP_MAX_N;  // 8.25N bytes of shared memory per block
+static_assert(two_buffers_bytes(kMaxN / 2) <= kMaxSmemBytes, "MAX_N exceeds shared memory");
 
 // K1: x (rows, N) -> packed planes (rows, N/2).
 __global__ void __launch_bounds__(kMaxThreads)
@@ -282,32 +155,7 @@ irfft_packed_kernel(const float* __restrict__ are, const float* __restrict__ aim
   }
 }
 
-// Two padded N/2-point complex buffers.
-constexpr int smem_bytes(int n) { return 2 * padded(n / 2) * static_cast<int>(sizeof(float2)); }
-
-int threads_for(int M) {
-  int t = ((M / 4 + 31) / 32) * 32;
-  if (t < 64) t = 64;
-  if (t > kMaxThreads) t = kMaxThreads;
-  return t;
-}
-
-int make_radices(const int* radices, int count, Radices* out) {
-  if (count < 0 || count > kMaxStages) return static_cast<int>(cudaErrorInvalidValue);
-  out->count = count;
-  for (int i = 0; i < count; ++i) {
-    const int r = radices[i];
-    if (r != 2 && r != 3 && r != 4 && r != 5) return static_cast<int>(cudaErrorInvalidValue);
-    out->r[i] = r;
-  }
-  return 0;
-}
-
-template <typename K>
-int set_smem(K kernel) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(kMaxN)));
-}
+constexpr int smem_bytes(int n) { return two_buffers_bytes(n / 2); }
 
 }  // namespace
 
@@ -324,7 +172,7 @@ int k1_rfft_packed(const float* x, float* yre, float* yim, int rows, int n,
   int err = make_radices(radices, nstages, &rad);
   if (err) return err;
   if (rows == 0) return 0;
-  err = set_smem(rfft_packed_kernel);
+  err = set_smem(rfft_packed_kernel, smem_bytes(kMaxN));
   if (err) return err;
   const int M = n / 2;
   rfft_packed_kernel<<<rows, threads_for(M), smem_bytes(n),
@@ -343,7 +191,7 @@ int k2_irfft_packed(const float* yre, const float* yim, float* x, int rows, int 
   int err = make_radices(radices, nstages, &rad);
   if (err) return err;
   if (rows == 0) return 0;
-  err = set_smem(irfft_packed_kernel<false>);
+  err = set_smem(irfft_packed_kernel<false>, smem_bytes(kMaxN));
   if (err) return err;
   const int M = n / 2;
   irfft_packed_kernel<false><<<rows, threads_for(M), smem_bytes(n),
@@ -365,7 +213,7 @@ int k3_convolve_irfft_packed(const float* are, const float* aim, const float* br
   int err = make_radices(radices, nstages, &rad);
   if (err) return err;
   if (rows == 0) return 0;
-  err = set_smem(irfft_packed_kernel<true>);
+  err = set_smem(irfft_packed_kernel<true>, smem_bytes(kMaxN));
   if (err) return err;
   const int M = n / 2;
   irfft_packed_kernel<true><<<rows, threads_for(M), smem_bytes(n),

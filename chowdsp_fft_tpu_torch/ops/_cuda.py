@@ -1,16 +1,21 @@
-"""Build and load the Hopper kernels (``csrc/*.cu``) on first use.
+"""Build, load and launch the Hopper kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the sources into a shared library with a plain C
-interface under ``build/hopper/`` beside the package (a directory
-``.gitignore`` lists); the library is loaded with ``ctypes``. The file
-name carries a hash of the sources, so an edited source is rebuilt and a
-stale library is never loaded. Nothing here degrades: without ``nvcc`` or
+``nvcc`` compiles each source into an object, all sources at once in
+parallel, and links them into one shared library with a plain C interface
+under ``build/hopper/`` beside the package (a directory ``.gitignore``
+lists); the library is loaded with ``ctypes``. The file name carries a
+hash of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded. Nothing here degrades: without ``nvcc`` or
 without a CUDA device, :func:`library` raises.
+
+The kernels' size limits are defined here once and passed to ``nvcc`` as
+macros; each source static-asserts that its limit fits shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -21,11 +26,21 @@ import tempfile
 
 import torch
 
+# Largest real N of K1-K3: two padded N/2-point buffers, 8.25N bytes.
+MAX_N = 16384
+# Largest complex N of K4: two padded N-point buffers, 16.5N bytes, within
+# the 227 KB a block may use (n1 = 108; 16384 would need 270 KB).
+MAX_CN = 13824
+# Largest N of K5, the small-N direct DFT: the JAX package's small-N
+# domain ends below 512.
+MAX_SMALL_N = 511
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "hopper"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    f"-DCHOWDSP_MAX_N={MAX_N}", f"-DCHOWDSP_MAX_CN={MAX_CN}", f"-DCHOWDSP_MAX_SMALL_N={MAX_SMALL_N}",
 )
 
 _P = ctypes.c_void_p
@@ -34,11 +49,17 @@ _I = ctypes.c_int
 # c_void_p, so ctypes never truncates them to 32 bits).
 _SIGNATURES = {
     "hopper_real_fft_max_n": [],
+    "hopper_complex_fft_max_n": [],
+    "hopper_small_dft_max_n": [],
     "k1_rfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
     "k2_irfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
     "k3_convolve_irfft_packed": [
         _P, _P, _P, _P, _I, ctypes.c_float, _P, _I, _I, _P, _I, _P, _P, _P, _P,
     ],
+    "k4_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    "k5_small_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "k5_small_rfft": [_P, _P, _P, _I, _I, _P, _P],
+    "k5_small_irfft": [_P, _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -68,26 +89,36 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with every failure's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)} -> {proc.returncode}\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
 def build() -> pathlib.Path:
     """Compile the kernels for sm_90a if they are not built yet; returns
-    the library's path. Concurrent builders each write a private file and
-    rename it into place."""
+    the library's path. One nvcc per source, all started together, then
+    one link. Concurrent builders each work in a private directory and
+    rename the library into place."""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"libhopper_fft_{_source_hash()}.so"
     if lib.exists():
         return lib
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(_sources(), objs)])
+        out = pathlib.Path(tmp) / lib.name
+        _run_all([[nvcc, "-shared", "-o", str(out), *map(str, objs)]])
+        os.replace(out, lib)
     return lib
 
 
@@ -104,3 +135,71 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# What every kernel wrapper shares
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Kernel:
+    """A kernel's identity and its launch count (incremented once per
+    launch of the CUDA kernel, never by the plain version)."""
+
+    name: str
+    source: str
+    replaces: str
+    launches: int = 0
+
+
+def check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device,
+          dtype: torch.dtype = torch.float32):
+    """Refuse what a kernel does not take: another dtype, device or shape,
+    a non-contiguous or misaligned tensor, or one that requires grad."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 8:
+        raise ValueError(f"{name}: expected 8-byte aligned data")
+    if t.requires_grad:
+        raise RuntimeError(
+            f"{name}: the Hopper kernels have no autograd yet; detach the input "
+            "explicitly or run on the CPU"
+        )
+
+
+@functools.lru_cache(maxsize=128)
+def device_perm(perm_fn, n: int, device: str) -> torch.Tensor:
+    """The int32 permutation ``perm_fn(n)`` (one of ``tables``' layouts or
+    their inverses) as a tensor on ``device``."""
+    return torch.from_numpy(perm_fn(n).copy()).to(device)
+
+
+def require_cuda(name: str, t: torch.Tensor):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the Hopper kernels run on CUDA tensors, got {t.device}")
+
+
+def require_domain(kernel: Kernel, ok: bool, n: int, kind: str):
+    """Each kernel family checks its own size domain before it runs, on
+    any device."""
+    if not ok:
+        raise ValueError(f"{kernel.name}: {kind} N={n} is outside the kernel domain")
+
+
+def launch(kernel: Kernel, entry: str, device: torch.device, *args):
+    """Call C entry ``entry`` with ``args`` and the current stream of
+    ``device``; raise on a refused launch, else count it."""
+    fn = getattr(library(), entry)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel.name}: CUDA launch failed with cudaError {err}")
+    kernel.launches += 1

@@ -1,0 +1,114 @@
+"""K4: the complex FFT on a hand-written CUDA kernel (``csrc/complex_fft.cu``),
+counterpart of ``_pallas_cfft_pair`` in ``chowdsp_fft_tpu/ops/pallas_fft.py``.
+
+``cfft_kernel`` transforms (rows, N) complex rows, given either as one
+complex64 tensor (read as interleaved float2, no copy) or as a (re, im)
+pair of float32 planes, and returns the same form. Forward or backward,
+unscaled, ordered bins or the JAX package's unordered layout
+(``tables.cfft_unordered_perm``: position k1*128 + k2 holds bin
+k1 + N1*k2). Its plain version, ``cfft_plain``, is the Stockham engine's
+complex transform followed (forward) or preceded (backward) by the same
+permutation. The wrapper runs the plain version for CPU tensors; for
+CUDA tensors it launches the kernel or raises.
+
+Domain: N = n1 * 128, n1 {2,3,5}-smooth, 256 < N <= MAX_CN = 13824 (two
+padded N-point buffers, 16.5N bytes, in one block's 227 KB).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..plans import FFT_BACKWARD, FFT_COMPLEX, FFT_FORWARD, FFTPlan
+from . import stockham
+from ._cuda import MAX_CN, Kernel, check, device_perm, launch, require_cuda, require_domain
+from .tables import LANES, cfft_inverse_perm, cfft_unordered_perm, is_smooth_multiple
+
+__all__ = ["K4", "MAX_CN", "in_domain", "cfft_kernel", "cfft_plain"]
+
+K4 = Kernel(
+    "cfft_kernel",
+    "chowdsp_fft_tpu_torch/csrc/complex_fft.cu",
+    "chowdsp_fft_tpu/ops/pallas_fft.py:620 (_fft_kernel, called by _pallas_cfft_pair :648)",
+)
+
+
+def in_domain(n: int) -> bool:
+    """N = n1*128, n1 {2,3,5}-smooth, 256 < N <= MAX_CN."""
+    return 2 * LANES < n <= MAX_CN and is_smooth_multiple(n)
+
+
+# ---------------------------------------------------------------------------
+# Complex rows in either form: one complex64 tensor or a (re, im) pair
+# ---------------------------------------------------------------------------
+
+
+def is_cpu(x) -> bool:
+    return all(t.device.type == "cpu" for t in ((x,) if isinstance(x, torch.Tensor) else x))
+
+
+def as_complex(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.complex(x[0], x[1])
+
+
+def like(x, z: torch.Tensor):
+    """``z`` (complex) in the form of ``x``."""
+    return z if isinstance(x, torch.Tensor) else (z.real.contiguous(), z.imag.contiguous())
+
+
+def complex_io(name: str, x, n: int):
+    """Check the input and allocate the output for a kernel on (rows, N)
+    complex rows. Returns (rows, device, element stride, input (re, im)
+    pointers, output in ``x``'s form, output (re, im) pointers). A
+    complex64 tensor is read as interleaved float2: stride 2, the imaginary
+    part one float after the real part."""
+    if isinstance(x, torch.Tensor):
+        require_cuda(name, x)
+        rows = x.shape[0]
+        check(name, x, (rows, n), x.device, torch.complex64)
+        y = torch.empty_like(x)
+        xp, yp = x.data_ptr(), y.data_ptr()
+        return rows, x.device, 2, (xp, xp + 4), y, (yp, yp + 4)
+    re, im = x
+    require_cuda(name, re)
+    rows = re.shape[0]
+    check(f"{name} re", re, (rows, n), re.device)
+    check(f"{name} im", im, (rows, n), re.device)
+    yre, yim = torch.empty_like(re), torch.empty_like(im)
+    return rows, re.device, 1, (re.data_ptr(), im.data_ptr()), (yre, yim), (yre.data_ptr(), yim.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# K4 and its plain version
+# ---------------------------------------------------------------------------
+
+
+def cfft_plain(x, plan: FFTPlan, forward: bool = True, ordered: bool = True):
+    """Plain version of K4: the Stockham complex transform, with the
+    unordered permutation gathered after (forward) or undone before
+    (backward)."""
+    z = as_complex(x)
+    if not forward and not ordered:
+        z = z[..., device_perm(cfft_inverse_perm, plan.n, str(z.device))]
+    y = stockham.cfft(z, plan, FFT_FORWARD if forward else FFT_BACKWARD)
+    if forward and not ordered:
+        y = y[..., device_perm(cfft_unordered_perm, plan.n, str(y.device))]
+    return like(x, y)
+
+
+def cfft_kernel(x, plan: FFTPlan, forward: bool = True, ordered: bool = True):
+    """K4 on (rows, N) complex64, or on a (re, im) pair of (rows, N)
+    float32 planes; returns the same form."""
+    require_domain(K4, plan.kind == FFT_COMPLEX and in_domain(plan.n), plan.n, plan.kind)
+    if is_cpu(x):
+        return cfft_plain(x, plan, forward, ordered)
+    rows, dev, stride, src, out, dst = complex_io(K4.name, x, plan.n)
+    if rows:
+        tabs = plan.device_tables(dev)
+        radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
+        perm = None if ordered else device_perm(cfft_unordered_perm, plan.n, str(dev)).data_ptr()
+        launch(K4, "k4_cfft", dev, *src, *dst, stride, rows, plan.n, -1 if forward else 1,
+               ctypes.addressof(radices), len(plan.radices), tabs.stage_flat.data_ptr(), perm)
+    return out

@@ -1,49 +1,57 @@
-"""Hopper engine: the packed real FFT and fast-convolution path on
-hand-written CUDA kernels (counterpart of the real-transform part of
-``chowdsp_fft_tpu/ops/pallas_fft.py``).
+"""Hopper engine: the transforms on hand-written CUDA kernels (counterpart
+of ``chowdsp_fft_tpu/ops/pallas_fft.py``'s engine registration and
+dispatch).
 
-Three kernels (``csrc/real_fft.cu``) carry the path:
+Three kernel families, each checking its own size domain:
 
-- K1 ``rfft_packed_kernel``: (rows, N) f32 -> packed planes (rows, N/2) x2;
-- K2 ``irfft_packed_kernel``: packed planes -> (rows, N) f32, unscaled;
-- K3 ``convolve_irfft_packed_kernel``: irfft(scale * A (.) B) in one pass.
+- K1-K3 (``csrc/real_fft.cu``, this module): the packed real FFT, its
+  inverse and the fused spectral product + inverse, for real
+  N = n1 * 128 with n1 {2,3,5}-smooth and 256 < N <= MAX_N;
+- K4 (``csrc/complex_fft.cu``, ``hopper_cfft``): the complex FFT for
+  N = n1 * 128, 256 < N <= MAX_CN;
+- K5 (``csrc/small_dft.cu``, ``hopper_small``): the direct DFT, complex
+  and real, for 8 <= N <= 256 and the smooth non-multiples of 128 below
+  512.
 
-Each has a plain PyTorch twin here, built from the same plan tables and
-the same unordered permutation (``tables.unordered_perm``). A wrapper runs
-the twin for a tensor on the CPU; for a CUDA tensor it launches the kernel
-or raises. Layouts are the JAX package's: packed planes with DC in re[0]
-and Nyquist in im[0], ordered bins or the unordered layout (position
-k1*64 + k2 holds bin k1 + N1*k2).
+Each kernel has a plain PyTorch version built from the same tables and
+the same layout. A wrapper runs the plain version for a tensor on the
+CPU; for a CUDA tensor it launches the kernel or raises. Layouts are the
+JAX package's: packed planes with DC in re[0] and Nyquist in im[0]; the
+real unordered layout (position k1*64 + k2 holds bin k1 + N1*k2) on K1-K3,
+the complex one (k1*128 + k2) on K4, natural order on K5.
 
-Domain: N = n1 * 128 with n1 {2,3,5}-smooth and 256 < N <= MAX_N. One
-thread block holds a row's two shared-memory buffers (8.25N bytes, 132 KB
-at MAX_N = 16384; a block may use 227 KB). ``auto`` sends every other
-size to the Stockham engine.
+Shared memory bounds the Stockham kernels: one thread block holds a row's
+two padded buffers, 8.25N bytes for a real row (132 KB at MAX_N = 16384)
+and 16.5N bytes for a complex one (223 KB at MAX_CN = 13824), of the
+227 KB a block may use. ``auto`` sends every other size to the Stockham
+engine.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
 
 from .. import api as _api
-from ..plans import FFT_REAL, FFTPlan, InvalidSizeError, cached_plan, factorize
-from . import stockham
+from ..plans import FFT_COMPLEX, FFT_FORWARD, FFT_REAL, FFTPlan, cached_plan
+from . import hopper_cfft, hopper_small, stockham
+from ._cuda import MAX_CN, MAX_N, Kernel, check as _check, device_perm, launch, require_cuda, require_domain
 from .convolve import convolve_accumulate_packed
 from .layout import packed_planes_to_spectrum, spectrum_to_packed_planes
-from .tables import LANES, inverse_perm, unordered_perm
+from .tables import LANES, inverse_perm, is_smooth_multiple, unordered_perm
 
 __all__ = [
     "MAX_N",
+    "MAX_CN",
     "KERNELS",
     "supports_plan",
-    "prefer_plan",
     "rfft_packed",
     "irfft_packed",
     "convolve_irfft_packed",
+    "cfft",
+    "cfft_planes",
     "rfft_packed_kernel",
     "irfft_packed_kernel",
     "convolve_irfft_packed_kernel",
@@ -52,19 +60,7 @@ __all__ = [
     "convolve_irfft_packed_plain",
 ]
 
-MIN_N = 2 * LANES  # exclusive: N <= 256 goes to the Stockham engine
-MAX_N = 16384  # must equal kMaxN in csrc/real_fft.cu
-
-
-@dataclasses.dataclass
-class Kernel:
-    """A kernel's identity and its launch count (incremented once per
-    launch of the CUDA kernel, never by the plain twin)."""
-
-    name: str
-    source: str
-    replaces: str
-    launches: int = 0
+MIN_N = 2 * LANES  # exclusive: real N <= 256 goes to K5
 
 
 K1 = Kernel(
@@ -82,7 +78,8 @@ K3 = Kernel(
     "chowdsp_fft_tpu_torch/csrc/real_fft.cu",
     "chowdsp_fft_tpu/ops/pallas_fft.py:1989 (_irfft_conv_kernel)",
 )
-KERNELS = (K1, K2, K3)
+K4 = hopper_cfft.K4
+KERNELS = (K1, K2, K3, K4, hopper_small.K5_COMPLEX, hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE)
 
 
 def reset_launch_counts() -> None:
@@ -96,59 +93,47 @@ def reset_launch_counts() -> None:
 
 
 def _in_domain(n: int) -> bool:
-    if n % LANES or not MIN_N < n <= MAX_N:
-        return False
-    try:
-        factorize(n // LANES)
-    except InvalidSizeError:
-        return False
-    return True
+    """The K1-K3 domain: real N = n1*128, n1 {2,3,5}-smooth, 256 < N <= MAX_N."""
+    return MIN_N < n <= MAX_N and is_smooth_multiple(n)
 
 
 def supports_plan(plan: FFTPlan) -> bool:
-    """Real plans with N = n1*128, n1 {2,3,5}-smooth, 256 < N <= MAX_N.
-    The complex surface is not on this engine yet."""
-    return plan.kind == FFT_REAL and _in_domain(plan.n)
-
-
-def prefer_plan(plan: FFTPlan) -> bool:
-    """What ``engine="auto"`` hands this engine: everything it supports
-    (no supported size has been measured slower than the Stockham
-    engine)."""
-    return supports_plan(plan)
+    """K5 sizes (8 <= N <= 256, smooth non-multiples of 128 below 512),
+    then real plans on K1-K3 and complex plans on K4. ``engine="auto"``
+    hands this engine everything it supports: each such size is served by
+    one kernel; larger sizes need a two-pass kernel and stay on the
+    Stockham engine."""
+    if hopper_small.in_domain(plan.n):
+        return True
+    if plan.kind == FFT_REAL:
+        return _in_domain(plan.n)
+    return hopper_cfft.in_domain(plan.n)
 
 
 # ---------------------------------------------------------------------------
-# Plain twins: the kernels' math in plain PyTorch, same tables, same layout
+# K1-K3 plain versions: the kernels' math in plain PyTorch, same tables, same layout
 # ---------------------------------------------------------------------------
-
-
-@functools.lru_cache(maxsize=64)
-def _device_perm(n: int, device: str, inverse: bool = False) -> torch.Tensor:
-    """``tables.unordered_perm(n)`` (or its inverse) as an int32 tensor."""
-    perm = inverse_perm(n) if inverse else unordered_perm(n)
-    return torch.from_numpy(perm.copy()).to(device)
 
 
 def rfft_packed_plain(x: torch.Tensor, plan: FFTPlan, ordered: bool = True):
-    """Twin of K1: (rows, N) f32 -> packed planes, ordered or unordered."""
+    """Plain version of K1: (rows, N) f32 -> packed planes, ordered or unordered."""
     re, im = spectrum_to_packed_planes(stockham.rfft(x, plan))
     if not ordered:
-        perm = _device_perm(plan.n, str(x.device))
+        perm = device_perm(unordered_perm, plan.n, str(x.device))
         re, im = re[..., perm], im[..., perm]
     return re, im
 
 
 def irfft_packed_plain(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool = True):
-    """Twin of K2: packed planes -> (rows, N) f32, unscaled."""
+    """Plain version of K2: packed planes -> (rows, N) f32, unscaled."""
     if not ordered:
-        inv = _device_perm(plan.n, str(yre.device), inverse=True)
+        inv = device_perm(inverse_perm, plan.n, str(yre.device))
         yre, yim = yre[..., inv], yim[..., inv]
     return stockham.irfft(packed_planes_to_spectrum(yre, yim), plan)
 
 
 def convolve_irfft_packed_plain(are, aim, bre, bim, scale: float, plan: FFTPlan, ordered: bool = True):
-    """Twin of K3: irfft(scale * A (.) B) with the bin-0 patch-up."""
+    """Plain version of K3: irfft(scale * A (.) B) with the bin-0 patch-up."""
     pr, pi = convolve_accumulate_packed((are, aim), (bre, bim), scaling=scale)
     return irfft_packed_plain(pr, pi, plan, ordered)
 
@@ -158,93 +143,60 @@ def convolve_irfft_packed_plain(are, aim, bre, bim, scale: float, plan: FFTPlan,
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.data_ptr() % 8:
-        raise ValueError(f"{name}: expected 8-byte aligned data")
-    if t.requires_grad:
-        raise RuntimeError(
-            f"{name}: the Hopper kernels have no autograd yet; detach the input "
-            "explicitly or run on the CPU"
-        )
-
-
-def _launch(kernel: Kernel, entry: str, plan: FFTPlan, device: torch.device, ordered: bool, *args):
-    """Launch ``entry`` on the current stream of ``device`` with ``args``
-    followed by the plan's tables: radices (host int array), stage and
-    split twiddles (complex64 on the device, i.e. float2), and the
-    unordered permutation (int32 on the device, NULL for ordered bins)."""
-    from ._cuda import library
-
-    if not supports_plan(plan):
-        raise ValueError(f"{kernel.name}: N={plan.n} is outside the kernel domain")
+def _launch_real(kernel: Kernel, entry: str, plan: FFTPlan, device: torch.device, ordered: bool, *args):
+    """Launch a K1-K3 entry with ``args`` followed by the plan's tables:
+    radices (host int array), stage and split twiddles (complex64 on the
+    device, i.e. float2), and the unordered permutation (int32 on the
+    device, NULL for ordered bins)."""
     tabs = plan.device_tables(device)
-    radices = (ctypes.c_int * max(1, len(plan.radices)))(*plan.radices)
-    perm = None if ordered else _device_perm(plan.n, str(device))
-    fn = getattr(library(), entry)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            *args,
-            ctypes.addressof(radices),
-            len(plan.radices),
-            tabs.stage_flat.data_ptr(),
-            tabs.split_tw.data_ptr(),
-            None if perm is None else perm.data_ptr(),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{kernel.name}: CUDA launch failed with cudaError {err}")
-    kernel.launches += 1
+    radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
+    perm = None if ordered else device_perm(unordered_perm, plan.n, str(device)).data_ptr()
+    launch(kernel, entry, device, *args, ctypes.addressof(radices), len(plan.radices),
+           tabs.stage_flat.data_ptr(), tabs.split_tw.data_ptr(), perm)
 
 
-def _require_cuda(name: str, t: torch.Tensor):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: the Hopper kernels run on CUDA tensors, got {t.device}")
+def _require_real_domain(kernel: Kernel, plan: FFTPlan):
+    require_domain(kernel, plan.kind == FFT_REAL and _in_domain(plan.n), plan.n, plan.kind)
 
 
 def rfft_packed_kernel(x: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     """K1 on (rows, N) f32 -> ((rows, N/2), (rows, N/2)) f32."""
+    _require_real_domain(K1, plan)
     if x.device.type == "cpu":
         return rfft_packed_plain(x, plan, ordered)
-    _require_cuda(K1.name, x)
+    require_cuda(K1.name, x)
     rows = x.shape[0]
     _check("x", x, (rows, plan.n), x.device)
     yre = torch.empty((rows, plan.n // 2), dtype=torch.float32, device=x.device)
     yim = torch.empty_like(yre)
     if rows:
-        _launch(K1, "k1_rfft_packed", plan, x.device, ordered,
-                x.data_ptr(), yre.data_ptr(), yim.data_ptr(), rows, plan.n)
+        _launch_real(K1, "k1_rfft_packed", plan, x.device, ordered,
+                     x.data_ptr(), yre.data_ptr(), yim.data_ptr(), rows, plan.n)
     return yre, yim
 
 
 def irfft_packed_kernel(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     """K2 on packed planes (rows, N/2) x2 -> (rows, N) f32."""
+    _require_real_domain(K2, plan)
     if yre.device.type == "cpu" and yim.device.type == "cpu":
         return irfft_packed_plain(yre, yim, plan, ordered)
-    _require_cuda(K2.name, yre)
+    require_cuda(K2.name, yre)
     rows = yre.shape[0]
     _check("yre", yre, (rows, plan.n // 2), yre.device)
     _check("yim", yim, (rows, plan.n // 2), yre.device)
     x = torch.empty((rows, plan.n), dtype=torch.float32, device=yre.device)
     if rows:
-        _launch(K2, "k2_irfft_packed", plan, yre.device, ordered,
-                yre.data_ptr(), yim.data_ptr(), x.data_ptr(), rows, plan.n)
+        _launch_real(K2, "k2_irfft_packed", plan, yre.device, ordered,
+                     yre.data_ptr(), yim.data_ptr(), x.data_ptr(), rows, plan.n)
     return x
 
 
 def convolve_irfft_packed_kernel(are, aim, bre, bim, scale: float, plan: FFTPlan, ordered: bool = True):
     """K3: A (rows, N/2) x2, B (1 or rows, N/2) x2 -> irfft(scale * A (.) B)."""
+    _require_real_domain(K3, plan)
     if all(t.device.type == "cpu" for t in (are, aim, bre, bim)):
         return convolve_irfft_packed_plain(are, aim, bre, bim, scale, plan, ordered)
-    _require_cuda(K3.name, are)
+    require_cuda(K3.name, are)
     rows, b_rows = are.shape[0], bre.shape[0]
     if b_rows not in (1, rows):
         raise ValueError(f"B batch {b_rows} must be 1 or match A batch {rows}")
@@ -255,9 +207,9 @@ def convolve_irfft_packed_kernel(are, aim, bre, bim, scale: float, plan: FFTPlan
     _check("bim", bim, (b_rows, m), are.device)
     x = torch.empty((rows, plan.n), dtype=torch.float32, device=are.device)
     if rows:
-        _launch(K3, "k3_convolve_irfft_packed", plan, are.device, ordered,
-                are.data_ptr(), aim.data_ptr(), bre.data_ptr(), bim.data_ptr(),
-                b_rows, float(scale), x.data_ptr(), rows, plan.n)
+        _launch_real(K3, "k3_convolve_irfft_packed", plan, are.device, ordered,
+                     are.data_ptr(), aim.data_ptr(), bre.data_ptr(), bim.data_ptr(),
+                     b_rows, float(scale), x.data_ptr(), rows, plan.n)
     return x
 
 
@@ -266,25 +218,30 @@ def convolve_irfft_packed_kernel(are, aim, bre, bim, scale: float, plan: FFTPlan
 # ---------------------------------------------------------------------------
 
 
-def _rows(t: torch.Tensor, width: int) -> torch.Tensor:
-    """(..., width) -> contiguous, 8-byte aligned (rows, width) float32."""
-    t = t.to(torch.float32).reshape(-1, width).contiguous()
+def _rows(t: torch.Tensor, width: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(..., width) -> contiguous, 8-byte aligned (rows, width) rows."""
+    t = t.to(dtype).reshape(-1, width).contiguous()
     return t.clone() if t.data_ptr() % 8 else t
 
 
-def _plan_for(n: int, plan: FFTPlan | None) -> FFTPlan:
-    plan = plan or cached_plan(n, FFT_REAL)
-    if plan.kind != FFT_REAL or plan.n != n:
-        raise ValueError(f"plan mismatch: plan=({plan.kind}, {plan.n}), real N={n}")
+def _plan_for(n: int, plan: FFTPlan | None, kind: str = FFT_REAL) -> FFTPlan:
+    plan = plan or cached_plan(n, kind)
+    if plan.kind != kind or plan.n != n:
+        raise ValueError(f"plan mismatch: plan=({plan.kind}, {plan.n}), {kind} N={n}")
     return plan
 
 
 def rfft_packed(x: torch.Tensor, plan: FFTPlan | None = None, ordered: bool = True):
-    """Real FFT -> packed half-spectrum planes ((..., N/2) f32 x2)."""
+    """Real FFT -> packed half-spectrum planes ((..., N/2) f32 x2). K5
+    sizes are in natural order either way."""
     n = x.shape[-1]
     plan = _plan_for(n, plan)
     batch_shape = x.shape[:-1]
-    yre, yim = rfft_packed_kernel(_rows(x, n), plan, ordered)
+    rows = _rows(x, n)
+    if hopper_small.in_domain(n):
+        yre, yim = hopper_small.small_rfft_kernel(rows, plan)
+    else:
+        yre, yim = rfft_packed_kernel(rows, plan, ordered)
     return yre.reshape(*batch_shape, n // 2), yim.reshape(*batch_shape, n // 2)
 
 
@@ -293,18 +250,23 @@ def irfft_packed(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan | None = No
     m = yre.shape[-1]
     plan = _plan_for(2 * m, plan)
     batch_shape = yre.shape[:-1]
-    x = irfft_packed_kernel(_rows(yre, m), _rows(yim, m), plan, ordered)
+    if hopper_small.in_domain(2 * m):
+        x = hopper_small.small_irfft_kernel(_rows(yre, m), _rows(yim, m), plan)
+    else:
+        x = irfft_packed_kernel(_rows(yre, m), _rows(yim, m), plan, ordered)
     return x.reshape(*batch_shape, 2 * m)
 
 
 def convolve_irfft_packed(are, aim, bre, bim, plan: FFTPlan | None = None, scaling=1.0, ordered: bool = True):
     """Fused ``irfft_packed(A (.) B * scaling)``: the product spectrum
     never reaches device memory. A is (..., N/2) packed planes; B matches
-    A's batch or is one shared spectrum (a filter). A tensor ``scaling``
-    takes the unfused composition (same math)."""
+    A's batch or is one shared spectrum (a filter). The fused kernel (K3)
+    serves the K1 domain with a number ``scaling``; a tensor ``scaling``
+    or a K5 size takes the unfused composition (same math), as the JAX
+    package's gate does."""
     m = are.shape[-1]
     plan = _plan_for(2 * m, plan)
-    if isinstance(scaling, torch.Tensor):
+    if isinstance(scaling, torch.Tensor) or not _in_domain(plan.n):
         pr, pi = convolve_accumulate_packed((are, aim), (bre, bim), scaling=scaling)
         return irfft_packed(pr, pi, plan, ordered)
     batch_shape = are.shape[:-1]
@@ -345,9 +307,40 @@ def _irfft_packed_unordered(yre, yim, plan=None):
     return irfft_packed(yre, yim, plan, ordered=False)
 
 
+def _cfft_rows(x, plan: FFTPlan, direction: str, ordered: bool):
+    """The complex dispatch (``_cfft_pair_impl``): K5 for its sizes, in
+    natural order either way; K4 otherwise, ordered or unordered."""
+    forward = direction == FFT_FORWARD
+    if hopper_small.in_domain(plan.n):
+        return hopper_small.small_cfft_kernel(x, plan, forward)
+    return hopper_cfft.cfft_kernel(x, plan, forward, ordered)
+
+
+def cfft(x: torch.Tensor, plan: FFTPlan | None = None, direction: str = FFT_FORWARD, ordered: bool = True):
+    """Complex FFT over the last axis, unscaled: (..., N) -> (..., N)
+    complex64. The kernels read the complex64 rows in place as float2."""
+    n = x.shape[-1]
+    plan = _plan_for(n, plan, FFT_COMPLEX)
+    y = _cfft_rows(_rows(x, n, torch.complex64), plan, direction, ordered)
+    return y.reshape(*x.shape[:-1], n)
+
+
+def cfft_planes(re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None,
+                direction: str = FFT_FORWARD, ordered: bool = True):
+    """Complex FFT on SoA float32 planes -> (re, im) planes."""
+    n = re.shape[-1]
+    plan = _plan_for(n, plan, FFT_COMPLEX)
+    yre, yim = _cfft_rows((_rows(re, n), _rows(im, n)), plan, direction, ordered)
+    return yre.reshape(*re.shape[:-1], n), yim.reshape(*re.shape[:-1], n)
+
+
 _api.register_engine(
     "hopper",
     {
+        "cfft": cfft,
+        "cfft_unordered": functools.partial(cfft, ordered=False),
+        "cfft_planes": cfft_planes,
+        "cfft_planes_unordered": functools.partial(cfft_planes, ordered=False),
         "rfft": rfft,
         "irfft": irfft,
         "rfft_unordered": rfft_canonical_unordered,
@@ -359,5 +352,4 @@ _api.register_engine(
         "convolve_irfft_packed": convolve_irfft_packed,
     },
     supports=supports_plan,
-    prefers=prefer_plan,
 )

@@ -1,0 +1,153 @@
+"""K5: the small-N direct DFT on hand-written CUDA kernels
+(``csrc/small_dft.cu``), counterpart of ``_small_call`` and its three
+bodies in ``chowdsp_fft_tpu/ops/pallas_fft.py``.
+
+- ``small_cfft_kernel``: complex rows (complex64, or a (re, im) pair of
+  float32 planes) -> the same form, forward or backward, unscaled;
+- ``small_rfft_kernel``: (rows, N) f32 -> packed planes (rows, N/2) x2,
+  DC in re[0] and Nyquist in im[0];
+- ``small_irfft_kernel``: packed planes -> (rows, N) f32, unscaled.
+
+Bins are in natural order; that is also the unordered layout at these
+sizes, as in the JAX package. Each has a plain version here: the direct
+DFT as matrix products over ``tables.small_tables_c/r/ri``, the same
+float32 values the kernels read from ``tables.small_roots``, accumulated
+in float64 and rounded once to float32 (a float32 GEMM's running sums
+leave the 2e-7*N bound in the tail of a large batch, as a plain float32
+sum would in the kernels). A wrapper runs the plain version for CPU
+tensors; for CUDA tensors it launches the kernel or raises.
+
+Domain (``in_domain``): 8 <= N <= 256, and the {2,3,5}-smooth sizes below
+512 that are not multiples of 128 (the JAX package's ``_small_dispatch``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..plans import FFT_COMPLEX, FFT_REAL, FFTPlan
+from ._cuda import MAX_SMALL_N, Kernel, check, launch, require_cuda, require_domain
+from .hopper_cfft import as_complex, complex_io, is_cpu, like
+from .tables import is_smooth_multiple, small_roots, small_tables_c, small_tables_r, small_tables_ri
+
+__all__ = [
+    "K5_COMPLEX",
+    "K5_REAL",
+    "K5_REAL_INVERSE",
+    "MAX_SMALL_N",
+    "in_domain",
+    "small_cfft_kernel",
+    "small_rfft_kernel",
+    "small_irfft_kernel",
+    "small_cfft_plain",
+    "small_rfft_plain",
+    "small_irfft_plain",
+]
+
+MIN_SMALL = 8
+MAX_SMALL = 256
+
+_SRC = "chowdsp_fft_tpu_torch/csrc/small_dft.cu"
+_JAX = "chowdsp_fft_tpu/ops/pallas_fft.py"
+K5_COMPLEX = Kernel("small_cfft_kernel", _SRC, f"{_JAX}:2299 (_small_cfft_kernel, via _small_call :2252)")
+K5_REAL = Kernel("small_rfft_kernel", _SRC, f"{_JAX}:2310 (_small_rfft_kernel, via _small_call :2252)")
+K5_REAL_INVERSE = Kernel("small_irfft_kernel", _SRC, f"{_JAX}:2319 (_small_irfft_kernel, via _small_call :2252)")
+
+
+def in_domain(n: int) -> bool:
+    """Everything from 8 up to 256, plus the sizes below 512 that are not
+    smooth multiples of 128 (no Stockham kernel serves those)."""
+    if n <= MAX_SMALL:
+        return n >= MIN_SMALL
+    return n <= MAX_SMALL_N and not is_smooth_multiple(n)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_roots(n: int, device: str) -> torch.Tensor:
+    """``tables.small_roots(n)`` as complex64 (float2 on the card)."""
+    re, im = small_roots(n)
+    return torch.complex(torch.from_numpy(re.copy()), torch.from_numpy(im.copy())).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_matrices(table, n: int, device: str, *args) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 table values, held as float64 on ``device``."""
+    return tuple(torch.from_numpy(a.astype("float64")).to(device) for a in table(n, *args))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the direct DFT as matrix products, float64 accumulation
+# ---------------------------------------------------------------------------
+
+
+def small_cfft_plain(x, plan: FFTPlan, forward: bool = True):
+    """Plain version of the complex body: the 4-product schoolbook."""
+    z = as_complex(x)
+    wr, wi = _device_matrices(small_tables_c, plan.n, str(z.device), forward)
+    xr, xi = z.real.double(), z.imag.double()
+    y = torch.complex((xr @ wr - xi @ wi).float(), (xr @ wi + xi @ wr).float())
+    return like(x, y)
+
+
+def small_rfft_plain(x: torch.Tensor, plan: FFTPlan):
+    """Plain version of the real-forward body: (rows, N) -> packed planes."""
+    cr, ci = _device_matrices(small_tables_r, plan.n, str(x.device))
+    x = x.double()
+    return (x @ cr).float(), (x @ ci).float()
+
+
+def small_irfft_plain(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
+    """Plain version of the real-inverse body: packed planes -> (rows, N)."""
+    dr, di = _device_matrices(small_tables_ri, plan.n, str(yre.device))
+    return (yre.double() @ dr + yim.double() @ di).float()
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def small_cfft_kernel(x, plan: FFTPlan, forward: bool = True):
+    """K5 complex body on (rows, N) complex64 or a (re, im) pair of planes."""
+    require_domain(K5_COMPLEX, plan.kind == FFT_COMPLEX and in_domain(plan.n), plan.n, plan.kind)
+    if is_cpu(x):
+        return small_cfft_plain(x, plan, forward)
+    rows, dev, stride, src, out, dst = complex_io(K5_COMPLEX.name, x, plan.n)
+    if rows:
+        launch(K5_COMPLEX, "k5_small_cfft", dev, *src, *dst, stride, rows, plan.n,
+               -1 if forward else 1, _device_roots(plan.n, str(dev)).data_ptr())
+    return out
+
+
+def small_rfft_kernel(x: torch.Tensor, plan: FFTPlan):
+    """K5 real-forward body: (rows, N) f32 -> ((rows, N/2), (rows, N/2))."""
+    require_domain(K5_REAL, plan.kind == FFT_REAL and in_domain(plan.n), plan.n, plan.kind)
+    if x.device.type == "cpu":
+        return small_rfft_plain(x, plan)
+    require_cuda(K5_REAL.name, x)
+    rows, n = x.shape[0], plan.n
+    check("x", x, (rows, n), x.device)
+    yre = torch.empty((rows, n // 2), dtype=torch.float32, device=x.device)
+    yim = torch.empty_like(yre)
+    if rows:
+        launch(K5_REAL, "k5_small_rfft", x.device, x.data_ptr(), yre.data_ptr(), yim.data_ptr(),
+               rows, n, _device_roots(n, str(x.device)).data_ptr())
+    return yre, yim
+
+
+def small_irfft_kernel(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
+    """K5 real-inverse body: packed planes (rows, N/2) x2 -> (rows, N) f32."""
+    require_domain(K5_REAL_INVERSE, plan.kind == FFT_REAL and in_domain(plan.n), plan.n, plan.kind)
+    if yre.device.type == "cpu" and yim.device.type == "cpu":
+        return small_irfft_plain(yre, yim, plan)
+    require_cuda(K5_REAL_INVERSE.name, yre)
+    rows, n = yre.shape[0], plan.n
+    check("yre", yre, (rows, n // 2), yre.device)
+    check("yim", yim, (rows, n // 2), yre.device)
+    x = torch.empty((rows, n), dtype=torch.float32, device=yre.device)
+    if rows:
+        launch(K5_REAL_INVERSE, "k5_small_irfft", yre.device, yre.data_ptr(), yim.data_ptr(),
+               x.data_ptr(), rows, n, _device_roots(n, str(yre.device)).data_ptr())
+    return x

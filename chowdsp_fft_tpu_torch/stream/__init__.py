@@ -1,4 +1,5 @@
-"""Streaming DSP built on the FFT core: overlap-save FIR convolution."""
+"""Streaming DSP built on the FFT core: overlap-save FIR convolution,
+polyphase resampling, channelization, demodulation."""
 
 from .ols import (  # noqa: F401
     PartitionedFIR,
@@ -6,3 +7,10 @@ from .ols import (  # noqa: F401
     next_fft_size,
     partitioned_fir_apply,
 )
+from .polyphase import (  # noqa: F401
+    design_lowpass,
+    polyphase_decimate,
+    polyphase_interpolate,
+)
+from .demod import am_demod, dc_block, fm_demod  # noqa: F401
+from .channelizer import Channelizer, channelize  # noqa: F401

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 import chowdsp_fft_tpu_torch as ct
-from chowdsp_fft_tpu_torch import stream
+from chowdsp_fft_tpu_torch import models, stream
+from chowdsp_fft_tpu_torch.ops import hopper_cfft, hopper_small
 from chowdsp_fft_tpu_torch.ops import hopper_fft as hf
 
 pytestmark = pytest.mark.cuda
@@ -28,6 +29,8 @@ def rand(shape, dev, seed):
 
 
 def maxerr(a, b):
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
     return float((a.double() - b.double()).abs().max())
 
 
@@ -49,7 +52,9 @@ def test_kernels_match_twins(dev, n, rows, ordered):
         y = hf.convolve_irfft_packed_kernel(yre, yim, *b, 1.0 / n, plan, ordered)
         assert maxerr(y, hf.convolve_irfft_packed_plain(yre, yim, *b, 1.0 / n, plan, ordered)) <= 2e-7 * n
     torch.cuda.synchronize()
-    assert [k.launches for k in hf.KERNELS] == [1, 1, 2]
+    assert {k.name: k.launches for k in hf.KERNELS} == {
+        k.name: {hf.K1.name: 1, hf.K2.name: 1, hf.K3.name: 2}.get(k.name, 0) for k in hf.KERNELS
+    }
 
 
 def test_engine_path_launches_kernels(dev):
@@ -60,7 +65,7 @@ def test_engine_path_launches_kernels(dev):
     yp = stream.partitioned_fir_apply(x, h, block=512)
     assert y.device == dev and yp.device == dev
     assert maxerr(y, yp) <= 1e-3
-    assert all(k.launches > 0 for k in hf.KERNELS)
+    assert all(k.launches > 0 for k in (hf.K1, hf.K2, hf.K3))
 
 
 def test_kernel_wrappers_refuse_bad_input(dev):
@@ -75,3 +80,58 @@ def test_kernel_wrappers_refuse_bad_input(dev):
         hf.convolve_irfft_packed_kernel(s, s, s[:2], s[:2], 1.0, plan)
     with pytest.raises(ValueError, match="domain"):
         hf.rfft_packed_kernel(rand((2, 32768), dev, 6), ct.cached_plan(32768, ct.FFT_REAL))
+
+
+def crand(shape, dev, seed):
+    rng = np.random.default_rng(seed)
+    z = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    return torch.from_numpy(z).to(dev)
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("n,rows", [(384, 7), (640, 5), (1024, 65), (1920, 3), (4096, 33), (hopper_cfft.MAX_CN, 4)])
+def test_k4_matches_plain(dev, n, rows, forward, ordered):
+    plan = ct.cached_plan(n, ct.FFT_COMPLEX)
+    z = crand((rows, n), dev, n)
+    hf.reset_launch_counts()
+    y = hopper_cfft.cfft_kernel(z, plan, forward, ordered)
+    assert maxerr(torch.view_as_real(y), torch.view_as_real(hopper_cfft.cfft_plain(z, plan, forward, ordered))) <= 2e-7 * n
+    planes = (z.real.contiguous(), z.imag.contiguous())
+    yr, yi = hopper_cfft.cfft_kernel(planes, plan, forward, ordered)
+    assert maxerr(torch.complex(yr, yi), y) == 0.0
+    back = hopper_cfft.cfft_kernel(y, plan, not forward, ordered)
+    assert maxerr(torch.view_as_real(back / n), torch.view_as_real(z)) <= 2e-7 * n
+    torch.cuda.synchronize()
+    assert hopper_cfft.K4.launches == 3
+
+
+@pytest.mark.parametrize("n,rows", [(8, 1), (9, 5), (30, 7), (32, 33), (64, 7), (225, 3), (256, 300), (480, 9)])
+def test_k5_matches_plain(dev, n, rows):
+    """Even N pairs bins in every body; odd N (complex only) does not."""
+    cplan = ct.cached_plan(n, ct.FFT_COMPLEX)
+    z = crand((rows, n), dev, n)
+    for forward in (True, False):
+        y = hopper_small.small_cfft_kernel(z, cplan, forward)
+        p = hopper_small.small_cfft_plain(z, cplan, forward)
+        assert maxerr(torch.view_as_real(y), torch.view_as_real(p)) <= 2e-7 * n
+    if n % 2:
+        return
+    rplan = ct.cached_plan(n, ct.FFT_REAL)
+    x = z.real.contiguous()
+    re, im = hopper_small.small_rfft_kernel(x, rplan)
+    pre, pim = hopper_small.small_rfft_plain(x, rplan)
+    assert max(maxerr(re, pre), maxerr(im, pim)) <= 2e-7 * n
+    back = hopper_small.small_irfft_kernel(re, im, rplan)
+    assert maxerr(back / n, hopper_small.small_irfft_plain(re, im, rplan) / n) <= 2e-7 * n
+    assert maxerr(back / n, x) <= 2e-7 * n
+
+
+def test_sdr_chain_launches_k5(dev):
+    chain = models.SDRChain(models.SDRChainConfig(channels=256), device=dev)
+    iq = crand((2 * 256 * 4 * 64,), dev, 9)
+    hf.reset_launch_counts()
+    audio = chain(iq)
+    torch.cuda.synchronize()
+    assert audio.shape == (256, 64) and bool(torch.isfinite(audio).all())
+    assert hopper_small.K5_COMPLEX.launches == 1

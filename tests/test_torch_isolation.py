@@ -1,7 +1,8 @@
 """The port stands alone: it imports without JAX, a CPU tensor never
-launches a kernel (it runs the plain twins), a tensor on any other
-non-CUDA device raises instead of falling back, and loading the CUDA
-library without nvcc raises."""
+launches a kernel (it runs the plain versions), a tensor on any other
+non-CUDA device raises instead of falling back, each kernel family
+refuses sizes outside its own domain, and loading the CUDA library
+without nvcc raises."""
 
 import os
 import pathlib
@@ -14,7 +15,7 @@ import torch
 
 import chowdsp_fft_tpu_torch as ct
 from chowdsp_fft_tpu_torch import stream
-from chowdsp_fft_tpu_torch.ops import _cuda, hopper_fft
+from chowdsp_fft_tpu_torch.ops import _cuda, hopper_cfft, hopper_fft, hopper_small
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -23,14 +24,25 @@ import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import torch
 import chowdsp_fft_tpu_torch as ct
-from chowdsp_fft_tpu_torch import api, convert, plans, stream
-from chowdsp_fft_tpu_torch.ops import _cuda, convolve, hopper_fft, layout, stockham, tables
+from chowdsp_fft_tpu_torch import api, convert, models, plans, stream
+from chowdsp_fft_tpu_torch.ops import (
+    _cuda, convolve, hopper_cfft, hopper_fft, hopper_small, layout, stockham, tables,
+)
+from chowdsp_fft_tpu_torch.stream import channelizer, demod, polyphase
 x = torch.randn(2, 1024)
 re, im = ct.rfft_packed_unordered(x)
 y = ct.irfft_packed_unordered(re, im)
 assert torch.allclose(y / 1024, x, atol=2e-7 * 1024)
 y = stream.fir_filter_ols(torch.randn(3000), torch.randn(33))
 assert y.shape == (3000,)
+for n in (256, 384):  # K5 and K4 sizes
+    z = torch.randn(3, n, dtype=torch.complex64)
+    assert torch.allclose(ct.ifft(ct.fft(z)) / n, z, atol=2e-7 * n)
+w = channelizer.channelize(torch.randn(16 * 64, dtype=torch.complex64), 16)
+assert w.shape == (16, 64)
+audio = models.SDRChain(models.SDRChainConfig(channels=16))(torch.randn(16 * 2 * 4 * 32, dtype=torch.complex64))
+assert audio.shape == (16, 32) and bool(torch.isfinite(audio).all())
+assert all(k.launches == 0 for k in hopper_fft.KERNELS)
 assert not any(name == "jax" or name.startswith("jax.") for name, m in sys.modules.items() if m is not None)
 assert not any(name.startswith("chowdsp_fft_tpu.") or name == "chowdsp_fft_tpu" for name in sys.modules)
 print("ok")
@@ -63,7 +75,12 @@ def test_cpu_tensors_launch_no_kernel():
     xs = torch.from_numpy(rng.standard_normal((2, 5000)).astype(np.float32))
     stream.fir_filter_ols(xs, torch.ones(100) / 100)
     stream.partitioned_fir_apply(xs, torch.ones(1500) / 1500, block=1024, streaming=True, chunk=2)
-    assert [k.launches for k in hopper_fft.KERNELS] == [0, 0, 0]
+    stream.partitioned_fir_apply(xs, torch.ones(300) / 300, block=128)  # K5 real sizes
+    for n in (64, 480, 384, 1920):  # K5 and K4 sizes
+        z = torch.from_numpy((rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))).astype(np.complex64))
+        ct.ifft_unordered(ct.fft_unordered(z))
+        ct.ifft_planes(*ct.fft_planes(z.real, z.imag))
+    assert all(k.launches == 0 for k in hopper_fft.KERNELS)
 
 
 def test_non_cuda_device_raises_instead_of_falling_back():
@@ -76,7 +93,21 @@ def test_non_cuda_device_raises_instead_of_falling_back():
         hopper_fft.irfft_packed_kernel(s, s, plan)
     with pytest.raises(ValueError, match="CUDA"):
         hopper_fft.convolve_irfft_packed_kernel(s, s, s, s, 1.0, plan)
-    assert [k.launches for k in hopper_fft.KERNELS] == [0, 0, 0]
+    cplan = ct.cached_plan(1024, ct.FFT_COMPLEX)
+    z = torch.empty(2, 1024, dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_cfft.cfft_kernel(z, cplan)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_cfft.cfft_kernel((x, x), cplan)
+    small = ct.cached_plan(256, ct.FFT_COMPLEX)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_small.small_cfft_kernel(z[:, :256], small)
+    rplan = ct.cached_plan(256, ct.FFT_REAL)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_small.small_rfft_kernel(x[:, :256], rplan)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_small.small_irfft_kernel(s[:, :128], s[:, :128], rplan)
+    assert all(k.launches == 0 for k in hopper_fft.KERNELS)
 
 
 def test_wrapper_input_checks():
@@ -104,3 +135,32 @@ def test_loading_cuda_library_without_nvcc_raises(monkeypatch, tmp_path):
             _cuda.build()
     finally:
         _cuda.library.cache_clear()
+
+
+@pytest.mark.parametrize("kind,n,wrapper", [
+    ("real", 256, "rfft_packed_kernel"),  # a K5 size: K1 must not run its four-step layout
+    ("real", 256, "irfft_packed_kernel"),
+    ("real", 256, "convolve_irfft_packed_kernel"),
+    ("complex", 256, "cfft_kernel"),  # a K5 size
+    ("complex", 16384, "cfft_kernel"),  # above MAX_CN
+    ("real", 384, "small_rfft_kernel"),  # a K1 size
+    ("complex", 384, "small_cfft_kernel"),  # a K4 size
+])
+def test_each_kernel_family_checks_its_own_domain(kind, n, wrapper):
+    """The engine serves K1-K5's union; a kernel wrapper refuses sizes of
+    another family's domain, on the CPU as on the card."""
+    plan = ct.cached_plan(n, kind)
+    assert hopper_fft.supports_plan(plan) == (n != 16384)
+    m = n // 2
+    args = {
+        "rfft_packed_kernel": (hopper_fft.rfft_packed_kernel, (torch.zeros(2, n), plan)),
+        "irfft_packed_kernel": (hopper_fft.irfft_packed_kernel, (torch.zeros(2, m), torch.zeros(2, m), plan)),
+        "convolve_irfft_packed_kernel": (hopper_fft.convolve_irfft_packed_kernel,
+                                         (*[torch.zeros(2, m)] * 4, 1.0, plan)),
+        "cfft_kernel": (hopper_cfft.cfft_kernel, (torch.zeros(2, n, dtype=torch.complex64), plan)),
+        "small_rfft_kernel": (hopper_small.small_rfft_kernel, (torch.zeros(2, n), plan)),
+        "small_cfft_kernel": (hopper_small.small_cfft_kernel, (torch.zeros(2, n, dtype=torch.complex64), plan)),
+    }
+    fn, a = args[wrapper]
+    with pytest.raises(ValueError, match="outside the kernel domain"):
+        fn(*a)

@@ -98,10 +98,11 @@ def test_irfft_packed_matches_jax(n, lead):
     close(ct.irfft_unordered(ct.rfft_unordered(xt)) / n, x, n)
 
 
-@pytest.mark.parametrize("n", [200, 256, 32768, 960])
+@pytest.mark.parametrize("n", [6, 960, 576, 32768])
 def test_hopper_engine_out_of_domain_raises(n):
-    """N <= 256, N above MAX_N, and N not a multiple of 128: auto takes
-    the Stockham engine, an explicit hopper request raises."""
+    """N below the small-N direct DFT (8), N above MAX_N, and smooth
+    non-multiples of 128 above 511: auto takes the Stockham engine, an
+    explicit hopper request raises."""
     assert ct.engine_for(n, "real") == "stockham"
     assert not ct.engine_supports("hopper", n, "real")
     x = torch.zeros(2, n)
@@ -117,8 +118,8 @@ def test_engine_dispatch():
         assert ct.engine_for(n, "real") == "hopper"
         assert ct.engine_supports("stockham", n, "real")
     assert hopper_fft.MAX_N == 16384
-    # The complex surface is not on the Hopper engine yet.
-    assert ct.engine_for(4096, "complex") == "stockham"
+    # The complex surface runs on K4 (and K5 at small N).
+    assert ct.engine_for(4096, "complex") == "hopper"
 
 
 @pytest.mark.parametrize("n", [200, 1920, 32768])
