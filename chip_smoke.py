@@ -7,7 +7,9 @@ from ``chowdsp_fft_tpu_torch/csrc`` into ``build/hopper/`` on first use).
 Phases, each of which asserts:
 
 1. identify the card (name and power limit), build the kernels (one nvcc
-   per source, in parallel) and check the size limits against Python's;
+   per source, in parallel), check the size limits (MAX_N, MAX_CN,
+   MAX_SMALL_N, MAX_COL) against Python's and report the composite's
+   column tile;
 2. run K1-K3 against their plain PyTorch versions on the card and against
    float64 numpy on the host, bound 2e-7*N (max abs error);
 3. BASELINE config 3 end to end: a 4096-tap FIR on 4 x 2^20-sample
@@ -32,15 +34,36 @@ Phases, each of which asserts:
    (N = 256), ``step_k`` against ``partitioned_fir_apply`` and float64;
    both real K5 bodies carried it;
 10. coverage: every kernel record launched on its path, ``engine_for`` at
-    the complex and small sizes;
+    the complex, small and composite sizes;
 11. timing (informational): K4 at N=4096, B=1024 against ``torch.fft.fft``,
     K5 at N=256, B=32768 against ``torch.fft.ifft`` / ``rfft`` / ``irfft``,
     each kernel's plain version, the config-5 chain's wall time per call
-    and its device time by kernel (``torch.profiler``).
+    and its device time by kernel (``torch.profiler``);
+12. the composite kernels (K6 in its four roles, K7a, K7b) against their
+    plain versions and the composites against float64, bound 2e-7*N
+    (or 2e-7*L times the output's rms where smaller, L the kernel's own
+    length: ``held``):
+    complex N from 16384 to 2^20, real N from 32768 to 2^20, odd and even
+    batches, planes and complex64; a zeroed K7b output and K7b without
+    its Nyquist slot must fail the check;
+13. BASELINE config 2's top row: ``fft``/``ifft``/``rfft_packed``/
+    ``irfft_packed`` with ``engine="auto"`` at N=2^20, B=64, every row
+    against the plain composite, 4 rows against float64; each composite
+    kernel carried it;
+14. a convolution reverb: ``stream.fir_filter_ols`` of 64 channels x 10 s
+    at 48 kHz with per-channel 2 s impulse responses (N = 2^19), 8
+    channels against a float64 FFT convolution and all 64 against the
+    same call on the Stockham engine; K7a, K6 level 2 and its reverse,
+    K7b and the line transforms' K4 carried it;
+15. timing (informational): each composite kernel at config 2's top row
+    against its plain version, its bound (``utils/roofline.py``) and the
+    matching ``torch.fft`` call, the whole transforms, and the reverb's
+    wall and device time per call.
 
-The line before the last is the kernel report as JSON; the last line is
-``{"ok": true, "device": {...}}``. Exits non-zero on any failure and when
-no CUDA device is present.
+Phases run in the order 1-9, 12-14, 10, 11, 15. The line before the last
+is the kernel report as JSON; the last line is ``{"ok": true, "device":
+{...}}``. Exits non-zero on any failure and when no CUDA device is
+present.
 """
 
 from __future__ import annotations
@@ -344,7 +367,7 @@ def phase7(hf, models, stream, dev, capture: np.ndarray) -> dict[str, int]:
     # float64 references from the definitions, on the chain's own filters
     front = chain.front_lp.double().cpu().numpy()
     audio_lp = chain.audio_lp.double().cpu().numpy()
-    proto = stream.design_lowpass(cfg.channels * cfg.channel_taps_per_branch, 1.0 / cfg.channels)
+    proto = stream.design_lowpass(cfg.channels * cfg.channel_taps_per_branch, 1.0 / cfg.channels, device="cpu")
     proto64 = proto.double().numpy()
     z64 = upfirdn(front, capture.astype(np.complex128), 1, cfg.decimation)[: CONFIG5_SAMPLES // cfg.decimation]
     bank = chain.channelizer(chain.front_end(iq))
@@ -394,7 +417,7 @@ def phase8(hf, stream, dev, capture: np.ndarray) -> dict[str, int]:
     log(f"phase 8 channelize(C=1024) K4 vs its plain version: max abs err / peak {rel:.3e} "
         f"(bound {TOL * channels:.3e})")
     require(rel <= TOL * channels, f"channelize(C=1024) K4 vs plain: {rel:.3e} > {TOL * channels:.3e}")
-    proto64 = stream.design_lowpass(channels * 8, 1.0 / channels).double().numpy()
+    proto64 = stream.design_lowpass(channels * 8, 1.0 / channels, device="cpu").double().numpy()
     # The carriers sit on channel 2*ch of a 1024-channel bank at the wideband rate.
     chans = tuple(sorted({2 * CARRIERS[0], 2 * CARRIERS[3], 1024 - 2 * (256 - CARRIERS[-1]), 0, 300, 700}))
     check_channels("phase 8 channelizer (C=1024)", bank, capture.astype(np.complex128), proto64, chans)
@@ -463,6 +486,7 @@ def phase11(ct, hopper_cfft, hopper_small, models, dev, capture, card) -> dict[s
         time_ms(lambda z: hopper_cfft.cfft_plain(z, plan, True, True), args),
     )
     cufft = time_ms(lambda z: torch.fft.fft(z), args)
+    timing["cufft_fft"] = cufft
     log(f"phase 11 K4 fft N={n} B={rows} complex64: kernel {timing[hopper_cfft.K4.name][0]:.4f} ms, "
         f"plain {timing[hopper_cfft.K4.name][1]:.4f} ms, torch.fft.fft (cuFFT) {cufft:.4f} ms [{card}]")
 
@@ -487,6 +511,7 @@ def phase11(ct, hopper_cfft, hopper_small, models, dev, capture, card) -> dict[s
     cu_r = time_ms(lambda x: torch.fft.rfft(x), xs)
     cspecs = [(torch.fft.rfft(x),) for (x,) in xs]
     cu_ir = time_ms(lambda c: torch.fft.irfft(c, n=n), cspecs)
+    timing["cufft_small_ifft"], timing["cufft_small_rfft"], timing["cufft_small_irfft"] = cu_i, cu_r, cu_ir
     for k in (hopper_small.K5_COMPLEX, hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE):
         log(f"phase 11 {k.name} N={n} B={rows}: kernel {timing[k.name][0]:.4f} ms, "
             f"plain {timing[k.name][1]:.4f} ms [{card}]")
@@ -514,6 +539,314 @@ def phase11(ct, hopper_cfft, hopper_small, models, dev, capture, card) -> dict[s
     return timing
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the composite kernels (K6, K7a, K7b) against their plain
+# versions and float64
+# ---------------------------------------------------------------------------
+
+COMPOSITE_COMPLEX = ((16384, 7), (65536, 4), (1 << 17, 3), (196608, 2), (1 << 18, 5), (1 << 20, 2))
+COMPOSITE_REAL = ((32768, 5), (1 << 17, 4), (1 << 18, 3), (3 << 18, 2), (1 << 20, 3))
+CONFIG2_TOP = (1 << 20, 64)  # BASELINE config 2's largest N, at bench.py's batch of 64
+REVERB = {"channels": 64, "seconds": 10, "ir_seconds": 2, "rate": 48000}
+REVERB_ATOL = 1e-3  # vs float64: config 3's atol; the wet signal's rms is ~0.8 here
+REVERB_ENGINE_ATOL = 2e-4  # vs the same call on the Stockham engine (two float32 paths)
+
+
+def held(got, want, n: int, length: int) -> tuple[float, float]:
+    """(max abs error of ``got`` against ``want``, its bound) for a kernel
+    of transform length ``length`` on the path of an N-point transform:
+    2e-7*N, or 2e-7*length times ``want``'s rms where that is smaller.
+    An output far below unit scale (an intermediate divided by N) is thus
+    held below its own size, and a kernel to its own length's bound: a
+    zeroed output or a dropped bin fails."""
+    w = want.detach().cpu().numpy() if isinstance(want, torch.Tensor) else np.asarray(want)
+    rms = float(np.sqrt(np.mean(np.abs(w.astype(np.complex128)) ** 2))) if w.size else 1.0
+    return max_err(got, w), TOL * min(n, length * rms)
+
+
+def phase12(ct, hc, dev, rng) -> dict[str, float]:
+    """Each composite kernel against its plain version on the same input,
+    and each composite against float64 (outputs of backward transforms
+    divided by N; K7b's, of its length-A inverse, divided by A), bound
+    ``held``'s at the kernel's length (A for level 1, K7a and K7b, C for
+    level 2) or at N for a whole composite. Returns each kernel's worst
+    error against its plain version."""
+    worst = {k.name: 0.0 for k in hc.KERNELS}
+    caught: dict[str, float] = {}
+
+    def note(kernel, key, got, want, n, length):
+        err, bound = held(got, want, n, length)
+        if kernel is not None:
+            worst[kernel.name] = max(worst[kernel.name], err)
+        require(err <= bound, f"{key}: max abs err {err:.3e} > {bound:.3e}")
+
+    def cx(v):
+        return v if isinstance(v, torch.Tensor) else torch.complex(*v)
+
+    def planes(v):
+        return torch.cat([v[0], v[1]], -1)
+
+    for n, rows in COMPOSITE_COMPLEX:
+        a, c = hc.split_large(n)
+        pa, pc = ct.cached_plan(a, ct.FFT_COMPLEX), ct.cached_plan(c, ct.FFT_COMPLEX)
+        z = crandn(rng, (rows, n))
+        z64 = z.astype(np.complex128)
+        zt = torch.from_numpy(z).to(dev)
+        for form in ("complex64", "planes"):
+            x = zt if form == "complex64" else (zt.real.contiguous(), zt.imag.contiguous())
+            tag = f"N={n} ({a}x{c}) rows={rows} {form}"
+            x3 = hc._view(x, (rows, a, c))
+            mid = hc.level1(x3, pa, True)
+            note(hc.K6_L1, f"{tag} l1", cx(mid), cx(hc.level1_plain(x3, pa, True)), n, a)
+            tw = hc.twiddle(n, True, dev)
+            y = hc.level2(mid, tw, pc, True)
+            note(hc.K6_L2, f"{tag} l2", cx(y), cx(hc.level2_plain(mid, tw, pc, True)), n, c)
+            note(None, f"{tag} forward vs float64", cx(y).reshape(rows, n), np.fft.fft(z64), n, n)
+            twb = hc.twiddle(n, False, dev)
+            s3 = hc._view(y, (rows, c, a))
+            back_mid = hc.level2(s3, twb, pc, False)
+            note(hc.K6_L2_REV, f"{tag} l2_rev", cx(back_mid) / n,
+                 cx(hc.level2_plain(s3, twb, pc, False)) / n, n, c)
+            back = hc.level1(back_mid, pa, False)
+            note(hc.K6_L1_REV, f"{tag} l1_rev", cx(back) / n,
+                 cx(hc.level1_plain(back_mid, pa, False)) / n, n, a)
+            note(None, f"{tag} backward vs float64", cx(back).reshape(rows, n) / n, z64, n, n)
+
+    for n, rows in COMPOSITE_REAL:
+        a, c = hc.split_large(n, real=True)
+        plan = ct.cached_plan(n, ct.FFT_REAL)
+        pa, pc = ct.cached_plan(a, ct.FFT_REAL), ct.cached_plan(c, ct.FFT_COMPLEX)
+        x64 = rng.standard_normal((rows, n))
+        ref_re, ref_im = packed_ref(x64)
+        xt = torch.from_numpy(x64.astype(np.float32)).to(dev)
+        tag = f"real N={n} ({a}x{c}) rows={rows}"
+        x3 = xt.reshape(rows, a, c)
+        pre, pim = hc.rfft_cols(x3, pa)
+        note(hc.K7A, f"{tag} k7a", planes((pre, pim)), planes(hc.rfft_cols_plain(x3, pa)), n, a)
+        tw = hc.real_twiddle(n, True, dev)
+        g = hc.level2((pre, pim), tw, pc, True)
+        note(hc.K6_L2, f"{tag} l2", planes(g), planes(hc.level2_plain((pre, pim), tw, pc, True)), n, c)
+        re, im = hc.rfft_composite(xt, plan)
+        note(None, f"{tag} forward vs float64", planes((re, im)), np.concatenate([ref_re, ref_im], -1), n, n)
+        sre = torch.from_numpy(ref_re.astype(np.float32)).to(dev)
+        sim = torch.from_numpy(ref_im.astype(np.float32)).to(dev)
+        back = hc.irfft_composite(sre, sim, plan)
+        note(None, f"{tag} backward vs float64", back / n, x64.astype(np.float32), n, n)
+        grid = (torch.randn(rows, c, a // 2, device=dev), torch.randn(rows, c, a // 2, device=dev))
+        twb = hc.real_twiddle(n, False, dev)
+        u = hc.level2(grid, twb, pc, False)
+        note(hc.K6_L2_REV, f"{tag} l2_rev", planes(u), planes(hc.level2_plain(grid, twb, pc, False)), n, c)
+        # K7b on the packed spectrum of the unit-scale columns x3: its
+        # length-A inverse divided by A is x3 again.
+        xb = hc.irfft_cols(pre, pim, pa)
+        want = hc.irfft_cols_plain(pre, pim, pa) / a
+        note(hc.K7B, f"{tag} k7b", xb / a, want, n, a)
+        note(None, f"{tag} k7b(k7a(x)) vs x", xb / a, x64.astype(np.float32).reshape(rows, a, c), n, a)
+        # The check can fail: a zeroed K7b output, and K7b with the Nyquist
+        # slot (im[..., 0]) dropped from its input.
+        no_nyq = pim.clone()
+        no_nyq[..., 0] = 0
+        for bad, out in (("zeroed", torch.zeros_like(xb)), ("no Nyquist", hc.irfft_cols(pre, no_nyq, pa))):
+            err, bound = held(out / a, want, n, a)
+            require(err > bound, f"{tag} k7b check passes a {bad} output: {err:.3e} <= {bound:.3e}")
+            caught[bad] = min(caught.get(bad, np.inf), err / bound)
+    torch.cuda.synchronize()
+    log("phase 12 ok: K6 (four roles), K7a, K7b within their bounds of their plain versions, composites "
+        "of float64; " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + "; the K7b check fails "
+        + ", ".join(f"a {bad} output by at least {r:.0f}x its bound" for bad, r in caught.items()))
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: BASELINE config 2's top row; phase 14: the long-IR reverb
+# ---------------------------------------------------------------------------
+
+
+def phase13(ct, hc, hf, dev, rng) -> dict[str, int]:
+    """ct.fft / ifft / rfft_packed / irfft_packed with engine="auto" at
+    N = 2^20, B = 64: every row against the plain composite on the card,
+    4 rows against float64; each new kernel carried it."""
+    n, rows = CONFIG2_TOP
+    bound = TOL * n
+    for kind in ("complex", "real"):
+        require(ct.engine_for(n, kind) == "hopper", f"engine_for({n}, {kind}) = {ct.engine_for(n, kind)}")
+    z = torch.randn(rows, n, dtype=torch.complex64, device=dev)
+    x = torch.randn(rows, n, device=dev)
+    cplan, rplan = ct.cached_plan(n, ct.FFT_COMPLEX), ct.cached_plan(n, ct.FFT_REAL)
+    hf.reset_launch_counts()
+    y = ct.fft(z)
+    zb = ct.ifft(y)
+    re, im = ct.rfft_packed(x)
+    xb = ct.irfft_packed(re, im)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in hf.KERNELS}
+    log(f"phase 13 config 2 top row (N=2^20, B=64; fft, ifft, rfft_packed, irfft_packed): launches {launches}")
+    for k in hc.KERNELS:
+        require(launches[k.name] > 0, f"{k.name} was not launched on config 2's top row")
+    errs = {
+        "fft vs plain": max_err(y, hc.cfft_composite(z, cplan, True, plain=True)),
+        "ifft vs plain": max_err(zb / n, hc.cfft_composite(y, cplan, False, plain=True) / n),
+        "rfft_packed vs plain": max(max_err(a, b) for a, b in zip((re, im), hc.rfft_composite(x, rplan, plain=True))),
+        "irfft_packed vs plain": max_err(xb / n, hc.irfft_composite(re, im, rplan, plain=True) / n),
+    }
+    z64 = z[:4].cpu().numpy().astype(np.complex128)
+    x64 = x[:4].double().cpu().numpy()
+    ref_re, ref_im = packed_ref(x64)
+    errs["fft vs float64 (4 rows)"] = max_err(y[:4], np.fft.fft(z64))
+    errs["ifft vs float64 (4 rows)"] = max_err(zb[:4] / n, z64)
+    errs["rfft_packed vs float64 (4 rows)"] = max(max_err(re[:4], ref_re), max_err(im[:4], ref_im))
+    errs["irfft_packed vs float64 (4 rows)"] = max_err(xb[:4] / n, x64)
+    for key, err in errs.items():
+        require(err <= bound, f"config 2 top row {key}: {err:.3e} > {bound:.3e}")
+    log("phase 13 ok: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {bound:.3e})")
+    return launches
+
+
+def make_reverb(rng) -> tuple[np.ndarray, np.ndarray]:
+    """64 channels x 10 s of noise at 48 kHz and per-channel 2 s impulse
+    responses of exponentially decaying noise (examples/02_convolution_reverb.py)."""
+    c, sr = REVERB["channels"], REVERB["rate"]
+    taps = REVERB["ir_seconds"] * sr
+    ir = rng.standard_normal((c, taps)) * np.exp(-np.linspace(0, 8, taps)) / 100
+    audio = rng.standard_normal((c, REVERB["seconds"] * sr))
+    return audio.astype(np.float32), ir.astype(np.float32)
+
+
+def phase14(ct, hc, hf, stream, dev, audio: np.ndarray, ir: np.ndarray) -> dict[str, int]:
+    """stream.fir_filter_ols(audio, ir) with engine="auto": N = 2^19 and
+    2 blocks per channel, 128 rows through K7a, K6 level 2, the line
+    transforms (K4 at C = 512), K6 level-2 reverse and K7b."""
+    x = torch.from_numpy(audio).to(dev)
+    h = torch.from_numpy(ir).to(dev)
+    taps = ir.shape[-1]
+    n = stream.next_fft_size(max(256, stream.next_fft_size(4 * taps) // 2) + taps - 1)
+    a, c = hc.split_large(n, real=True)
+    require(n == 1 << 19 and ct.engine_for(n, "real") == "hopper", f"reverb N={n}, {ct.engine_for(n, 'real')}")
+    hf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wet = stream.fir_filter_ols(x, h)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in hf.KERNELS}
+    log(f"phase 14 reverb (64 ch x 10 s, 2 s IRs, N={n} = {a}x{c}) ran in {wall:.3f} s (first call, host clock); "
+        f"launches {launches}")
+    for k in (hc.K7A, hc.K6_L2, hc.K6_L2_REV, hc.K7B, hf.K4):
+        require(launches[k.name] > 0, f"{k.name} was not launched on the reverb path")
+    require(tuple(wet.shape) == audio.shape and bool(torch.isfinite(wet).all()), f"wet {tuple(wet.shape)}")
+    got = wet[:8].double().cpu().numpy()
+    ref = fft_convolve64(audio[:8].astype(np.float64), ir[:8].astype(np.float64))
+    err64 = float(np.abs(got - ref).max())
+    rms = float(np.sqrt((ref ** 2).mean()))
+    plain = stream.fir_filter_ols(x, h, engine="stockham")
+    err_eng = float((wet - plain).abs().max())
+    log(f"phase 14 reverb: 8 channels vs float64 max abs err {err64:.3e} (atol {REVERB_ATOL}, wet rms {rms:.3f}); "
+        f"64 channels vs engine=stockham {err_eng:.3e} (atol {REVERB_ENGINE_ATOL})")
+    require(err64 <= REVERB_ATOL, f"reverb vs float64: {err64} > {REVERB_ATOL}")
+    require(err_eng <= REVERB_ENGINE_ATOL, f"reverb vs stockham: {err_eng} > {REVERB_ENGINE_ATOL}")
+    log("phase 14 ok")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: timing of the composite kernels and the reverb path
+# ---------------------------------------------------------------------------
+
+
+def phase15(ct, hc, roof, stream, dev, card, audio: np.ndarray, ir: np.ndarray) -> dict[str, tuple]:
+    """Returns {kernel: (ms, plain ms, bound, library ms or None)} at config
+    2's top row."""
+    n, rows = CONFIG2_TOP
+    a, c = hc.split_large(n)
+    pa, pc = ct.cached_plan(a, ct.FFT_COMPLEX), ct.cached_plan(c, ct.FFT_COMPLEX)
+    zs = [(torch.randn(rows, n, dtype=torch.complex64, device=dev),) for _ in range(2)]
+    x3 = [(z.reshape(rows, a, c),) for (z,) in zs]
+    mids = [(hc.level1(v, pa, True),) for (v,) in x3]
+    tw, twb = hc.twiddle(n, True, dev), hc.twiddle(n, False, dev)
+    out: dict[str, tuple] = {}
+    out[hc.K6_L1.name] = (time_ms(lambda v: hc.level1(v, pa, True), x3),
+                          time_ms(lambda v: hc.level1_plain(v, pa, True), x3),
+                          roof.level_roofline(n, rows, a),
+                          time_ms(lambda v: torch.fft.fft(v, dim=1), x3))
+    out[hc.K6_L2.name] = (time_ms(lambda v: hc.level2(v, tw, pc, True), mids),
+                          time_ms(lambda v: hc.level2_plain(v, tw, pc, True), mids),
+                          roof.level_roofline(n, rows, c, table_points=n), None)
+    out[hc.K6_L2_REV.name] = (time_ms(lambda v: hc.level2(v, twb, pc, False), mids),
+                              time_ms(lambda v: hc.level2_plain(v, twb, pc, False), mids),
+                              roof.level_roofline(n, rows, c, table_points=n), None)
+    out[hc.K6_L1_REV.name] = (time_ms(lambda v: hc.level1(v, pa, False), mids),
+                              time_ms(lambda v: hc.level1_plain(v, pa, False), mids),
+                              roof.level_roofline(n, rows, a),
+                              time_ms(lambda v: torch.fft.ifft(v, dim=-1), mids))
+    cplan = ct.cached_plan(n, ct.FFT_COMPLEX)
+    whole = {
+        "fft": (time_ms(lambda v: ct.fft(v), zs), time_ms(lambda v: torch.fft.fft(v), zs),
+                time_ms(lambda v: hc.cfft_composite(v, cplan, True, plain=True), zs)),
+        "ifft": (time_ms(lambda v: ct.ifft(v), zs), time_ms(lambda v: torch.fft.ifft(v), zs),
+                 time_ms(lambda v: hc.cfft_composite(v, cplan, False, plain=True), zs)),
+    }
+    del zs, x3, mids
+
+    ra, rc = hc.split_large(n, real=True)
+    pra = ct.cached_plan(ra, ct.FFT_REAL)
+    rplan = ct.cached_plan(n, ct.FFT_REAL)
+    xs = [(torch.randn(rows, n, device=dev),) for _ in range(2)]
+    xr3 = [(x.reshape(rows, ra, rc),) for (x,) in xs]
+    packed = [hc.rfft_cols(v, pra) for (v,) in xr3]
+    out[hc.K7A.name] = (time_ms(lambda v: hc.rfft_cols(v, pra), xr3),
+                        time_ms(lambda v: hc.rfft_cols_plain(v, pra), xr3),
+                        roof.level_roofline(n, rows, ra, "real"),
+                        time_ms(lambda v: torch.fft.rfft(v, dim=1), xr3))
+    specs = [(torch.fft.rfft(v.transpose(1, 2), dim=-1),) for (v,) in xr3]
+    out[hc.K7B.name] = (time_ms(lambda r, i: hc.irfft_cols(r, i, pra), packed),
+                        time_ms(lambda r, i: hc.irfft_cols_plain(r, i, pra), packed),
+                        roof.level_roofline(n, rows, ra, "real"),
+                        time_ms(lambda s: torch.fft.irfft(s, n=ra, dim=-1), specs))
+    del specs
+    rspecs = [ct.rfft_packed(x) for (x,) in xs]
+    cuspecs = [(torch.fft.rfft(x),) for (x,) in xs]
+    whole["rfft_packed"] = (time_ms(lambda v: ct.rfft_packed(v), xs), time_ms(lambda v: torch.fft.rfft(v), xs),
+                            time_ms(lambda v: hc.rfft_composite(v, rplan, plain=True), xs))
+    whole["irfft_packed"] = (time_ms(lambda r, i: ct.irfft_packed(r, i), rspecs),
+                             time_ms(lambda s: torch.fft.irfft(s, n=n), cuspecs),
+                             time_ms(lambda r, i: hc.irfft_composite(r, i, rplan, plain=True), rspecs))
+    del xs, xr3, packed, rspecs, cuspecs
+
+    for k in hc.KERNELS:
+        ms, plain_ms, bound, lib = out[k.name]
+        lib_s = "null" if lib is None else f"{lib:.4f} ms"
+        log(f"phase 15 {k.name} (N=2^20, B=64): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound.ms:.4f} ms ({bound.bound_by}), library {lib_s} [{card}]")
+    for name, (ms, lib, plain_ms) in whole.items():
+        kind = "complex" if name in ("fft", "ifft") else "real"
+        bound = roof.fft_roofline(n, rows, kind)
+        log(f"phase 15 ct.{name} (N=2^20, B=64, auto): {ms:.4f} ms, torch.fft {lib:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound.ms:.4f} ms ({bound.bound_by}; {bound.bytes / 1e6:.1f} MB) [{card}]")
+
+    x = torch.from_numpy(audio).to(dev)
+    h = torch.from_numpy(ir).to(dev)
+    stream.fir_filter_ols(x, h)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        stream.fir_filter_ols(x, h)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    by_kernel = kernel_device_times(lambda: stream.fir_filter_ols(x, h))
+    device_ms = sum(by_kernel.values())
+    wall = statistics.median(walls)
+    blocks = audio.shape[0] * 2
+    bound = roof.conv_roofline(1 << 19, blocks)
+    log(f"phase 15 reverb fir_filter_ols (64 ch x 10 s, 2 s IRs): wall {wall:.3f} ms per call (median of 5, "
+        f"host clock), device {device_ms:.3f} ms, idle share {1 - device_ms / wall:.2f}; one OLS round's "
+        f"bound {bound.ms:.4f} ms ({bound.bound_by}) [{card}]")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"  {ms:9.4f} ms  {name[:110]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -522,10 +855,13 @@ def main() -> int:
     import chowdsp_fft_tpu_torch as ct
     from chowdsp_fft_tpu_torch import models, stream
     from chowdsp_fft_tpu_torch.ops import _cuda, hopper_cfft, hopper_small, tables
+    from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
     from chowdsp_fft_tpu_torch.ops import hopper_fft as hf
+    from chowdsp_fft_tpu_torch.utils import roofline as roof
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(20261016)
+    torch.manual_seed(20261016)
 
     # -- phase 1 ------------------------------------------------------------
     card = card_line()
@@ -534,10 +870,14 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _cuda.build()
     lib = _cuda.library()
-    limits = (lib.hopper_real_fft_max_n(), lib.hopper_complex_fft_max_n(), lib.hopper_small_dft_max_n())
-    require(limits == (hf.MAX_N, hopper_cfft.MAX_CN, hopper_small.MAX_SMALL_N),
-            f"kernel limits (MAX_N, MAX_CN, MAX_SMALL_N) {limits} differ from Python's")
-    log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.2f} s -> {lib_path}")
+    limits = (lib.hopper_real_fft_max_n(), lib.hopper_complex_fft_max_n(), lib.hopper_small_dft_max_n(),
+              lib.hopper_composite_max_col())
+    require(limits == (hf.MAX_N, hopper_cfft.MAX_CN, hopper_small.MAX_SMALL_N, hc.MAX_COL),
+            f"kernel limits (MAX_N, MAX_CN, MAX_SMALL_N, MAX_COL) {limits} differ from Python's")
+    tiles = {pts: lib.hopper_composite_col_tile(pts) for pts in (256, 512, 1024, 2048)}
+    require(all(t >= 1 for t in tiles.values()), f"composite column tiles {tiles}")
+    log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.2f} s -> {lib_path}; composite column "
+        f"tile by column length {tiles}")
 
     # -- phase 2 ------------------------------------------------------------
     shapes = [HEADLINE, (4096, 1), (4096, 1023), (512, 64), (2048, 256),
@@ -641,18 +981,56 @@ def main() -> int:
     for k in (hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE):
         launches[k.name] = path_r[k.name]
 
+    # -- phases 12-14: the composite kernels, config 2's top row, the reverb --
+    errs.update(phase12(ct, hc, dev, rng))
+    path2 = phase13(ct, hc, hf, dev, rng)
+    for k in hc.KERNELS:
+        launches[k.name] = path2[k.name]
+    audio, ir = make_reverb(rng)
+    phase14(ct, hc, hf, stream, dev, audio, ir)
+
     # -- phase 10 -------------------------------------------------------------
     for k in hf.KERNELS:
         require(launches[k.name] > 0, f"{k.name} was not launched on its path")
     for n, kind in ((256, "complex"), (1024, "complex"), (4096, "complex"), (hf.MAX_CN, "complex"),
-                    (8, "complex"), (480, "complex"), (256, "real"), (32, "real")):
+                    (8, "complex"), (480, "complex"), (256, "real"), (32, "real"), (16384, "complex"),
+                    (1 << 19, "real"), (1 << 20, "real"), (1 << 20, "complex")):
         require(ct.engine_for(n, kind) == "hopper", f"engine_for({n}, {kind}) = {ct.engine_for(n, kind)}")
-    for n, kind in ((16384, "complex"), (6, "real"), (576, "real")):
+    for n, kind in ((6, "real"), (576, "real"), (1458, "real")):
         require(ct.engine_for(n, kind) == "stockham", f"engine_for({n}, {kind}) = {ct.engine_for(n, kind)}")
     log(f"phase 10 ok: every kernel carried its path; launches {launches}")
 
-    # -- phase 11 -------------------------------------------------------------
+    # -- phases 11 and 15: timing ----------------------------------------------
     timing.update(phase11(ct, hopper_cfft, hopper_small, models, dev, capture, card))
+    del capture
+    composite_timing = phase15(ct, hc, roof, stream, dev, card, audio, ir)
+
+    # Bounds and library calls at each kernel's timed shape (phases 5 and 11).
+    n, rows = HEADLINE
+    k3_bytes = rows * roof.fft_bytes(n, "real") + 4 * n  # A in, x out, one shared B
+    k3_flops = rows * (2.5 * n * np.log2(n) + 3 * n)
+    bounds = {
+        hf.K1.name: roof.fft_roofline(n, rows, "real"),
+        hf.K2.name: roof.fft_roofline(n, rows, "real"),
+        hf.K3.name: roof.roofline(k3_bytes, k3_flops),
+        hf.K4.name: roof.fft_roofline(n, rows, "complex"),
+        hopper_small.K5_COMPLEX.name: roof.fft_roofline(*SMALL_TIMED, "complex"),
+        hopper_small.K5_REAL.name: roof.fft_roofline(*SMALL_TIMED, "real"),
+        hopper_small.K5_REAL_INVERSE.name: roof.fft_roofline(*SMALL_TIMED, "real"),
+    }
+    library = {
+        hf.K1.name: cufft_r, hf.K2.name: cufft_i, hf.K3.name: None, hf.K4.name: timing.pop("cufft_fft"),
+        hopper_small.K5_COMPLEX.name: timing.pop("cufft_small_ifft"),
+        hopper_small.K5_REAL.name: timing.pop("cufft_small_rfft"),
+        hopper_small.K5_REAL_INVERSE.name: timing.pop("cufft_small_irfft"),
+    }
+    for name, (ms, plain_ms, bound, lib) in composite_timing.items():
+        timing[name] = (ms, plain_ms)
+        bounds[name] = bound
+        library[name] = lib
+    direct = roof.direct_dft_roofline(*SMALL_TIMED, "complex")
+    log(f"K5 complex's own algorithm (direct DFT, {direct.flops / 1e9:.1f} GFLOP) is bound at {direct.ms:.4f} ms "
+        f"({direct.bound_by}); the function's bound is {bounds[hopper_small.K5_COMPLEX.name].ms:.4f} ms")
 
     kernels = []
     for k in hf.KERNELS:
@@ -660,6 +1038,8 @@ def main() -> int:
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name], "max_abs_err": errs[k.name],
             "ms": timing[k.name][0], "plain_ms": timing[k.name][1],
+            "bound_ms": bounds[k.name].ms, "bound_by": bounds[k.name].bound_by,
+            "library_ms": library[k.name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     result = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,11 +25,14 @@ from . import api
 from .models.sdr import SDRChain, SDRChainConfig
 from .ops import hopper_cfft, hopper_fft
 from .ops.tables import (
+    JAX_MAX_N,
+    JAX_MAX_SMALL_FALLBACK,
     LANES,
     cfft_inverse_perm,
     cfft_unordered_perm,
     inverse_perm,
     is_smooth_multiple,
+    jax_cfft_composite_is_natural,
     unordered_perm,
 )
 from .plans import FFT_COMPLEX, FFT_REAL, FFTPlan, StagePlan, make_plan
@@ -45,20 +48,14 @@ __all__ = [
     "jax_cfft_is_composite",
 ]
 
-# Largest N the JAX package's single Stockham kernels serve (real and
-# complex); above it, and at N <= 256, their "unordered" layouts are the
-# natural order, except the complex composite's (see below).
-_JAX_MAX_N = 1 << 17
-# Largest N of the JAX package's small-N direct DFT.
-_JAX_MAX_SMALL_N = 511
-
 
 def jax_unordered_is_permuted(n: int, engine: str = "auto") -> bool:
     """Whether the JAX package's unordered layout for N under ``engine`` is
-    its kernels' four-step permutation (else it is natural order). Holds
+    its kernels' four-step permutation, else natural order (above its
+    single Stockham kernels, ``tables.JAX_MAX_N``, and at N <= 256). Holds
     for real N (the packed layout: the JAX real composite is always
     ordered) and for complex N outside :func:`jax_cfft_is_composite`."""
-    return engine != "stockham" and 2 * LANES < n <= _JAX_MAX_N and is_smooth_multiple(n)
+    return engine != "stockham" and 2 * LANES < n <= JAX_MAX_N and is_smooth_multiple(n)
 
 
 def jax_cfft_is_composite(n: int, engine: str = "auto") -> bool:
@@ -66,11 +63,13 @@ def jax_cfft_is_composite(n: int, engine: str = "auto") -> bool:
     two-level composite: above its single kernel, or a medium smooth size
     that is not a multiple of 128 (576, 960, ...) on an explicit
     ``engine="pallas"`` (``auto`` sends those to its Stockham engine). The
-    composite's unordered layout depends on its factor split and batch
-    cap: natural order (v2) or digit-transposed sub-transform layouts (v1)."""
-    if engine == "stockham" or n <= _JAX_MAX_SMALL_N:
+    composite's unordered layout depends on its factor split: natural
+    order where both factors are multiples of 128 (v2,
+    ``tables.jax_cfft_composite_is_natural``), else the digit-transposed
+    sub-transform layouts of its v1 chain."""
+    if engine == "stockham" or n <= JAX_MAX_SMALL_FALLBACK:
         return False
-    if n <= _JAX_MAX_N and is_smooth_multiple(n):
+    if n <= JAX_MAX_N and is_smooth_multiple(n):
         return False
     return engine != "auto" or n % LANES == 0
 
@@ -142,7 +141,7 @@ def partitioned_fir_from_numpy(
     block: int,
     engine: str = "auto",
     src_engine: str = "auto",
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> PartitionedFIR:
     """A port ``PartitionedFIR`` from the JAX filter's ``h_re``/``h_im``
     spectra ((..., P, block) f32, taken under JAX engine ``src_engine``)."""
@@ -179,24 +178,25 @@ def cfft_unordered_from_numpy(
     spec: np.ndarray,
     src_engine: str = "auto",
     engine: str = "auto",
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> torch.Tensor:
     """A JAX ``fft_unordered`` spectrum ((..., N) complex, taken under JAX
     engine ``src_engine``) as the port's ``fft_unordered`` layout under
     ``engine``, complex64 on ``device``. The JAX complex kernel permutes
     256 < N <= 2^17, the port's K4 only up to MAX_CN; between the two one
-    side is natural and the other permuted. Raises ValueError where JAX
-    ran N as its composite (:func:`jax_cfft_is_composite`), whose
-    unordered layout is not carried over: take JAX's ordered ``fft``
-    spectrum there instead."""
+    side is natural and the other permuted. Where JAX ran N as its
+    composite (:func:`jax_cfft_is_composite`), its v2 form is natural
+    order and carried over; its v1 form's layout is not, and raises
+    ValueError: take JAX's ordered ``fft`` spectrum there instead."""
     spec = np.asarray(spec, np.complex64)
     n = spec.shape[-1]
-    if jax_cfft_is_composite(n, src_engine):
+    composite = jax_cfft_is_composite(n, src_engine)
+    if composite and not jax_cfft_composite_is_natural(n):
         raise ValueError(
-            f"complex N={n} under JAX engine {src_engine!r} runs the two-level composite, whose "
+            f"complex N={n} under JAX engine {src_engine!r} runs the v1 two-level composite, whose "
             "unordered layout is not carried over; convert the ordered spectrum (fft) instead"
         )
-    src = jax_unordered_is_permuted(n, src_engine)
+    src = not composite and jax_unordered_is_permuted(n, src_engine)
     dst = _port_cfft_unordered_is_permuted(n, engine)
     spec = _relayout(spec, n, src, dst, cfft_unordered_perm, cfft_inverse_perm)
     return torch.tensor(np.ascontiguousarray(spec), device=device)
@@ -207,7 +207,7 @@ def sdr_chain_from_numpy(
     front_lp: np.ndarray,
     audio_lp: np.ndarray,
     hpoly: np.ndarray,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SDRChain:
     """A port ``SDRChain`` holding the JAX chain's filters (``chain.front_lp``,
     ``chain.audio_lp``, ``chain.channelizer.hpoly`` as numpy). ``config``

@@ -63,9 +63,7 @@ rfft_packed_kernel(const float* __restrict__ x, float* __restrict__ yre,
   __syncthreads();
   const float2* Z = run_stages<-1>(a, b, M, rad, stage_tw);
 
-  // Split: X[k] = E[k] + W_N^k O[k], E = (Z[k] + conj Z[M-k]) / 2,
-  // O = -i (Z[k] - conj Z[M-k]) / 2; X[0] = Re Z0 + Im Z0 and the
-  // Nyquist bin X[M] = Re Z0 - Im Z0 goes to im[0].
+  // Split (stockham.cuh split_bin); the Nyquist bin goes to im[0].
   float* ore = yre + row * M;
   float* oim = yim + row * M;
   for (int pos = threadIdx.x; pos < M; pos += blockDim.x) {
@@ -76,12 +74,7 @@ rfft_packed_kernel(const float* __restrict__ x, float* __restrict__ yre,
       re = z0.x + z0.y;
       im = z0.x - z0.y;
     } else {
-      const float2 z = Z[slot(k)];
-      const float2 zc = cconj(Z[slot(M - k)]);
-      const float2 e = cscale(cadd(z, zc), 0.5f);
-      const float2 d = csub(z, zc);
-      const float2 o = make_float2(0.5f * d.y, -0.5f * d.x);  // -i/2 * d
-      const float2 X = cadd(e, cmul(__ldg(split_tw + k), o));
+      const float2 X = split_bin(Z[slot(k)], Z[slot(M - k)], __ldg(split_tw + k));
       re = X.x;
       im = X.y;
     }
@@ -135,14 +128,10 @@ irfft_packed_kernel(const float* __restrict__ are, const float* __restrict__ aim
   }
   __syncthreads();
 
-  // Merge: Z[k] = E + i O, E = (X[k] + conj X[M-k]) / 2,
-  // O = W_N^-k (X[k] - conj X[M-k]) / 2, with X[M] the Nyquist bin.
+  // Merge (stockham.cuh merge_bin), with X[M] the Nyquist bin.
   for (int k = threadIdx.x; k < M; k += blockDim.x) {
-    const float2 xk = a[slot(k)];
     const float2 xr = k == 0 ? make_float2(nyq, 0.0f) : cconj(a[slot(M - k)]);
-    const float2 e = cscale(cadd(xk, xr), 0.5f);
-    const float2 o = cmul(cconj(__ldg(split_tw + k)), cscale(csub(xk, xr), 0.5f));
-    b[slot(k)] = cadd(e, mul_i<1>(o));
+    b[slot(k)] = merge_bin(a[slot(k)], xr, __ldg(split_tw + k));
   }
   __syncthreads();
   const float2* zt = run_stages<1>(b, a, M, rad, stage_tw);

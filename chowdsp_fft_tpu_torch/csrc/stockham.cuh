@@ -1,5 +1,6 @@
 // Shared-memory mixed-radix Stockham stages, shared by the real kernels
-// (real_fft.cu: K1-K3) and the complex kernel (complex_fft.cu: K4).
+// (real_fft.cu: K1-K3), the complex kernel (complex_fft.cu: K4) and the
+// composite's column kernels (composite_fft.cu: K6, K7).
 //
 // A block holds one row of M complex points in two padded shared buffers
 // and runs the plan's {4,2,3,5} stages between them, FP32 FMA only, with
@@ -43,6 +44,29 @@ __device__ __forceinline__ float2 cconj(float2 a) { return make_float2(a.x, -a.y
 // (x + iy) * i * SIGN
 template <int SIGN>
 __device__ __forceinline__ float2 mul_i(float2 a) { return make_float2(-SIGN * a.y, SIGN * a.x); }
+
+// The half-complex split and merge of the packed real FFT (real_fft.cu,
+// composite_fft.cu). A real row of length 2M is transformed as the M
+// complex points x[2m] + i x[2m+1]; Z is their DFT and w = W_2M^k.
+// Split, 0 < k < M: X[k] = E + w O, E = (Z[k] + conj Z[M-k]) / 2,
+// O = -i (Z[k] - conj Z[M-k]) / 2 (X[0] and the Nyquist bin X[M] are
+// Re Z0 + Im Z0 and Re Z0 - Im Z0).
+__device__ __forceinline__ float2 split_bin(float2 z, float2 zm, float2 w) {
+  const float2 zc = cconj(zm);
+  const float2 e = cscale(cadd(z, zc), 0.5f);
+  const float2 d = csub(z, zc);
+  const float2 o = make_float2(0.5f * d.y, -0.5f * d.x);  // -i/2 * d
+  return cadd(e, cmul(w, o));
+}
+
+// Merge, the split's inverse: Z[k] = E + i O, E = (X[k] + xr) / 2,
+// O = conj(w) (X[k] - xr) / 2, with xr = conj X[M-k] (the Nyquist bin
+// X[M] at k = 0).
+__device__ __forceinline__ float2 merge_bin(float2 xk, float2 xr, float2 w) {
+  const float2 e = cscale(cadd(xk, xr), 0.5f);
+  const float2 o = cmul(cconj(w), cscale(csub(xk, xr), 0.5f));
+  return cadd(e, mul_i<1>(o));
+}
 
 // cos/sin(2*pi*k/R) for the dense radix-3/5 butterflies, float64-rounded.
 template <int R> struct Roots;
@@ -101,29 +125,35 @@ __device__ __forceinline__ void butterfly(float2* v) {
   }
 }
 
-// One Stockham stage over a length-M complex row in shared memory.
-// Input viewed as (R, m, s), output as (m, R, s): butterfly t = p*s + q
-// reads src[k*(M/R) + t], twiddles output j by W_n^(j*p) (the stage's
-// (R, m) table, conjugated for SIGN = +1), writes dst[p*R*s + j*s + q].
+// One Stockham stage over a length-M complex row in shared memory, or
+// over 2^ls such rows interleaved (element i of row `lane` at index
+// (i << ls) + lane: the column tiles of composite_fft.cu; ls = 0 is one
+// row). Input viewed as (R, m, s), output as (m, R, s): butterfly
+// t = p*s + q reads src[k*(M/R) + t], twiddles output j by W_n^(j*p) (the
+// stage's (R, m) table, conjugated for SIGN = +1), writes
+// dst[p*R*s + j*s + q]. Neighbouring threads take neighbouring lanes.
 template <int R, int SIGN>
 __device__ void stage(const float2* __restrict__ src, float2* __restrict__ dst,
-                      int M, int s, const float2* __restrict__ tw) {
+                      int M, int s, const float2* __restrict__ tw, int ls) {
   const int nb = M / R;
   const int m = nb / s;
-  for (int t = threadIdx.x; t < nb; t += blockDim.x) {
+  const int lane_mask = (1 << ls) - 1;
+  for (int u = threadIdx.x; u < (nb << ls); u += blockDim.x) {
+    const int t = u >> ls;
+    const int lane = u & lane_mask;
     const int p = t / s;
     const int q = t - p * s;
     float2 v[R];
 #pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = src[slot(k * nb + t)];
+    for (int k = 0; k < R; ++k) v[k] = src[slot(((k * nb + t) << ls) + lane)];
     butterfly<R, SIGN>(v);
     const int out = p * R * s + q;
-    dst[slot(out)] = v[0];
+    dst[slot((out << ls) + lane)] = v[0];
 #pragma unroll
     for (int j = 1; j < R; ++j) {
       float2 w = __ldg(tw + j * m + p);
       if (SIGN > 0) w = cconj(w);
-      dst[slot(out + j * s)] = cmul(v[j], w);
+      dst[slot(((out + j * s) << ls) + lane)] = cmul(v[j], w);
     }
   }
 }
@@ -131,15 +161,15 @@ __device__ void stage(const float2* __restrict__ src, float2* __restrict__ dst,
 // Run all stages; returns the buffer that holds the natural-order result.
 template <int SIGN>
 __device__ float2* run_stages(float2* a, float2* b, int M, const Radices& rad,
-                              const float2* __restrict__ tw) {
+                              const float2* __restrict__ tw, int ls = 0) {
   int s = 1;
   for (int i = 0; i < rad.count; ++i) {
     const int r = rad.r[i];
     switch (r) {
-      case 2: stage<2, SIGN>(a, b, M, s, tw); break;
-      case 3: stage<3, SIGN>(a, b, M, s, tw); break;
-      case 4: stage<4, SIGN>(a, b, M, s, tw); break;
-      default: stage<5, SIGN>(a, b, M, s, tw); break;
+      case 2: stage<2, SIGN>(a, b, M, s, tw, ls); break;
+      case 3: stage<3, SIGN>(a, b, M, s, tw, ls); break;
+      case 4: stage<4, SIGN>(a, b, M, s, tw, ls); break;
+      default: stage<5, SIGN>(a, b, M, s, tw, ls); break;
     }
     __syncthreads();
     tw += M / s;  // this stage's table holds r * m = M / s entries

@@ -39,9 +39,10 @@ class SDRChainConfig:
 
 class SDRChain(nn.Module):
     """SDR receiver chain; call with complex IQ (..., T) on the module's
-    device."""
+    device, the card unless ``device`` says otherwise (``device="cpu"``
+    runs the kernels' plain versions)."""
 
-    def __init__(self, config: SDRChainConfig = SDRChainConfig(), device: torch.device | str = "cpu"):
+    def __init__(self, config: SDRChainConfig = SDRChainConfig(), device: torch.device | str = "cuda"):
         super().__init__()
         self.config = c = config
         self.register_buffer("front_lp", design_lowpass(c.front_taps, 1.0 / c.decimation, device=device))

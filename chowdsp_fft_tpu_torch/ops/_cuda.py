@@ -34,6 +34,12 @@ MAX_CN = 13824
 # Largest N of K5, the small-N direct DFT: the JAX package's small-N
 # domain ends below 512.
 MAX_SMALL_N = 511
+# Longest column of the composite's column kernels (K6, K7): a tile of TC
+# columns holds two padded L*TC-point buffers, 16.5*L*TC bytes, and the
+# library picks the largest TC up to 16 that fits, so L = 2048 takes
+# TC = 4 (135 KB). Every composite split up to 2^20 has a balanced pair
+# within it (the largest needed factor is 1080).
+MAX_COL = 2048
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "hopper"
@@ -41,6 +47,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     f"-DCHOWDSP_MAX_N={MAX_N}", f"-DCHOWDSP_MAX_CN={MAX_CN}", f"-DCHOWDSP_MAX_SMALL_N={MAX_SMALL_N}",
+    f"-DCHOWDSP_MAX_COL={MAX_COL}",
 )
 
 _P = ctypes.c_void_p
@@ -60,6 +67,16 @@ _SIGNATURES = {
     "k5_small_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "k5_small_rfft": [_P, _P, _P, _I, _I, _P, _P],
     "k5_small_irfft": [_P, _P, _P, _I, _I, _P, _P],
+    "hopper_composite_max_col": [],
+    "hopper_composite_col_tile": [_I],
+    # K6 roles: x re/im, y re/im, element stride, batch, L, M, radices,
+    # nstages, stage twiddles, four-step twiddles (NULL at level 1), stream.
+    **{name: [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P]
+       for name in ("k6_l1", "k6_l2", "k6_l2_rev", "k6_l1_rev")},
+    # K7: real in/out, packed re/im, batch, A, C, radices, nstages, stage
+    # twiddles, split twiddles, stream.
+    "k7a_rfft_cols": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
+    "k7b_irfft_cols": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
 }
 
 

@@ -58,26 +58,31 @@ def like(x, z: torch.Tensor):
     return z if isinstance(x, torch.Tensor) else (z.real.contiguous(), z.imag.contiguous())
 
 
-def complex_io(name: str, x, n: int):
-    """Check the input and allocate the output for a kernel on (rows, N)
-    complex rows. Returns (rows, device, element stride, input (re, im)
-    pointers, output in ``x``'s form, output (re, im) pointers). A
-    complex64 tensor is read as interleaved float2: stride 2, the imaginary
-    part one float after the real part."""
+def shape_of(x) -> tuple[int, ...]:
+    return tuple((x if isinstance(x, torch.Tensor) else x[0]).shape)
+
+
+def complex_io(name: str, x, shape, out_shape=None):
+    """Check the input, complex data of ``shape`` ((rows, N) rows; the
+    composite's (B, L, M) tiles), and allocate the output, of ``out_shape``
+    (default ``shape``) in ``x``'s form. Returns (device, element stride,
+    input (re, im) pointers, output, output (re, im) pointers). A complex64
+    tensor is read as interleaved float2: stride 2, the imaginary part one
+    float after the real part."""
+    out_shape = shape if out_shape is None else out_shape
     if isinstance(x, torch.Tensor):
         require_cuda(name, x)
-        rows = x.shape[0]
-        check(name, x, (rows, n), x.device, torch.complex64)
-        y = torch.empty_like(x)
+        check(name, x, shape, x.device, torch.complex64)
+        y = torch.empty(out_shape, dtype=torch.complex64, device=x.device)
         xp, yp = x.data_ptr(), y.data_ptr()
-        return rows, x.device, 2, (xp, xp + 4), y, (yp, yp + 4)
+        return x.device, 2, (xp, xp + 4), y, (yp, yp + 4)
     re, im = x
     require_cuda(name, re)
-    rows = re.shape[0]
-    check(f"{name} re", re, (rows, n), re.device)
-    check(f"{name} im", im, (rows, n), re.device)
-    yre, yim = torch.empty_like(re), torch.empty_like(im)
-    return rows, re.device, 1, (re.data_ptr(), im.data_ptr()), (yre, yim), (yre.data_ptr(), yim.data_ptr())
+    check(f"{name} re", re, shape, re.device)
+    check(f"{name} im", im, shape, re.device)
+    yre = torch.empty(out_shape, dtype=torch.float32, device=re.device)
+    yim = torch.empty_like(yre)
+    return re.device, 1, (re.data_ptr(), im.data_ptr()), (yre, yim), (yre.data_ptr(), yim.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +109,8 @@ def cfft_kernel(x, plan: FFTPlan, forward: bool = True, ordered: bool = True):
     require_domain(K4, plan.kind == FFT_COMPLEX and in_domain(plan.n), plan.n, plan.kind)
     if is_cpu(x):
         return cfft_plain(x, plan, forward, ordered)
-    rows, dev, stride, src, out, dst = complex_io(K4.name, x, plan.n)
+    rows = shape_of(x)[0]
+    dev, stride, src, out, dst = complex_io(K4.name, x, (rows, plan.n))
     if rows:
         tabs = plan.device_tables(dev)
         radices = (ctypes.c_int * len(plan.radices))(*plan.radices)

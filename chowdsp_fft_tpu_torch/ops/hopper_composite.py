@@ -1,0 +1,400 @@
+"""K6, K7a, K7b: the two-level composite FFT on hand-written CUDA kernels
+(``csrc/composite_fft.cu``), counterpart of ``chowdsp_fft_tpu/ops/pallas_fft.py``
+:2392-2850 (the complex composite v2) and :3099-3353 (the real one).
+
+N = A * C (``tables.split_large``). Viewing a row as (A, C), the forward
+complex transform is
+
+- level 1 (K6 ``l1``): length-A FFTs down the C columns of the (B, A, C)
+  input, stored transposed as (B, C, A);
+- level 2 (K6 ``l2``): the four-step twiddle W_N^(-c*k1) (``tables.large_twiddle``),
+  then length-C FFTs down the A columns of (B, C, A), stored in place.
+
+The (B, C, A) output is the natural-order spectrum (bin k1 + A*k2 at flat
+position k2*A + k1). The backward transform mirrors it: ``l2_rev`` (inverse
+length-C FFTs, then the conjugate twiddle) and ``l1_rev`` (inverse length-A
+FFTs of the rows, stored transposed as (B, A, C)). One CUDA kernel serves
+the four roles; the intermediate is one device buffer (or one pair of
+planes) that the wrapper allocates.
+
+The real composite (N = A * C, both even) is K7a, a column-blocked packed
+real FFT of length A from (B, A, C) to (B, C, A/2) planes with DC in
+re[..., 0] and the level-1 Nyquist in im[..., 0]; then K6 ``l2`` on those
+planes with ``tables.rdc_l2_twiddle``; the DC and Nyquist lines as two
+length-C complex transforms (K5, K4 or this composite, through
+:func:`cfft_rows`); and the Hermitian assembly into ordered packed planes,
+in plain torch as the JAX package has it in XLA. The inverse mirrors it,
+ending in K7b.
+
+Layout: natural order in and out at every batch, so at composite sizes
+the engine's unordered layout is the ordered one (the JAX v2 composite's
+choice, ``_cfft_pair_large`` :2834).
+
+Each kernel has a plain version here: the same four-step in plain torch
+on the same split and tables, the sub-FFTs on the Stockham engine. A
+wrapper runs the plain version for CPU tensors; for CUDA tensors it
+launches the kernel or raises.
+
+Not ported, as TPU VMEM artefacts with no counterpart here: the batch
+chunking (``_batch_chunked`` :3142, ``_v2_batch_cap``), the VMEM tile laws
+(``_v2_tile``, ``_col_tile``, ``_V2_BLOCK_BYTES``) and the v1 chains
+(``_cfft_pair_large_v1`` :2851, ``_rfft/_irfft_direct_composite_v1``
+:3356, :3414). A block's column tile here is chosen by shared memory,
+in ``csrc/composite_fft.cu`` (``tile_shift``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..plans import FFT_COMPLEX, FFT_REAL, FFTPlan, cached_plan
+from . import hopper_cfft, hopper_small, stockham
+from ._cuda import MAX_COL, Kernel, check, launch, require_cuda, require_domain
+from .hopper_cfft import as_complex, complex_io, is_cpu, like, shape_of
+from .layout import packed_planes_to_spectrum, spectrum_to_packed_planes
+from .tables import (
+    JAX_MIN_SMALL,
+    large_twiddle,
+    nyquist_twiddle,
+    rdc_l2_twiddle,
+    split_large,
+)
+
+__all__ = [
+    "K6_L1",
+    "K6_L2",
+    "K6_L2_REV",
+    "K6_L1_REV",
+    "K7A",
+    "K7B",
+    "KERNELS",
+    "MAX_COL",
+    "level1",
+    "level2",
+    "rfft_cols",
+    "irfft_cols",
+    "level1_plain",
+    "level2_plain",
+    "rfft_cols_plain",
+    "irfft_cols_plain",
+    "cfft_composite",
+    "rfft_composite",
+    "irfft_composite",
+    "cfft_rows",
+]
+
+_SRC = "chowdsp_fft_tpu_torch/csrc/composite_fft.cu"
+_JAX = "chowdsp_fft_tpu/ops/pallas_fft.py"
+K6_L1 = Kernel("composite_l1_kernel", _SRC, f"{_JAX}:2700 (_v2_call, body _cfft_v2_l1_kernel :2531)")
+K6_L2 = Kernel("composite_l2_kernel", _SRC, f"{_JAX}:2700 (_v2_call, body _cfft_v2_l2_kernel :2556)")
+K6_L2_REV = Kernel("composite_l2_rev_kernel", _SRC, f"{_JAX}:2700 (_v2_call, body _cfft_v2_l2_rev_kernel :2587)")
+K6_L1_REV = Kernel("composite_l1_rev_kernel", _SRC, f"{_JAX}:2700 (_v2_call, body _cfft_v2_l1_rev_kernel :2621)")
+K7A = Kernel("rfft_cols_kernel", _SRC, f"{_JAX}:1463 (_rfft_packed_cols_impl, body _rfft_cols_kernel :1398)")
+K7B = Kernel("irfft_cols_kernel", _SRC, f"{_JAX}:1565 (_irfft_packed_cols_impl, body _irfft_cols_kernel :1541)")
+KERNELS = (K6_L1, K6_L2, K6_L2_REV, K6_L1_REV, K7A, K7B)
+
+
+def _col_ok(length: int) -> bool:
+    return JAX_MIN_SMALL <= length <= MAX_COL
+
+
+# ---------------------------------------------------------------------------
+# Tables on the device
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def _c64(table, n: int, forward: bool, device: str) -> torch.Tensor:
+    re, im = table(n, forward)
+    return torch.complex(torch.from_numpy(re.copy()), torch.from_numpy(im.copy())).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def _nyquist(n: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(torch.from_numpy(t.copy()).to(device) for t in nyquist_twiddle(n))
+
+
+def twiddle(n: int, forward: bool, device) -> torch.Tensor:
+    """(C, A) complex64 four-step twiddle of the complex composite."""
+    return _c64(large_twiddle, n, forward, str(torch.device(device)))
+
+
+def real_twiddle(n: int, forward: bool, device) -> torch.Tensor:
+    """(C, A/2) complex64 level-2 twiddle of the real composite."""
+    return _c64(rdc_l2_twiddle, n, forward, str(torch.device(device)))
+
+
+# ---------------------------------------------------------------------------
+# Complex data in either form: one complex64 tensor or a (re, im) pair
+# ---------------------------------------------------------------------------
+
+
+def _view(x, shape):
+    return x.reshape(shape) if isinstance(x, torch.Tensor) else tuple(t.reshape(shape) for t in x)
+
+
+def _stages(plan: FFTPlan, dev):
+    """The plan's radices (host int array, kept alive by the caller) and
+    its flattened stage twiddles on ``dev``."""
+    radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
+    return radices, plan.device_tables(dev)
+
+
+# ---------------------------------------------------------------------------
+# K6: the column FFT in its four roles
+# ---------------------------------------------------------------------------
+
+
+def level1_plain(x, plan: FFTPlan, forward: bool = True):
+    """Plain version of K6 level 1. Forward: (B, A, C) -> length-A FFTs of
+    the columns -> (B, C, A). Backward: (B, C, A) -> inverse length-A FFTs
+    of the rows -> (B, A, C)."""
+    z = as_complex(x)
+    b, d1, d2 = z.shape
+    if forward:
+        rows = z.transpose(1, 2).reshape(b * d2, d1)
+        return like(x, stockham.cfft(rows, plan, "forward").reshape(b, d2, d1))
+    y = stockham.cfft(z.reshape(b * d1, d2), plan, "backward").reshape(b, d1, d2)
+    return like(x, y.transpose(1, 2).contiguous())
+
+
+def level2_plain(x, tw: torch.Tensor, plan: FFTPlan, forward: bool = True):
+    """Plain version of K6 level 2 on (B, C, M): forward multiplies by the
+    (C, M) twiddle, then length-C FFTs down the columns; backward runs the
+    inverse FFTs, then multiplies by the (conjugate-angle) twiddle."""
+    z = as_complex(x)
+    b, c, m = z.shape
+    if forward:
+        z = z * tw
+    rows = z.transpose(1, 2).reshape(b * m, c)
+    y = stockham.cfft(rows, plan, "forward" if forward else "backward")
+    y = y.reshape(b, m, c).transpose(1, 2)
+    if not forward:
+        y = y * tw
+    return like(x, y.contiguous())
+
+
+def level1(x, plan: FFTPlan, forward: bool = True):
+    """K6 level 1 (``l1`` forward, ``l1_rev`` backward); shapes as in
+    :func:`level1_plain`, L = plan.n; returns ``x``'s form."""
+    kernel = K6_L1 if forward else K6_L1_REV
+    length = plan.n
+    require_domain(kernel, plan.kind == FFT_COMPLEX and _col_ok(length), length, plan.kind)
+    if is_cpu(x):
+        return level1_plain(x, plan, forward)
+    b, d1, d2 = shape_of(x)
+    m = d2 if forward else d1
+    out_shape = (b, d2, d1)
+    dev, stride, src, out, dst = complex_io(kernel.name, x, (b, d1, d2), out_shape)
+    if (d1 if forward else d2) != length:
+        raise ValueError(f"{kernel.name}: columns of length {d1 if forward else d2}, plan N={length}")
+    if b and m:
+        radices, tabs = _stages(plan, dev)
+        launch(kernel, "k6_l1" if forward else "k6_l1_rev", dev, *src, *dst, stride, b, length, m,
+               ctypes.addressof(radices), len(plan.radices), tabs.stage_flat.data_ptr(), None)
+    return out
+
+
+def level2(x, tw: torch.Tensor, plan: FFTPlan, forward: bool = True):
+    """K6 level 2 (``l2`` forward, ``l2_rev`` backward) on (B, C, M) with a
+    (C, M) complex64 twiddle; returns ``x``'s form."""
+    kernel = K6_L2 if forward else K6_L2_REV
+    length = plan.n
+    require_domain(kernel, plan.kind == FFT_COMPLEX and _col_ok(length), length, plan.kind)
+    if is_cpu(x) and tw.device.type == "cpu":
+        return level2_plain(x, tw, plan, forward)
+    b, c, m = shape_of(x)
+    if c != length:
+        raise ValueError(f"{kernel.name}: columns of length {c}, plan N={length}")
+    dev, stride, src, out, dst = complex_io(kernel.name, x, (b, c, m))
+    check(f"{kernel.name} twiddle", tw, (c, m), dev, torch.complex64)
+    if b and m:
+        radices, tabs = _stages(plan, dev)
+        launch(kernel, "k6_l2" if forward else "k6_l2_rev", dev, *src, *dst, stride, b, length, m,
+               ctypes.addressof(radices), len(plan.radices), tabs.stage_flat.data_ptr(), tw.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7a, K7b: the real composite's level 1
+# ---------------------------------------------------------------------------
+
+
+def rfft_cols_plain(x: torch.Tensor, plan: FFTPlan):
+    """Plain version of K7a: (B, A, C) f32 -> packed planes (B, C, A/2) of
+    the length-A real FFT of every column."""
+    b, a, c = x.shape
+    rows = x.transpose(1, 2).reshape(b * c, a)
+    re, im = spectrum_to_packed_planes(stockham.rfft(rows, plan))
+    return re.reshape(b, c, a // 2), im.reshape(b, c, a // 2)
+
+
+def irfft_cols_plain(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
+    """Plain version of K7b: packed planes (B, C, A/2) -> (B, A, C) f32,
+    the unscaled inverse of :func:`rfft_cols_plain`."""
+    b, c, h = yre.shape
+    x = stockham.irfft(packed_planes_to_spectrum(yre, yim), plan).reshape(b, c, 2 * h)
+    return x.transpose(1, 2).contiguous()
+
+
+def _require_real_cols(kernel: Kernel, plan: FFTPlan):
+    require_domain(kernel, plan.kind == FFT_REAL and _col_ok(plan.n), plan.n, plan.kind)
+
+
+def _launch_real(kernel, entry, dev, plan, args):
+    radices, tabs = _stages(plan, dev)
+    launch(kernel, entry, dev, *args, ctypes.addressof(radices), len(plan.radices),
+           tabs.stage_flat.data_ptr(), tabs.split_tw.data_ptr())
+
+
+def rfft_cols(x: torch.Tensor, plan: FFTPlan):
+    """K7a on (B, A, C) f32, A = plan.n -> ((B, C, A/2), (B, C, A/2))."""
+    _require_real_cols(K7A, plan)
+    if x.device.type == "cpu":
+        return rfft_cols_plain(x, plan)
+    require_cuda(K7A.name, x)
+    b, a, c = x.shape
+    check("x", x, (b, plan.n, c), x.device)
+    yre = torch.empty((b, c, a // 2), dtype=torch.float32, device=x.device)
+    yim = torch.empty_like(yre)
+    if b and c:
+        _launch_real(K7A, "k7a_rfft_cols", x.device, plan,
+                     (x.data_ptr(), yre.data_ptr(), yim.data_ptr(), b, a, c))
+    return yre, yim
+
+
+def irfft_cols(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
+    """K7b on packed planes (B, C, A/2), A = plan.n -> (B, A, C) f32."""
+    _require_real_cols(K7B, plan)
+    if yre.device.type == "cpu" and yim.device.type == "cpu":
+        return irfft_cols_plain(yre, yim, plan)
+    require_cuda(K7B.name, yre)
+    b, c, h = yre.shape
+    check("yre", yre, (b, c, plan.n // 2), yre.device)
+    check("yim", yim, (b, c, plan.n // 2), yre.device)
+    x = torch.empty((b, 2 * h, c), dtype=torch.float32, device=yre.device)
+    if b and c:
+        _launch_real(K7B, "k7b_irfft_cols", yre.device, plan,
+                     (yre.data_ptr(), yim.data_ptr(), x.data_ptr(), b, 2 * h, c))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# The composites (rows in, rows out); ``plain`` runs every level's plain
+# version, whatever the device
+# ---------------------------------------------------------------------------
+
+
+def cfft_rows(x, plan: FFTPlan, forward: bool = True, ordered: bool = True, plain: bool = False):
+    """The complex dispatch (``_cfft_pair_impl``) on (rows, N) complex64
+    or a pair of planes: K5 for its sizes and K4 in its domain (natural or
+    unordered), the composite above (natural order either way)."""
+    n = plan.n
+    if hopper_small.in_domain(n):
+        fn = hopper_small.small_cfft_plain if plain else hopper_small.small_cfft_kernel
+        return fn(x, plan, forward)
+    if hopper_cfft.in_domain(n):
+        fn = hopper_cfft.cfft_plain if plain else hopper_cfft.cfft_kernel
+        return fn(x, plan, forward, ordered)
+    return cfft_composite(x, plan, forward, plain)
+
+
+def cfft_composite(x, plan: FFTPlan, forward: bool = True, plain: bool = False):
+    """Two-level complex FFT of (rows, N) rows (``_cfft_composite_v2``
+    :2741): natural order in, natural order out; returns ``x``'s form."""
+    n = plan.n
+    a, c = split_large(n)
+    rows = shape_of(x)[0]
+    dev = (x if isinstance(x, torch.Tensor) else x[0]).device
+    plan_a, plan_c = cached_plan(a, FFT_COMPLEX), cached_plan(c, FFT_COMPLEX)
+    l1 = level1_plain if plain else level1
+    l2 = level2_plain if plain else level2
+    tw = twiddle(n, forward, dev)
+    if forward:
+        mid = l1(_view(x, (rows, a, c)), plan_a, True)
+        y = l2(mid, tw, plan_c, True)
+    else:
+        mid = l2(_view(x, (rows, c, a)), tw, plan_c, False)
+        y = l1(mid, plan_a, False)
+    return _view(y, (rows, n))
+
+
+def rfft_composite(x: torch.Tensor, plan: FFTPlan, plain: bool = False):
+    """Two-level real FFT of (rows, N) f32 -> ordered packed planes
+    ((rows, N/2) x2) (``_rfft_direct_composite_v2`` :3160)."""
+    n = plan.n
+    a, c = split_large(n, real=True)
+    b, c2 = x.shape[0], c // 2
+    plan_c = cached_plan(c, FFT_COMPLEX)
+    nytr, nyti = _nyquist(n, str(x.device))
+
+    # Level 1: packed real FFTs of the columns -> (B, C, A/2) planes.
+    cols = rfft_cols_plain if plain else rfft_cols
+    pre, pim = cols(x.reshape(b, a, c), cached_plan(a, FFT_REAL))
+
+    # The DC and level-1 Nyquist lines (column 0: DC in re, Nyquist in im);
+    # the Nyquist line takes the half-bin modulation before its C-FFT.
+    dcrow, nyrow = pre[:, :, 0], pim[:, :, 0]
+    lines = torch.complex(torch.cat([dcrow, nyrow * nytr]),
+                          torch.cat([torch.zeros_like(dcrow), nyrow * nyti]))
+    g = cfft_rows(lines, plan_c, True, True, plain)
+    g0, gny = g[:b], g[b:]
+
+    # Level 2: twiddle, then ordered C-FFTs down the A/2 columns, in place.
+    l2 = level2_plain if plain else level2
+    gr, gi = l2((pre, pim), real_twiddle(n, True, x.device), plan_c, True)
+
+    # Hermitian assembly: rows k2 < C/2 hold bins k1 + A*k2 for k1 <= A/2
+    # directly; k1 in (A/2, A) comes from conj(G[A-k1, C-1-k2]).
+    first_r = torch.cat([g0.real[:, :c2, None], gr[:, :c2, 1:], gny.real[:, :c2, None]], 2)
+    first_i = torch.cat([g0.imag[:, :c2, None], gi[:, :c2, 1:], gny.imag[:, :c2, None]], 2)
+    sec_r = torch.flip(gr[:, c2:, 1:], (1, 2))
+    sec_i = -torch.flip(gi[:, c2:, 1:], (1, 2))
+    out_r = torch.cat([first_r, sec_r], 2).reshape(b, n // 2)
+    out_i = torch.cat([first_i, sec_i], 2).reshape(b, n // 2)
+    # The global Nyquist X[N/2] = G_dc[C/2] (real) goes to im[0].
+    out_i[:, 0] = g0.real[:, c2]
+    return out_r, out_i
+
+
+def irfft_composite(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, plain: bool = False):
+    """Unscaled inverse of :func:`rfft_composite`: ordered packed planes
+    (rows, N/2) x2 -> (rows, N) f32 (``_irfft_direct_composite_v2`` :3213)."""
+    n = plan.n
+    a, c = split_large(n, real=True)
+    b, half_a = yre.shape[0], a // 2
+    plan_c = cached_plan(c, FFT_COMPLEX)
+    nytr, nyti = _nyquist(n, str(yre.device))
+
+    nyq = yim[:, :1]  # X[N/2]
+    pr = yre.reshape(b, c // 2, a)
+    pi = torch.cat([torch.zeros_like(nyq), yim[:, 1:]], 1).reshape(b, c // 2, a)
+
+    # Rebuild the level-2 grid G (B, C, A/2) by Hermitian symmetry.
+    mids_r = torch.cat([pr[:, :, 1:half_a], torch.flip(pr[:, :, half_a + 1:], (1, 2))], 1)
+    mids_i = torch.cat([pi[:, :, 1:half_a], -torch.flip(pi[:, :, half_a + 1:], (1, 2))], 1)
+    # Column 0 (DC line): direct rows, then conj-flipped rows with the
+    # packed global Nyquist at k2 = C/2.
+    col0_r = torch.cat([pr[:, :, 0], nyq, torch.flip(pr[:, 1:, 0], (1,))], 1)
+    col0_i = torch.cat([pi[:, :, 0], torch.zeros_like(nyq), -torch.flip(pi[:, 1:, 0], (1,))], 1)
+    # Nyquist line (column A/2): direct rows, then conj-flipped rows.
+    ny = torch.complex(torch.cat([pr[:, :, half_a], torch.flip(pr[:, :, half_a], (1,))], 1),
+                       torch.cat([pi[:, :, half_a], -torch.flip(pi[:, :, half_a], (1,))], 1))
+
+    # The level-1 Nyquist row in c-space (backward C-FFT, conjugate
+    # half-bin modulation), folded into column 0 as fwd(ny_c)/C so that the
+    # level-2 inverse emits (DC_c, ny_c) in that column.
+    u = cfft_rows(ny, plan_c, False, True, plain)
+    ny_c = u.real * nytr + u.imag * nyti
+    f = cfft_rows(torch.complex(ny_c / float(c), torch.zeros_like(ny_c)), plan_c, True, True, plain)
+    grid_r = torch.cat([(col0_r - f.imag)[:, :, None], mids_r], 2)
+    grid_i = torch.cat([(col0_i + f.real)[:, :, None], mids_i], 2)
+
+    # Level 2 inverse, then the column-blocked real inverse of level 1.
+    l2 = level2_plain if plain else level2
+    pre, pim = l2((grid_r, grid_i), real_twiddle(n, False, yre.device), plan_c, False)
+    cols = irfft_cols_plain if plain else irfft_cols
+    return cols(pre, pim, cached_plan(a, FFT_REAL)).reshape(b, n)

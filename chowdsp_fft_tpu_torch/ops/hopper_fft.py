@@ -2,7 +2,7 @@
 of ``chowdsp_fft_tpu/ops/pallas_fft.py``'s engine registration and
 dispatch).
 
-Three kernel families, each checking its own size domain:
+Four kernel families, each checking its own size domain:
 
 - K1-K3 (``csrc/real_fft.cu``, this module): the packed real FFT, its
   inverse and the fused spectral product + inverse, for real
@@ -11,20 +11,25 @@ Three kernel families, each checking its own size domain:
   N = n1 * 128, 256 < N <= MAX_CN;
 - K5 (``csrc/small_dft.cu``, ``hopper_small``): the direct DFT, complex
   and real, for 8 <= N <= 256 and the smooth non-multiples of 128 below
-  512.
+  512;
+- K6, K7a, K7b (``csrc/composite_fft.cu``, ``hopper_composite``): the
+  two-level composite, complex and real, for every other size the JAX
+  ``pallas`` engine serves, up to 2^20.
 
-Each kernel has a plain PyTorch version built from the same tables and
-the same layout. A wrapper runs the plain version for a tensor on the
-CPU; for a CUDA tensor it launches the kernel or raises. Layouts are the
-JAX package's: packed planes with DC in re[0] and Nyquist in im[0]; the
-real unordered layout (position k1*64 + k2 holds bin k1 + N1*k2) on K1-K3,
-the complex one (k1*128 + k2) on K4, natural order on K5.
+The engine serves exactly the JAX engine's domain (``supports_plan``) and
+``auto`` prefers it where the JAX engine is preferred (``prefers``). Each
+kernel has a plain PyTorch version built from the same tables and the
+same layout. A wrapper runs the plain version for a tensor on the CPU;
+for a CUDA tensor it launches the kernel or raises. Layouts are the JAX
+package's: packed planes with DC in re[0] and Nyquist in im[0]; the real
+unordered layout (position k1*64 + k2 holds bin k1 + N1*k2) on K1-K3, the
+complex one (k1*128 + k2) on K4, natural order on K5 and the composite.
 
-Shared memory bounds the Stockham kernels: one thread block holds a row's
-two padded buffers, 8.25N bytes for a real row (132 KB at MAX_N = 16384)
-and 16.5N bytes for a complex one (223 KB at MAX_CN = 13824), of the
-227 KB a block may use. ``auto`` sends every other size to the Stockham
-engine.
+Shared memory bounds the single-row Stockham kernels: one thread block
+holds a row's two padded buffers, 8.25N bytes for a real row (132 KB at
+MAX_N = 16384) and 16.5N bytes for a complex one (223 KB at
+MAX_CN = 13824), of the 227 KB a block may use. Above those sizes the
+composite runs its columns in tiles that fit.
 """
 
 from __future__ import annotations
@@ -36,17 +41,28 @@ import torch
 
 from .. import api as _api
 from ..plans import FFT_COMPLEX, FFT_FORWARD, FFT_REAL, FFTPlan, cached_plan
-from . import hopper_cfft, hopper_small, stockham
+from . import hopper_cfft, hopper_composite, hopper_small, stockham
 from ._cuda import MAX_CN, MAX_N, Kernel, check as _check, device_perm, launch, require_cuda, require_domain
 from .convolve import convolve_accumulate_packed
 from .layout import packed_planes_to_spectrum, spectrum_to_packed_planes
-from .tables import LANES, inverse_perm, is_smooth_multiple, unordered_perm
+from .tables import (
+    JAX_MAX_N,
+    JAX_MAX_SMALL_FALLBACK,
+    JAX_MIN_SMALL,
+    LANES,
+    inverse_perm,
+    is_smooth_multiple,
+    jax_has_composite_split,
+    jax_small_dispatch,
+    unordered_perm,
+)
 
 __all__ = [
     "MAX_N",
     "MAX_CN",
     "KERNELS",
     "supports_plan",
+    "prefers",
     "rfft_packed",
     "irfft_packed",
     "convolve_irfft_packed",
@@ -79,7 +95,8 @@ K3 = Kernel(
     "chowdsp_fft_tpu/ops/pallas_fft.py:1989 (_irfft_conv_kernel)",
 )
 K4 = hopper_cfft.K4
-KERNELS = (K1, K2, K3, K4, hopper_small.K5_COMPLEX, hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE)
+KERNELS = (K1, K2, K3, K4, hopper_small.K5_COMPLEX, hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE,
+           *hopper_composite.KERNELS)
 
 
 def reset_launch_counts() -> None:
@@ -98,16 +115,26 @@ def _in_domain(n: int) -> bool:
 
 
 def supports_plan(plan: FFTPlan) -> bool:
-    """K5 sizes (8 <= N <= 256, smooth non-multiples of 128 below 512),
-    then real plans on K1-K3 and complex plans on K4. ``engine="auto"``
-    hands this engine everything it supports: each such size is served by
-    one kernel; larger sizes need a two-pass kernel and stay on the
-    Stockham engine."""
-    if hopper_small.in_domain(plan.n):
+    """The JAX engine's ``supports_plan`` (pallas_fft.py:185), size for
+    size and kind for kind: the direct-DFT sizes (K5), the single-kernel
+    sizes up to 2^17 (K1-K4 up to MAX_N/MAX_CN, the composite above) and
+    every composite split up to 2^20 (real plans need both factors even),
+    including the medium smooth non-multiples of 128 (576, 720, ...)."""
+    n = plan.n
+    if jax_small_dispatch(n):
         return True
-    if plan.kind == FFT_REAL:
-        return _in_domain(plan.n)
-    return hopper_cfft.in_domain(plan.n)
+    if n < JAX_MIN_SMALL:
+        return False
+    if n <= JAX_MAX_N and is_smooth_multiple(n):
+        return True
+    return jax_has_composite_split(n, real=plan.kind == FFT_REAL)
+
+
+def prefers(plan: FFTPlan) -> bool:
+    """What ``engine="auto"`` hands this engine: the JAX ``prefer_plan``
+    (pallas_fft.py:205), i.e. ``supports_plan`` without the medium smooth
+    non-multiples of 128 above 511, which go to the Stockham engine."""
+    return supports_plan(plan) and (plan.n <= JAX_MAX_SMALL_FALLBACK or plan.n % LANES == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -232,16 +259,19 @@ def _plan_for(n: int, plan: FFTPlan | None, kind: str = FFT_REAL) -> FFTPlan:
 
 
 def rfft_packed(x: torch.Tensor, plan: FFTPlan | None = None, ordered: bool = True):
-    """Real FFT -> packed half-spectrum planes ((..., N/2) f32 x2). K5
-    sizes are in natural order either way."""
+    """Real FFT -> packed half-spectrum planes ((..., N/2) f32 x2): K5,
+    then K1 up to MAX_N, then the composite; K5 and composite sizes are in
+    natural order either way."""
     n = x.shape[-1]
     plan = _plan_for(n, plan)
     batch_shape = x.shape[:-1]
     rows = _rows(x, n)
     if hopper_small.in_domain(n):
         yre, yim = hopper_small.small_rfft_kernel(rows, plan)
-    else:
+    elif _in_domain(n):
         yre, yim = rfft_packed_kernel(rows, plan, ordered)
+    else:
+        yre, yim = hopper_composite.rfft_composite(rows, plan)
     return yre.reshape(*batch_shape, n // 2), yim.reshape(*batch_shape, n // 2)
 
 
@@ -252,8 +282,10 @@ def irfft_packed(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan | None = No
     batch_shape = yre.shape[:-1]
     if hopper_small.in_domain(2 * m):
         x = hopper_small.small_irfft_kernel(_rows(yre, m), _rows(yim, m), plan)
-    else:
+    elif _in_domain(2 * m):
         x = irfft_packed_kernel(_rows(yre, m), _rows(yim, m), plan, ordered)
+    else:
+        x = hopper_composite.irfft_composite(_rows(yre, m), _rows(yim, m), plan)
     return x.reshape(*batch_shape, 2 * m)
 
 
@@ -261,9 +293,9 @@ def convolve_irfft_packed(are, aim, bre, bim, plan: FFTPlan | None = None, scali
     """Fused ``irfft_packed(A (.) B * scaling)``: the product spectrum
     never reaches device memory. A is (..., N/2) packed planes; B matches
     A's batch or is one shared spectrum (a filter). The fused kernel (K3)
-    serves the K1 domain with a number ``scaling``; a tensor ``scaling``
-    or a K5 size takes the unfused composition (same math), as the JAX
-    package's gate does."""
+    serves the K1 domain with a number ``scaling``; a tensor ``scaling``,
+    a K5 size or a composite size takes the unfused composition (same
+    math), as the JAX package's gate does (pallas_fft.py:2151-2159)."""
     m = are.shape[-1]
     plan = _plan_for(2 * m, plan)
     if isinstance(scaling, torch.Tensor) or not _in_domain(plan.n):
@@ -307,21 +339,14 @@ def _irfft_packed_unordered(yre, yim, plan=None):
     return irfft_packed(yre, yim, plan, ordered=False)
 
 
-def _cfft_rows(x, plan: FFTPlan, direction: str, ordered: bool):
-    """The complex dispatch (``_cfft_pair_impl``): K5 for its sizes, in
-    natural order either way; K4 otherwise, ordered or unordered."""
-    forward = direction == FFT_FORWARD
-    if hopper_small.in_domain(plan.n):
-        return hopper_small.small_cfft_kernel(x, plan, forward)
-    return hopper_cfft.cfft_kernel(x, plan, forward, ordered)
-
-
 def cfft(x: torch.Tensor, plan: FFTPlan | None = None, direction: str = FFT_FORWARD, ordered: bool = True):
     """Complex FFT over the last axis, unscaled: (..., N) -> (..., N)
-    complex64. The kernels read the complex64 rows in place as float2."""
+    complex64: K5, K4 up to MAX_CN, then the composite
+    (``hopper_composite.cfft_rows``). The kernels read the complex64 rows
+    in place as float2."""
     n = x.shape[-1]
     plan = _plan_for(n, plan, FFT_COMPLEX)
-    y = _cfft_rows(_rows(x, n, torch.complex64), plan, direction, ordered)
+    y = hopper_composite.cfft_rows(_rows(x, n, torch.complex64), plan, direction == FFT_FORWARD, ordered)
     return y.reshape(*x.shape[:-1], n)
 
 
@@ -330,7 +355,7 @@ def cfft_planes(re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None,
     """Complex FFT on SoA float32 planes -> (re, im) planes."""
     n = re.shape[-1]
     plan = _plan_for(n, plan, FFT_COMPLEX)
-    yre, yim = _cfft_rows((_rows(re, n), _rows(im, n)), plan, direction, ordered)
+    yre, yim = hopper_composite.cfft_rows((_rows(re, n), _rows(im, n)), plan, direction == FFT_FORWARD, ordered)
     return yre.reshape(*re.shape[:-1], n), yim.reshape(*re.shape[:-1], n)
 
 
@@ -352,4 +377,5 @@ _api.register_engine(
         "convolve_irfft_packed": convolve_irfft_packed,
     },
     supports=supports_plan,
+    prefers=prefers,
 )

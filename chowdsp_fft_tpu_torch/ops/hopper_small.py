@@ -29,7 +29,7 @@ import torch
 
 from ..plans import FFT_COMPLEX, FFT_REAL, FFTPlan
 from ._cuda import MAX_SMALL_N, Kernel, check, launch, require_cuda, require_domain
-from .hopper_cfft import as_complex, complex_io, is_cpu, like
+from .hopper_cfft import as_complex, complex_io, is_cpu, like, shape_of
 from .tables import is_smooth_multiple, small_roots, small_tables_c, small_tables_r, small_tables_ri
 
 __all__ = [
@@ -114,7 +114,8 @@ def small_cfft_kernel(x, plan: FFTPlan, forward: bool = True):
     require_domain(K5_COMPLEX, plan.kind == FFT_COMPLEX and in_domain(plan.n), plan.n, plan.kind)
     if is_cpu(x):
         return small_cfft_plain(x, plan, forward)
-    rows, dev, stride, src, out, dst = complex_io(K5_COMPLEX.name, x, plan.n)
+    rows = shape_of(x)[0]
+    dev, stride, src, out, dst = complex_io(K5_COMPLEX.name, x, (rows, plan.n))
     if rows:
         launch(K5_COMPLEX, "k5_small_cfft", dev, *src, *dst, stride, rows, plan.n,
                -1 if forward else 1, _device_roots(plan.n, str(dev)).data_ptr())

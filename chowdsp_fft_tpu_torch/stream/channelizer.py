@@ -32,11 +32,12 @@ class Channelizer(nn.Module):
       channels: number of channels C (must be a supported FFT size).
       taps_per_branch: prototype filter length is C * taps_per_branch.
       engine: FFT engine selector passed through to the api layer.
-      device: where the polyphase taps (buffer ``hpoly``) live.
+      device: where the polyphase taps (buffer ``hpoly``) live; the card
+        unless told otherwise.
     """
 
     def __init__(self, channels: int, taps_per_branch: int = 8, engine: str = "auto",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         if not api.is_valid_size(channels, api.FFT_COMPLEX):
             raise api.InvalidSizeError(f"channel count {channels} unsupported")
@@ -79,5 +80,5 @@ class Channelizer(nn.Module):
 
 
 def channelize(x: torch.Tensor, channels: int, taps_per_branch: int = 8, engine: str = "auto") -> torch.Tensor:
-    """One-shot :class:`Channelizer` on ``x``'s device."""
+    """One-shot :class:`Channelizer`; it follows ``x``'s device."""
     return Channelizer(channels, taps_per_branch, engine=engine, device=x.device)(x)

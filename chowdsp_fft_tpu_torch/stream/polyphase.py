@@ -38,11 +38,12 @@ def fp32_convolutions():
 
 
 def design_lowpass(
-    taps: int, cutoff: float, window: str = "hamming", device: torch.device | str = "cpu"
+    taps: int, cutoff: float, window: str = "hamming", device: torch.device | str = "cuda"
 ) -> torch.Tensor:
     """Windowed-sinc low-pass FIR design (cutoff in normalized Nyquist
     units, 0..1), computed in float64 and returned as float32 on
-    ``device``: the JAX package's ``design_lowpass``, value for value."""
+    ``device`` (the card unless told otherwise): the JAX package's
+    ``design_lowpass``, value for value."""
     n = np.arange(taps, dtype=np.float64) - (taps - 1) / 2.0
     h = np.sinc(cutoff * n) * cutoff
     if window == "hamming":

@@ -146,7 +146,7 @@ def test_cfft_unordered_spectrum_crosses_from_jax(n, engine):
     kernel, port Stockham) is reordered."""
     z = rand_complex(n + 5, (2, n))
     spec = np.asarray(cf.fft_unordered(z, engine="pallas" if n <= 4096 else "auto"))
-    pt = convert.cfft_unordered_from_numpy(spec, engine=engine)
+    pt = convert.cfft_unordered_from_numpy(spec, engine=engine, device="cpu")
     back = ct.ifft_unordered(pt, engine=engine) / n
     close(back, z, tol(n))
     if n == 1024 and engine == "auto":
@@ -155,23 +155,24 @@ def test_cfft_unordered_spectrum_crosses_from_jax(n, engine):
 
 def test_cfft_unordered_from_jax_composite_is_refused():
     """At N = 576 JAX's auto engine is its Stockham engine (natural order,
-    carried over), but an explicit engine="pallas" runs the two-level
-    composite, whose unordered layout is neither natural nor the kernel
-    permutation: converting it is refused instead of mis-ordered."""
+    carried over), but an explicit engine="pallas" runs the v1 two-level
+    composite (split 24 x 24), whose unordered layout is neither natural
+    nor the kernel permutation: converting it is refused instead of
+    mis-ordered. So is N = 186624 (split 432 x 432, v1) under auto."""
     n = 576
     z = rand_complex(n + 6, (2, n))
     natural = np.fft.fft(z.astype(np.complex128))
     spec = np.asarray(cf.fft_unordered(z, engine="auto"))
     close(spec, natural, tol(n))
-    back = ct.ifft_unordered(convert.cfft_unordered_from_numpy(spec)) / n
+    back = ct.ifft_unordered(convert.cfft_unordered_from_numpy(spec, device="cpu")) / n
     close(back, z, tol(n))
 
     pallas_spec = np.asarray(cf.fft_unordered(z, engine="pallas"))
     assert np.abs(pallas_spec - natural).max() > 1.0  # the composite's own layout
     with pytest.raises(ValueError, match="composite"):
-        convert.cfft_unordered_from_numpy(pallas_spec, src_engine="pallas")
+        convert.cfft_unordered_from_numpy(pallas_spec, src_engine="pallas", device="cpu")
     with pytest.raises(ValueError, match="composite"):
-        convert.cfft_unordered_from_numpy(np.zeros((1, 1 << 18), np.complex64))
+        convert.cfft_unordered_from_numpy(np.zeros((1, 186624), np.complex64), device="cpu")
 
 
 def test_jax_cfft_is_composite_follows_jax_dispatch():

@@ -135,3 +135,54 @@ def test_sdr_chain_launches_k5(dev):
     torch.cuda.synchronize()
     assert audio.shape == (256, 64) and bool(torch.isfinite(audio).all())
     assert hopper_small.K5_COMPLEX.launches == 1
+
+
+@pytest.mark.parametrize("n,rows", [(16384, 3), (65536, 2), (576, 5), (279936, 2), (1 << 20, 2)])
+def test_complex_composite_matches_plain(dev, n, rows):
+    """K6's four roles through the complex composite, against the same
+    composite on the plain versions, planes and complex64 alike."""
+    from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
+
+    plan = ct.cached_plan(n, ct.FFT_COMPLEX)
+    z = crand((rows, n), dev, n)
+    hf.reset_launch_counts()
+    y = hc.cfft_composite(z, plan, True)
+    assert maxerr(y, hc.cfft_composite(z, plan, True, plain=True)) <= 2e-7 * n
+    back = hc.cfft_composite(y, plan, False)
+    assert maxerr(back / n, hc.cfft_composite(y, plan, False, plain=True) / n) <= 2e-7 * n
+    assert maxerr(back / n, z) <= 2e-7 * n
+    yr, yi = hc.cfft_composite((z.real.contiguous(), z.imag.contiguous()), plan, True)
+    assert maxerr(torch.complex(yr, yi), y) == 0.0
+    torch.cuda.synchronize()
+    assert all(k.launches > 0 for k in (hc.K6_L1, hc.K6_L2, hc.K6_L2_REV, hc.K6_L1_REV))
+
+
+@pytest.mark.parametrize("n,rows", [(20480, 3), (32768, 4), (576, 2), (3 << 18, 2), (1 << 20, 1)])
+def test_real_composite_matches_plain(dev, n, rows):
+    from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
+
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    x = rand((rows, n), dev, n)
+    hf.reset_launch_counts()
+    re, im = hc.rfft_composite(x, plan)
+    pre, pim = hc.rfft_composite(x, plan, plain=True)
+    assert max(maxerr(re, pre), maxerr(im, pim)) <= 2e-7 * n
+    back = hc.irfft_composite(re, im, plan)
+    assert maxerr(back / n, hc.irfft_composite(re, im, plan, plain=True) / n) <= 2e-7 * n
+    assert maxerr(back / n, x) <= 2e-7 * n
+    torch.cuda.synchronize()
+    assert all(k.launches > 0 for k in (hc.K7A, hc.K7B, hc.K6_L2, hc.K6_L2_REV))
+
+
+def test_long_filter_ols_launches_composite(dev):
+    """A 6000-tap filter takes N = 2^15, a composite size."""
+    from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
+
+    x = rand((2, 60000), dev, 11)
+    h = rand((6000,), dev, 12) / 80
+    hf.reset_launch_counts()
+    y = stream.fir_filter_ols(x, h)
+    yp = stream.fir_filter_ols(x, h, engine="stockham")
+    torch.cuda.synchronize()
+    assert maxerr(y, yp) <= 1e-4
+    assert all(k.launches > 0 for k in (hc.K7A, hc.K7B, hc.K6_L2, hc.K6_L2_REV))

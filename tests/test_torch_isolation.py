@@ -1,9 +1,10 @@
 """The port stands alone: it imports without JAX, a CPU tensor never
 launches a kernel (it runs the plain versions), a tensor on any other
 non-CUDA device raises instead of falling back, each kernel family
-refuses sizes outside its own domain, and loading the CUDA library
-without nvcc raises."""
+refuses sizes outside its own domain, loading the CUDA library without
+nvcc raises, and the constructors default to the card."""
 
+import inspect
 import os
 import pathlib
 import subprocess
@@ -14,8 +15,8 @@ import pytest
 import torch
 
 import chowdsp_fft_tpu_torch as ct
-from chowdsp_fft_tpu_torch import stream
-from chowdsp_fft_tpu_torch.ops import _cuda, hopper_cfft, hopper_fft, hopper_small
+from chowdsp_fft_tpu_torch import convert, models, stream
+from chowdsp_fft_tpu_torch.ops import _cuda, hopper_cfft, hopper_composite, hopper_fft, hopper_small
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -26,21 +27,24 @@ import torch
 import chowdsp_fft_tpu_torch as ct
 from chowdsp_fft_tpu_torch import api, convert, models, plans, stream
 from chowdsp_fft_tpu_torch.ops import (
-    _cuda, convolve, hopper_cfft, hopper_fft, hopper_small, layout, stockham, tables,
+    _cuda, convolve, hopper_cfft, hopper_composite, hopper_fft, hopper_small, layout, stockham, tables,
 )
 from chowdsp_fft_tpu_torch.stream import channelizer, demod, polyphase
+from chowdsp_fft_tpu_torch.utils import roofline
 x = torch.randn(2, 1024)
 re, im = ct.rfft_packed_unordered(x)
 y = ct.irfft_packed_unordered(re, im)
 assert torch.allclose(y / 1024, x, atol=2e-7 * 1024)
 y = stream.fir_filter_ols(torch.randn(3000), torch.randn(33))
 assert y.shape == (3000,)
-for n in (256, 384):  # K5 and K4 sizes
+for n in (256, 384, 16384):  # K5, K4 and composite sizes
     z = torch.randn(3, n, dtype=torch.complex64)
     assert torch.allclose(ct.ifft(ct.fft(z)) / n, z, atol=2e-7 * n)
+x = torch.randn(2, 32768)  # the real composite
+assert torch.allclose(ct.irfft_packed(*ct.rfft_packed(x)) / 32768, x, atol=2e-7 * 32768)
 w = channelizer.channelize(torch.randn(16 * 64, dtype=torch.complex64), 16)
 assert w.shape == (16, 64)
-audio = models.SDRChain(models.SDRChainConfig(channels=16))(torch.randn(16 * 2 * 4 * 32, dtype=torch.complex64))
+audio = models.SDRChain(models.SDRChainConfig(channels=16), device="cpu")(torch.randn(16 * 2 * 4 * 32, dtype=torch.complex64))
 assert audio.shape == (16, 32) and bool(torch.isfinite(audio).all())
 assert all(k.launches == 0 for k in hopper_fft.KERNELS)
 assert not any(name == "jax" or name.startswith("jax.") for name, m in sys.modules.items() if m is not None)
@@ -76,10 +80,11 @@ def test_cpu_tensors_launch_no_kernel():
     stream.fir_filter_ols(xs, torch.ones(100) / 100)
     stream.partitioned_fir_apply(xs, torch.ones(1500) / 1500, block=1024, streaming=True, chunk=2)
     stream.partitioned_fir_apply(xs, torch.ones(300) / 300, block=128)  # K5 real sizes
-    for n in (64, 480, 384, 1920):  # K5 and K4 sizes
+    stream.fir_filter_ols(xs[:1], torch.ones(5000) / 5000)  # N = 2^15: the real composite
+    for n in (64, 480, 384, 1920, 16384, 576):  # K5, K4 and composite sizes
         z = torch.from_numpy((rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))).astype(np.complex64))
         ct.ifft_unordered(ct.fft_unordered(z))
-        ct.ifft_planes(*ct.fft_planes(z.real, z.imag))
+        ct.ifft_planes(*ct.fft_planes(z.real, z.imag, engine="hopper"), engine="hopper")
     assert all(k.launches == 0 for k in hopper_fft.KERNELS)
 
 
@@ -107,6 +112,18 @@ def test_non_cuda_device_raises_instead_of_falling_back():
         hopper_small.small_rfft_kernel(x[:, :256], rplan)
     with pytest.raises(ValueError, match="CUDA"):
         hopper_small.small_irfft_kernel(s[:, :128], s[:, :128], rplan)
+    z3 = torch.empty(2, 64, 32, dtype=torch.complex64, device="meta")
+    for forward in (True, False):
+        with pytest.raises(ValueError, match="CUDA"):
+            hopper_composite.level1(z3, ct.cached_plan(64 if forward else 32, ct.FFT_COMPLEX), forward)
+        with pytest.raises(ValueError, match="CUDA"):
+            hopper_composite.level2(z3, torch.empty(64, 32, dtype=torch.complex64), ct.cached_plan(64, ct.FFT_COMPLEX),
+                                    forward)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_composite.rfft_cols(torch.empty(2, 64, 32, device="meta"), ct.cached_plan(64, ct.FFT_REAL))
+    p3 = torch.empty(2, 32, 32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_composite.irfft_cols(p3, p3, ct.cached_plan(64, ct.FFT_REAL))
     assert all(k.launches == 0 for k in hopper_fft.KERNELS)
 
 
@@ -142,15 +159,21 @@ def test_loading_cuda_library_without_nvcc_raises(monkeypatch, tmp_path):
     ("real", 256, "irfft_packed_kernel"),
     ("real", 256, "convolve_irfft_packed_kernel"),
     ("complex", 256, "cfft_kernel"),  # a K5 size
-    ("complex", 16384, "cfft_kernel"),  # above MAX_CN
+    ("complex", 16384, "cfft_kernel"),  # above MAX_CN: the composite's
     ("real", 384, "small_rfft_kernel"),  # a K1 size
     ("complex", 384, "small_cfft_kernel"),  # a K4 size
+    ("complex", 4096, "level1"),  # columns longer than MAX_COL
+    ("complex", 4096, "level2"),
+    ("real", 4096, "rfft_cols"),
+    ("real", 4096, "irfft_cols"),
+    ("real", 1024, "level1"),  # a real plan on the complex column kernel
 ])
 def test_each_kernel_family_checks_its_own_domain(kind, n, wrapper):
-    """The engine serves K1-K5's union; a kernel wrapper refuses sizes of
-    another family's domain, on the CPU as on the card."""
+    """The engine serves the union of the kernel families; a kernel
+    wrapper refuses sizes of another family's domain, on the CPU as on
+    the card."""
     plan = ct.cached_plan(n, kind)
-    assert hopper_fft.supports_plan(plan) == (n != 16384)
+    assert hopper_fft.supports_plan(plan)
     m = n // 2
     args = {
         "rfft_packed_kernel": (hopper_fft.rfft_packed_kernel, (torch.zeros(2, n), plan)),
@@ -160,7 +183,31 @@ def test_each_kernel_family_checks_its_own_domain(kind, n, wrapper):
         "cfft_kernel": (hopper_cfft.cfft_kernel, (torch.zeros(2, n, dtype=torch.complex64), plan)),
         "small_rfft_kernel": (hopper_small.small_rfft_kernel, (torch.zeros(2, n), plan)),
         "small_cfft_kernel": (hopper_small.small_cfft_kernel, (torch.zeros(2, n, dtype=torch.complex64), plan)),
+        "level1": (hopper_composite.level1, (torch.zeros(2, n, 8, dtype=torch.complex64), plan)),
+        "level2": (hopper_composite.level2, (torch.zeros(2, n, 8, dtype=torch.complex64),
+                                             torch.zeros(n, 8, dtype=torch.complex64), plan)),
+        "rfft_cols": (hopper_composite.rfft_cols, (torch.zeros(2, n, 8), plan)),
+        "irfft_cols": (hopper_composite.irfft_cols, (torch.zeros(2, 8, m), torch.zeros(2, 8, m), plan)),
     }
     fn, a = args[wrapper]
     with pytest.raises(ValueError, match="outside the kernel domain"):
         fn(*a)
+
+
+def test_constructors_default_to_the_card():
+    """What builds state defaults to device="cuda" (on a machine without a
+    card, asking for the default raises rather than quietly building on
+    the CPU); functions that take tensors follow the tensor. Read off the
+    signatures, so no tensor is built on a missing card."""
+    builders = [
+        models.SDRChain.__init__,
+        stream.Channelizer.__init__,
+        stream.design_lowpass,
+        convert.partitioned_fir_from_numpy,
+        convert.cfft_unordered_from_numpy,
+        convert.sdr_chain_from_numpy,
+    ]
+    for fn in builders:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    for fn in (stream.channelize, stream.fir_filter_ols, stream.PartitionedFIR.__init__, ct.fft, ct.rfft_packed):
+        assert "device" not in inspect.signature(fn).parameters, fn.__qualname__

@@ -130,7 +130,7 @@ def test_stream_moves_from_jax_to_port(engine):
         jst, _ = jfir.step(jst, b)
 
     pfir = convert.partitioned_fir_from_numpy(
-        np.asarray(jfir.h_re), np.asarray(jfir.h_im), block, engine=engine
+        np.asarray(jfir.h_re), np.asarray(jfir.h_im), block, engine=engine, device="cpu"
     )
     pst = convert.fir_state_from_numpy({k: np.asarray(v) for k, v in jst.items()}, pfir)
     jy, py = [], []
@@ -150,4 +150,5 @@ def test_stream_moves_from_jax_to_port(engine):
 
 def test_convert_rejects_bad_spectra():
     with pytest.raises(ValueError):
-        convert.partitioned_fir_from_numpy(np.zeros((2, 100), np.float32), np.zeros((2, 100), np.float32), 512)
+        convert.partitioned_fir_from_numpy(np.zeros((2, 100), np.float32), np.zeros((2, 100), np.float32), 512,
+                                           device="cpu")

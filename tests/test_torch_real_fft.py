@@ -98,11 +98,12 @@ def test_irfft_packed_matches_jax(n, lead):
     close(ct.irfft_unordered(ct.rfft_unordered(xt)) / n, x, n)
 
 
-@pytest.mark.parametrize("n", [6, 960, 576, 32768])
+@pytest.mark.parametrize("n", [6, 1458, 279936, 1 << 21])
 def test_hopper_engine_out_of_domain_raises(n):
-    """N below the small-N direct DFT (8), N above MAX_N, and smooth
-    non-multiples of 128 above 511: auto takes the Stockham engine, an
-    explicit hopper request raises."""
+    """N below the small-N direct DFT (8), real N without an even
+    composite split (1458 = 2*3^6, 279936 = 2^7*3^7) and N above the
+    composite's 2^20 lie outside the JAX engine's domain and the port's:
+    auto takes the Stockham engine, an explicit hopper request raises."""
     assert ct.engine_for(n, "real") == "stockham"
     assert not ct.engine_supports("hopper", n, "real")
     x = torch.zeros(2, n)

@@ -47,7 +47,7 @@ def wrapped(a):
 
 def test_design_lowpass_matches_jax():
     for taps, cutoff, window in ((101, 0.25, "hamming"), (64, 0.5, "blackman"), (33, 0.1, "none")):
-        h = pstream.design_lowpass(taps, cutoff, window)
+        h = pstream.design_lowpass(taps, cutoff, window, device="cpu")
         assert h.dtype == torch.float32 and abs(float(h.sum()) - 1.0) < 1e-6
         np.testing.assert_array_equal(np_(h), np.asarray(jstream.design_lowpass(taps, cutoff, window)))
 
@@ -57,7 +57,7 @@ def test_polyphase_decimate_matches_jax_and_lfilter(t, block):
     """Short (one conv) and framed (t > 2*block) paths."""
     taps, d = 48, 4
     x = np.random.default_rng(t).standard_normal((2, t)).astype(np.float32)
-    h = np_(pstream.design_lowpass(taps, 1.0 / d))
+    h = np_(pstream.design_lowpass(taps, 1.0 / d, device="cpu"))
     y = pstream.polyphase_decimate(torch.from_numpy(x), torch.from_numpy(h), d, block=block)
     assert y.shape == (2, t // d)
     close(y, np.asarray(jstream.polyphase_decimate(x, h, d, block=block)), 1e-5)
@@ -99,7 +99,7 @@ def test_polyphase_interpolate_framed_matches_short_and_jax():
 def test_polyphase_interpolate_tone():
     fs, f0, up = 1000.0, 37.0, 4
     x = np.sin(2 * np.pi * f0 * np.arange(2048) / fs).astype(np.float32)
-    y = np_(pstream.polyphase_interpolate(torch.from_numpy(x), pstream.design_lowpass(64, 1.0 / up), up))
+    y = np_(pstream.polyphase_interpolate(torch.from_numpy(x), pstream.design_lowpass(64, 1.0 / up, device="cpu"), up))
     assert y.shape[-1] == 2048 * up
     spec = np.abs(np.fft.rfft(y[1000:-1000] * np.hanning(y.size - 2000)))
     assert abs(np.argmax(spec) - f0 / (fs * up / 2) * (spec.size - 1)) <= 2
@@ -108,7 +108,7 @@ def test_polyphase_interpolate_tone():
 def test_polyphase_updown_roundtrip_alignment():
     x = np.random.default_rng(7).standard_normal(4096).astype(np.float32)
     up = 4
-    h = pstream.design_lowpass(128, 0.9 / up)
+    h = pstream.design_lowpass(128, 0.9 / up, device="cpu")
     y = pstream.polyphase_decimate(pstream.polyphase_interpolate(torch.from_numpy(x), h, up), h, up)
     u = np.zeros(x.size * up)
     u[::up] = x
@@ -194,7 +194,7 @@ def test_channelizer_matches_mixer_definition():
     n = np.arange(c * steps)
     rng = np.random.default_rng(16)
     z = (rng.standard_normal((2, c * steps)) + 1j * rng.standard_normal((2, c * steps))).astype(np.complex64)
-    ch_mod = pstream.Channelizer(c, k)
+    ch_mod = pstream.Channelizer(c, k, device="cpu")
     got = np_(ch_mod(torch.from_numpy(z)))
     assert got.shape == (2, c, steps)
     proto = np.asarray(jstream.design_lowpass(c * k, 1.0 / c), np.float64)
@@ -247,7 +247,8 @@ def test_sdr_chain_matches_jax(channels):
     t = 2 * channels * 4 * 32
     iq = fm_carriers(channels, 2, t, seed=channels)
     chain = convert.sdr_chain_from_numpy(
-        cfg, np.asarray(jchain.front_lp), np.asarray(jchain.audio_lp), np.asarray(jchain.channelizer.hpoly)
+        cfg, np.asarray(jchain.front_lp), np.asarray(jchain.audio_lp), np.asarray(jchain.channelizer.hpoly),
+        device="cpu",
     )
     assert {name for name, _ in chain.named_buffers()} == {"front_lp", "audio_lp", "channelizer.hpoly"}
     iqt = torch.from_numpy(iq)
@@ -258,14 +259,14 @@ def test_sdr_chain_matches_jax(channels):
     assert audio.shape == (channels, 32) and audio.dtype == torch.float32
     close(audio, np.asarray(jchain(iq)), 1e-4)
     # The port's own filter design gives the same chain.
-    close(models.SDRChain(models.SDRChainConfig(channels=channels))(iqt), audio, 0.0)
+    close(models.SDRChain(models.SDRChainConfig(channels=channels), device="cpu")(iqt), audio, 0.0)
 
 
 def test_sdr_chain_recovers_fm_tone():
     """test_parallel.py: an FM tone in channel 5 of a 16-channel bank lands
     in channel 5 and demodulates back to its message frequency."""
     cfg = models.SDRChainConfig(channels=16, decimation=2, audio_decimation=2)
-    chain = models.SDRChain(cfg)
+    chain = models.SDRChain(cfg, device="cpu")
     c, dec, steps, ch = 16, 2, 1024, 5
     t_wide = np.arange(c * steps * dec, dtype=np.float64)
     msg_f = 0.001
@@ -284,4 +285,5 @@ def test_sdr_chain_moves_with_its_buffers():
     chain = models.SDRChain(models.SDRChainConfig(channels=16), device="cpu").to(torch.float64).to(torch.float32)
     assert chain.front_lp.device.type == "cpu" and chain.channelizer.hpoly.shape == (16, 8)
     with pytest.raises(ValueError):
-        convert.sdr_chain_from_numpy(models.SDRChainConfig(channels=16), np.zeros(3), np.zeros(64), np.zeros((16, 8)))
+        convert.sdr_chain_from_numpy(models.SDRChainConfig(channels=16), np.zeros(3), np.zeros(64), np.zeros((16, 8)),
+                                     device="cpu")

@@ -138,7 +138,7 @@ def test_partitioned_fir_block_128_crosses_from_jax():
     jst = jfir.init_state((2,))
     for b in blocks[:split]:
         jst, _ = jfir.step(jst, b)
-    pfir = convert.partitioned_fir_from_numpy(np.asarray(jfir.h_re), np.asarray(jfir.h_im), block)
+    pfir = convert.partitioned_fir_from_numpy(np.asarray(jfir.h_re), np.asarray(jfir.h_im), block, device="cpu")
     assert ct.engine_for(2 * block, "real") == "hopper"
     np.testing.assert_array_equal(np_(pfir.h_re), np.asarray(jfir.h_re))
     pst = convert.fir_state_from_numpy({k: np.asarray(v) for k, v in jst.items()}, pfir)
