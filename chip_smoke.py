@@ -58,9 +58,31 @@ Phases, each of which asserts:
 15. timing (informational): each composite kernel at config 2's top row
     against its plain version, its bound (``utils/roofline.py``) and the
     matching ``torch.fft`` call, the whole transforms, and the reverb's
-    wall and device time per call.
+    wall and device time per call;
+16. BASELINE config 4 as examples/02_convolution_reverb.py deploys it:
+    ``models.MultichannelConvolver`` built from the numpy IR bank (64
+    channels, 2 s IRs) on its default device, ``apply`` on 64 x 10 s at
+    48 kHz (block 4096: N = 8192, P = 24), 8 channels against a float64
+    FFT convolution (atol 1e-3), all 64 against the model on the Stockham
+    engine, then ``init_state`` and 8 ``step`` calls against the offline
+    output (atol 1e-4); K1 and K2 carried it;
+17. the STFT on the same audio (n_fft 1024, hop 512): ``spectrogram``,
+    ``stft`` -> ``istft`` (round trip, atol 1e-4), 4 channels' frames
+    against float64 (2e-7*n_fft*4); K1 and K2 carried it;
+18. the pipelined kernels K1-db, K2-db, K4-db: ``torch.equal`` to K1
+    (joint), K2, K4 at the headline shape, N = 16384, 9216 and MAX_CN,
+    the C = 1024 channelizer's batch, ragged batches, a single row and
+    config 4's own frames and accumulated spectra (recorded on phase 16's
+    path; K1-db and K2-db reproduce the model's outputs), and within
+    2e-7*N of their plain versions; a zeroed output must fail. Then their
+    own run, counted: config 4's frames and spectra through K1-db and
+    K2-db, the channelizer's transform through K4-db;
+19. timing (informational): each db kernel beside its grid kernel
+    (grid/db/db/grid in turn) at every shape of phase 18, plain versions
+    at the headline shape, config 4's ``apply`` (wall, device time by
+    kernel, idle share) and one ``step``, and ``spectrogram``.
 
-Phases run in the order 1-9, 12-14, 10, 11, 15. The line before the last
+Phases run in the order 1-9, 12-14, 16-18, 10, 11, 15, 19. The line before the last
 is the kernel report as JSON; the last line is ``{"ok": true, "device":
 {...}}``. Exits non-zero on any failure and when no CUDA device is
 present.
@@ -68,6 +90,7 @@ present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -559,7 +582,14 @@ def held(got, want, n: int, length: int) -> tuple[float, float]:
     An output far below unit scale (an intermediate divided by N) is thus
     held below its own size, and a kernel to its own length's bound: a
     zeroed output or a dropped bin fails."""
-    w = want.detach().cpu().numpy() if isinstance(want, torch.Tensor) else np.asarray(want)
+    if isinstance(want, torch.Tensor):  # both on the card: compute there
+        wide = torch.complex128 if (want.is_complex() or got.is_complex()) else torch.float64
+        w = want.to(wide)
+        if not w.numel():
+            return 0.0, TOL * n
+        err = float((got.to(wide) - w).abs().max())
+        return err, TOL * min(n, length * float(w.abs().pow(2).mean().sqrt()))
+    w = np.asarray(want)
     rms = float(np.sqrt(np.mean(np.abs(w.astype(np.complex128)) ** 2))) if w.size else 1.0
     return max_err(got, w), TOL * min(n, length * rms)
 
@@ -847,6 +877,322 @@ def phase15(ct, hc, roof, stream, dev, card, audio: np.ndarray, ir: np.ndarray) 
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: BASELINE config 4; phase 17: the STFT; phase 18: the pipelined
+# kernels against their grid kernels; phase 19: their timing
+# ---------------------------------------------------------------------------
+
+CONFIG4_BLOCK = 4096  # examples/02_convolution_reverb.py: ConvolverConfig(channels=64, block=4096)
+CONFIG4_STEPS = 8
+CONFIG4_ATOL = 1e-3  # vs float64 (test_models.py:35)
+CONFIG4_STREAM_ATOL = 1e-4  # streaming vs offline (test_models.py:49)
+STFT = (1024, 512)  # (n_fft, hop)
+STFT_ATOL = 1e-4  # round trip (test_stream.py:248)
+STFT_CHANNELS = 4  # channels held against float64 frames
+REAL_DB_SHAPES = (HEADLINE, (16384, 1024), (4096, 1000), (16384, 300), (4096, 1))
+COMPLEX_DB_SHAPES = (HEADLINE, K4_PATH, (9216, 128), (13824, 256), (4096, 1000), (4096, 1))
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Record (arguments, result) of every call of ``module.name`` (a
+    kernel wrapper that the engine looks up when it calls it)."""
+    fn = getattr(module, name)
+    calls = []
+
+    def spy(*args):
+        out = fn(*args)
+        calls.append((args, out))
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def phase16(models, hf, dev, audio: np.ndarray, ir: np.ndarray) -> tuple[dict[str, int], dict]:
+    """config 4 as examples/02_convolution_reverb.py deploys it: the model
+    built from the numpy IR bank on its default device, the offline FDL on
+    64 channels x 10 s (N = 8192, P = 24, 118 blocks), then init_state and
+    8 step calls. Returns the path's launches and the model's own K1 call
+    (frames in, spectra out) and K2 call (accumulated spectra in, blocks
+    out), recorded on the way."""
+    channels, t = audio.shape
+    cfg = models.ConvolverConfig(channels=channels, block=CONFIG4_BLOCK)
+    x = torch.from_numpy(audio).to(dev)
+    hf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    conv = models.MultichannelConvolver(ir, cfg)
+    with recording(hf, "rfft_packed_kernel") as k1_calls, recording(hf, "irfft_packed_kernel") as k2_calls:
+        wet = conv.apply(x)
+    state = conv.init_state()
+    blocks = []
+    for i in range(CONFIG4_STEPS):
+        state, y = conv.step(state, x[:, i * cfg.block : (i + 1) * cfg.block])
+        blocks.append(y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in hf.KERNELS}
+    nb = -(-t // cfg.block)
+    log(f"phase 16 config 4 (MultichannelConvolver, {channels} ch x {t} samples, {ir.shape[-1]}-tap IRs, block "
+        f"{cfg.block}: N={2 * cfg.block}, P={conv.fir.partitions}, {nb} blocks) built, applied and stepped "
+        f"{CONFIG4_STEPS}x in {wall:.3f} s (first call, host clock); launches {launches}")
+    require(conv.h_re.device.type == "cuda", f"the model built from a numpy IR lives on {conv.h_re.device}")
+    for k in (hf.K1, hf.K2):
+        require(launches[k.name] > 0, f"{k.name} was not launched on config 4's path")
+    require(len(k1_calls) == 1 and len(k2_calls) == 1, f"apply made {len(k1_calls)} K1 and {len(k2_calls)} K2 calls")
+    frames = k1_calls[0][0][0]
+    require(tuple(frames.shape) == (channels * nb, 2 * cfg.block), f"config 4 frames {tuple(frames.shape)}")
+    require(tuple(wet.shape) == audio.shape and bool(torch.isfinite(wet).all()), f"wet {tuple(wet.shape)}")
+    ref = fft_convolve64(audio[:8].astype(np.float64), ir[:8].astype(np.float64))
+    err64 = float(np.abs(wet[:8].double().cpu().numpy() - ref).max())
+    plain = models.MultichannelConvolver(ir, models.ConvolverConfig(channels=channels, block=cfg.block,
+                                                                    engine="stockham")).apply(x)
+    err_eng = float((wet - plain).abs().max())
+    del plain
+    streamed = torch.cat(blocks, -1)
+    err_stream = float((streamed - wet[:, : streamed.shape[-1]]).abs().max())
+    log(f"phase 16 config 4: 8 channels vs float64 {err64:.3e} (atol {CONFIG4_ATOL}, wet rms "
+        f"{float(np.sqrt((ref ** 2).mean())):.3f}); {channels} channels vs engine=stockham {err_eng:.3e} (atol "
+        f"{REVERB_ENGINE_ATOL}); {CONFIG4_STEPS} step blocks vs offline {err_stream:.3e} (atol {CONFIG4_STREAM_ATOL})")
+    require(err64 <= CONFIG4_ATOL, f"config 4 vs float64: {err64} > {CONFIG4_ATOL}")
+    require(err_eng <= REVERB_ENGINE_ATOL, f"config 4 vs stockham: {err_eng} > {REVERB_ENGINE_ATOL}")
+    require(err_stream <= CONFIG4_STREAM_ATOL, f"config 4 streaming vs offline: {err_stream} > {CONFIG4_STREAM_ATOL}")
+    log("phase 16 ok")
+    return launches, {"k1": k1_calls[0], "k2": k2_calls[0]}
+
+
+def phase17(stream, hf, dev, audio: np.ndarray) -> dict[str, int]:
+    """spectrogram, then stft -> istft, on config 4's 64-channel audio at
+    n_fft 1024, hop 512 (~60,000 rows of 1024 through K1 and K2)."""
+    n_fft, hop = STFT
+    channels, t = audio.shape
+    x = torch.from_numpy(audio).to(dev)
+    hf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    power = stream.spectrogram(x, n_fft=n_fft, hop=hop)
+    spec = stream.stft(x, n_fft=n_fft, hop=hop)
+    back = stream.istft(spec, hop=hop, length=t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in hf.KERNELS}
+    nf = spec.shape[-2]
+    log(f"phase 17 STFT (n_fft {n_fft}, hop {hop}, {channels} x {nf} frames): spectrogram, stft, istft in "
+        f"{wall:.3f} s (first call, host clock); launches {launches}")
+    for k in (hf.K1, hf.K2):
+        require(launches[k.name] > 0, f"{k.name} was not launched on the STFT path")
+    require(tuple(spec.shape) == (channels, nf, n_fft // 2 + 1) and spec.dtype == torch.complex64,
+            f"stft {tuple(spec.shape)} {spec.dtype}")
+    require(tuple(power.shape) == tuple(spec.shape) and bool(torch.isfinite(power).all())
+            and bool((power >= 0).all()), "spectrogram")
+    require(torch.equal(power, spec.real ** 2 + spec.imag ** 2), "spectrogram != |stft|^2")
+    err_rt = float((back - x).abs().max())
+    w = stream.hann_window(n_fft).astype(np.float64)
+    s_host = spec[:STFT_CHANNELS].cpu().numpy()
+    err64 = 0.0
+    for c in range(STFT_CHANNELS):
+        xp = np.pad(audio[c].astype(np.float64), (n_fft - hop, n_fft))
+        frames = np.lib.stride_tricks.sliding_window_view(xp, n_fft)[::hop][:nf] * w
+        err64 = max(err64, float(np.abs(s_host[c] - np.fft.rfft(frames, axis=-1)).max()))
+    bound = TOL * n_fft * 4
+    log(f"phase 17 STFT: round trip max abs err {err_rt:.3e} (atol {STFT_ATOL}); {STFT_CHANNELS} channels' "
+        f"frames vs float64 {err64:.3e} (bound {bound:.3e})")
+    require(err_rt <= STFT_ATOL, f"istft(stft(x)) vs x: {err_rt} > {STFT_ATOL}")
+    require(err64 <= bound, f"stft vs float64 frames: {err64} > {bound}")
+    log("phase 17 ok")
+    return launches
+
+
+def phase18(ct, hf, hc4, lib, dev, rng, model_calls: dict) -> tuple[dict[str, float], dict[str, int]]:
+    """K1-db, K2-db and K4-db: torch.equal to their grid kernels and within
+    ``held``'s bound (2e-7*N at unit scale) of their plain versions, at the
+    headline shape, one block per SM (N=16384), the register-prefetch
+    range (MAX_CN), ragged batches and a single row, and on config 4's own
+    frames and accumulated spectra (recorded on the model's path), whose
+    grid outputs the model produced. A zeroed db output must fail. Then
+    the pipelined forms' own run, counted: config 4's frames and spectra
+    through K1-db and K2-db, the C=1024 channelizer's transform through
+    K4-db. Returns each db kernel's worst error against its plain
+    version and the launches of that run."""
+    db = (hf.K1_DB, hf.K2_DB, hc4.K4_DB)
+    worst = {k.name: 0.0 for k in db}
+    caught: dict[str, float] = {}
+
+    def note(kernel, key, got, want, n):
+        err, bound = held(got, want, n, n)
+        worst[kernel.name] = max(worst[kernel.name], err)
+        require(err <= bound, f"{key}: max abs err {err:.3e} > {bound:.3e}")
+        if kernel.name not in caught:  # the check can fail: a zeroed output
+            zero_err, _ = held(torch.zeros_like(got), want, n, n)
+            require(zero_err > bound, f"{key}: a zeroed output passes ({zero_err:.3e} <= {bound:.3e})")
+            caught[kernel.name] = zero_err / bound
+
+    def real_case(x, n, ordered, tag):
+        plan = ct.cached_plan(n, ct.FFT_REAL)
+        m = n // 2
+        joint = hf.rfft_packed_joint_kernel(x, plan, ordered)
+        joint_db = hf.rfft_packed_joint_db_kernel(x, plan, ordered)
+        require(torch.equal(joint_db, joint), f"{tag}: K1-db differs from K1")
+        re, im = hf.rfft_packed_kernel(x, plan, ordered)
+        require(torch.equal(joint[:, :m], re) and torch.equal(joint[:, m:], im), f"{tag}: joint K1 != planes")
+        note(hf.K1_DB, f"{tag} K1-db", joint_db, hf.rfft_packed_joint_plain(x, plan, ordered), n)
+        del joint, joint_db
+        back_db = hf.irfft_packed_db_kernel(re, im, plan, ordered)
+        require(torch.equal(back_db, hf.irfft_packed_kernel(re, im, plan, ordered)), f"{tag}: K2-db differs from K2")
+        note(hf.K2_DB, f"{tag} K2-db", back_db / n, hf.irfft_packed_plain(re, im, plan, ordered) / n, n)
+
+    for n, rows in REAL_DB_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(dev)
+        for ordered in (True, False):
+            real_case(x, n, ordered, f"real N={n} rows={rows} {'ord' if ordered else 'unord'}")
+    (frames, plan8k, ordered), (yre, yim) = model_calls["k1"]
+    n8k, m8k = plan8k.n, plan8k.n // 2
+    for order in (True, False):
+        real_case(frames, n8k, order, f"config 4 frames ({frames.shape[0]} x {n8k}) {'ord' if order else 'unord'}")
+    joint_db = hf.rfft_packed_joint_db_kernel(frames, plan8k, ordered)
+    require(torch.equal(joint_db[:, :m8k], yre) and torch.equal(joint_db[:, m8k:], yim),
+            "K1-db differs from the model's K1 output")
+    del joint_db
+    (are, aim, _, k2_ordered), model_blocks = model_calls["k2"]
+    acc_db = hf.irfft_packed_db_kernel(are, aim, plan8k, k2_ordered)
+    require(torch.equal(acc_db, model_blocks), "K2-db differs from the model's K2 output")
+    note(hf.K2_DB, "config 4 accumulated spectra K2-db", acc_db / n8k,
+         hf.irfft_packed_plain(are, aim, plan8k, k2_ordered) / n8k, n8k)
+    del acc_db
+
+    for n, rows in COMPLEX_DB_SHAPES:
+        plan = ct.cached_plan(n, ct.FFT_COMPLEX)
+        z = torch.from_numpy(crandn(rng, (rows, n))).to(dev)
+        planes = (z.real.contiguous(), z.imag.contiguous())
+        for forward in (True, False):
+            for ordered in (True, False):
+                tag = f"complex N={n} rows={rows} {'fwd' if forward else 'bwd'} {'ord' if ordered else 'unord'}"
+                y = hc4.cfft_kernel(z, plan, forward, ordered)
+                y_db = hc4.cfft_db_kernel(z, plan, forward, ordered)
+                require(torch.equal(y_db, y), f"{tag}: K4-db differs from K4")
+                yr, yi = hc4.cfft_db_kernel(planes, plan, forward, ordered)
+                require(torch.equal(torch.complex(yr, yi), y), f"{tag}: K4-db planes differ from K4")
+                scale = 1.0 if forward else 1.0 / n
+                note(hc4.K4_DB, f"{tag} K4-db", y_db * scale, hc4.cfft_plain(z, plan, forward, ordered) * scale, n)
+    torch.cuda.synchronize()
+
+    blocks_per_sm = {f"{name} N={n}": lib.hopper_pipelined_blocks_per_sm(which, n)
+                     for name, which, sizes in (("K1-db", 1, (4096, 8192, 16384)), ("K2-db", 2, (4096, 8192, 16384)),
+                                                ("K4-db", 4, (1024, 4096, 9216, 13824)))
+                     for n in sizes}
+    zc = torch.from_numpy(crandn(rng, K4_PATH[::-1])).to(dev)
+    c_plan = ct.cached_plan(K4_PATH[0], ct.FFT_COMPLEX)
+    hf.reset_launch_counts()
+    hf.rfft_packed_joint_db_kernel(frames, plan8k, ordered)
+    hf.irfft_packed_db_kernel(are, aim, plan8k, k2_ordered)
+    hc4.cfft_db_kernel(zc, c_plan, False, True)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in db}
+    require(all(v > 0 for v in launches.values()), f"pipelined run launches {launches}")
+    log(f"phase 18 ok: K1-db, K2-db, K4-db torch.equal to K1, K2, K4 at every shape (config 4's frames and "
+        f"spectra: the model's own outputs); worst vs plain " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + "; a zeroed output fails by at least " + ", ".join(f"{r:.0f}x ({k})" for k, r in caught.items())
+        + f"; blocks per SM {blocks_per_sm}; pipelined run launches {launches}")
+    return worst, launches
+
+
+def phase19(ct, hf, hc4, roof, models, stream, dev, card, audio: np.ndarray, ir: np.ndarray,
+            model_calls: dict) -> dict[str, tuple]:
+    """Timing (informational). Each db kernel beside its grid kernel,
+    grid/db/db/grid in turn, at every shape of phase 18 (K1 and K1-db
+    joint unordered, K2 unordered, K4 complex64 forward ordered); at the
+    headline shape the plain versions; config 4's apply (wall, device time
+    by kernel, idle share) and one step (wall); spectrogram (wall, device).
+    Returns {db kernel: (ms, plain ms)} at the headline shape."""
+
+    def alternate(grid_fn, db_fn, args):
+        g1, d1 = time_ms(grid_fn, args), time_ms(db_fn, args)
+        d2, g2 = time_ms(db_fn, args), time_ms(grid_fn, args)
+        return (g1 + g2) / 2, (d1 + d2) / 2
+
+    def report(name, shape, grid_ms, db_ms, bound):
+        log(f"phase 19 A/B {name} {shape}: grid {grid_ms:.4f} ms, db {db_ms:.4f} ms, db/grid "
+            f"{db_ms / grid_ms:.3f}; bound {bound.ms:.4f} ms ({bound.bound_by}) [{card}]")
+
+    out: dict[str, tuple] = {}
+    for n, rows in REAL_DB_SHAPES:
+        plan = ct.cached_plan(n, ct.FFT_REAL)
+        xs = [(torch.randn(rows, n, device=dev),) for _ in range(2)]
+        g, d = alternate(lambda v: hf.rfft_packed_joint_kernel(v, plan, False),
+                         lambda v: hf.rfft_packed_joint_db_kernel(v, plan, False), xs)
+        report("K1 / K1-db", f"N={n} B={rows}", g, d, roof.fft_roofline(n, rows, "real"))
+        if (n, rows) == HEADLINE:
+            out[hf.K1_DB.name] = (d, time_ms(lambda v: hf.rfft_packed_joint_plain(v, plan, False), xs))
+        specs = [hf.rfft_packed_kernel(v, plan, False) for (v,) in xs]
+        g, d = alternate(lambda r, i: hf.irfft_packed_kernel(r, i, plan, False),
+                         lambda r, i: hf.irfft_packed_db_kernel(r, i, plan, False), specs)
+        report("K2 / K2-db", f"N={n} B={rows}", g, d, roof.fft_roofline(n, rows, "real"))
+        if (n, rows) == HEADLINE:
+            out[hf.K2_DB.name] = (d, time_ms(lambda r, i: hf.irfft_packed_plain(r, i, plan, False), specs))
+        del xs, specs
+    (frames, plan8k, ordered), _ = model_calls["k1"]
+    (are, aim, _, k2_ordered), _ = model_calls["k2"]
+    rows8k = frames.shape[0]
+    g, d = alternate(lambda v: hf.rfft_packed_joint_kernel(v, plan8k, ordered),
+                     lambda v: hf.rfft_packed_joint_db_kernel(v, plan8k, ordered), [(frames,)])
+    report("K1 / K1-db", f"config 4 frames N={plan8k.n} B={rows8k}", g, d, roof.fft_roofline(plan8k.n, rows8k, "real"))
+    g, d = alternate(lambda r, i: hf.irfft_packed_kernel(r, i, plan8k, k2_ordered),
+                     lambda r, i: hf.irfft_packed_db_kernel(r, i, plan8k, k2_ordered), [(are, aim)])
+    report("K2 / K2-db", f"config 4 spectra N={plan8k.n} B={rows8k}", g, d,
+           roof.fft_roofline(plan8k.n, rows8k, "real"))
+    for n, rows in COMPLEX_DB_SHAPES:
+        plan = ct.cached_plan(n, ct.FFT_COMPLEX)
+        zs = [(torch.randn(rows, n, dtype=torch.complex64, device=dev),) for _ in range(2)]
+        g, d = alternate(lambda v: hc4.cfft_kernel(v, plan, True, True),
+                         lambda v: hc4.cfft_db_kernel(v, plan, True, True), zs)
+        report("K4 / K4-db", f"N={n} B={rows}", g, d, roof.fft_roofline(n, rows, "complex"))
+        if (n, rows) == HEADLINE:
+            out[hc4.K4_DB.name] = (d, time_ms(lambda v: hc4.cfft_plain(v, plan, True, True), zs))
+        del zs
+
+    channels, t = audio.shape
+    conv = models.MultichannelConvolver(ir, models.ConvolverConfig(channels=channels, block=CONFIG4_BLOCK))
+    x = torch.from_numpy(audio).to(dev)
+
+    def wall_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(reps):
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    def breakdown(name, fn, wall, top=10):
+        by_kernel = kernel_device_times(fn)
+        device_ms = sum(by_kernel.values())
+        log(f"phase 19 {name}: wall {wall:.3f} ms per call (median, host clock), device {device_ms:.3f} ms, "
+            f"idle share {1 - device_ms / wall:.3f} [{card}]")
+        for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
+            log(f"  {ms:9.4f} ms  {kname[:110]}")
+
+    apply_wall = wall_ms(lambda: conv.apply(x), 5)
+    breakdown(f"config 4 apply ({channels} ch x {t} samples, block {CONFIG4_BLOCK})", lambda: conv.apply(x),
+              apply_wall, top=14)
+    state = conv.init_state()
+    frame = x[:, :CONFIG4_BLOCK]
+    step_wall = wall_ms(lambda: conv.step(state, frame), 7)
+    breakdown(f"config 4 step ({channels} x {CONFIG4_BLOCK})", lambda: conv.step(state, frame), step_wall, top=6)
+    n_fft, hop = STFT
+    spec_wall = wall_ms(lambda: stream.spectrogram(x, n_fft=n_fft, hop=hop), 5)
+    breakdown(f"spectrogram (n_fft {n_fft}, hop {hop}, {channels} x {t})",
+              lambda: stream.spectrogram(x, n_fft=n_fft, hop=hop), spec_wall)
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -989,6 +1335,13 @@ def main() -> int:
     audio, ir = make_reverb(rng)
     phase14(ct, hc, hf, stream, dev, audio, ir)
 
+    # -- phases 16-18: config 4, the STFT, the pipelined kernels -------------
+    _, model_calls = phase16(models, hf, dev, audio, ir)
+    phase17(stream, hf, dev, audio)
+    db_errs, db_launches = phase18(ct, hf, hopper_cfft, lib, dev, rng, model_calls)
+    errs.update(db_errs)
+    launches.update(db_launches)
+
     # -- phase 10 -------------------------------------------------------------
     for k in hf.KERNELS:
         require(launches[k.name] > 0, f"{k.name} was not launched on its path")
@@ -1004,6 +1357,8 @@ def main() -> int:
     timing.update(phase11(ct, hopper_cfft, hopper_small, models, dev, capture, card))
     del capture
     composite_timing = phase15(ct, hc, roof, stream, dev, card, audio, ir)
+    db_timing = phase19(ct, hf, hopper_cfft, roof, models, stream, dev, card, audio, ir, model_calls)
+    del model_calls
 
     # Bounds and library calls at each kernel's timed shape (phases 5 and 11).
     n, rows = HEADLINE
@@ -1017,6 +1372,9 @@ def main() -> int:
         hopper_small.K5_COMPLEX.name: roof.fft_roofline(*SMALL_TIMED, "complex"),
         hopper_small.K5_REAL.name: roof.fft_roofline(*SMALL_TIMED, "real"),
         hopper_small.K5_REAL_INVERSE.name: roof.fft_roofline(*SMALL_TIMED, "real"),
+        hf.K1_DB.name: roof.fft_roofline(n, rows, "real"),
+        hf.K2_DB.name: roof.fft_roofline(n, rows, "real"),
+        hopper_cfft.K4_DB.name: roof.fft_roofline(n, rows, "complex"),
     }
     library = {
         hf.K1.name: cufft_r, hf.K2.name: cufft_i, hf.K3.name: None, hf.K4.name: timing.pop("cufft_fft"),
@@ -1024,6 +1382,10 @@ def main() -> int:
         hopper_small.K5_REAL.name: timing.pop("cufft_small_rfft"),
         hopper_small.K5_REAL_INVERSE.name: timing.pop("cufft_small_irfft"),
     }
+    # The db forms compute their grid kernels' functions at the same shape.
+    library.update({hf.K1_DB.name: library[hf.K1.name], hf.K2_DB.name: library[hf.K2.name],
+                    hopper_cfft.K4_DB.name: library[hf.K4.name]})
+    timing.update(db_timing)
     for name, (ms, plain_ms, bound, lib) in composite_timing.items():
         timing[name] = (ms, plain_ms)
         bounds[name] = bound

@@ -3,17 +3,19 @@
 It keeps the JAX package's public layouts and entry points and runs the
 transforms on hand-written Hopper kernels (``ops/hopper_fft.py``,
 ``csrc/*.cu``): the packed real FFT and fast convolution (K1-K3), the
-complex FFT (K4) and the small-N direct DFT (K5); every other size runs
-on the plain PyTorch Stockham engine. It imports ``torch`` and never
-``jax``.
+complex FFT (K4), the small-N direct DFT (K5), the two-level composite
+up to 2^20 (K6, K7a, K7b), and the pipelined forms of K1, K2 and K4
+(K1-db, K2-db, K4-db; no dispatch path runs them, as in the JAX
+package). Sizes outside the kernels' domain run on the plain PyTorch
+Stockham engine. It imports ``torch`` and never ``jax``.
 
 Layers:
   plans   — factorization + twiddle tables
   ops     — Stockham engine (plain torch) + Hopper engine (CUDA kernels)
   api     — the public transform/convolve surface (re-exported here)
-  stream  — overlap-save FIR, polyphase resampling, channelizer, demod
-  models  — the SDR receiver chain
-  convert — carry the JAX package's plans, filters and state across
+  stream  — overlap-save FIR, polyphase resampling, channelizer, demod, STFT
+  models  — the SDR receiver chain, the multichannel convolver
+  convert — carry the JAX package's plans, filters, state and models across
 """
 
 from .api import (  # noqa: F401

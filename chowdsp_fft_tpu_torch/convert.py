@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import api
+from .models.convolver import ConvolverConfig, MultichannelConvolver
 from .models.sdr import SDRChain, SDRChainConfig
 from .ops import hopper_cfft, hopper_fft
 from .ops.tables import (
@@ -44,6 +45,7 @@ __all__ = [
     "fir_state_from_numpy",
     "cfft_unordered_from_numpy",
     "sdr_chain_from_numpy",
+    "convolver_from_numpy",
     "jax_unordered_is_permuted",
     "jax_cfft_is_composite",
 ]
@@ -222,3 +224,22 @@ def sdr_chain_from_numpy(
             raise ValueError(f"filter shape {value.shape} != the config's {tuple(buf.shape)}")
         buf.copy_(torch.tensor(value))
     return chain
+
+
+def convolver_from_numpy(
+    jax_conv_h_re: np.ndarray,
+    jax_conv_h_im: np.ndarray,
+    config,
+    src_engine: str = "auto",
+    device: torch.device | str = "cuda",
+) -> MultichannelConvolver:
+    """A port ``MultichannelConvolver`` holding the JAX model's IR spectra
+    (``conv.fir.h_re``/``h_im`` as numpy, (channels, P, block), taken under
+    JAX engine ``src_engine``). ``config`` is the port's ``ConvolverConfig``
+    or the JAX one (same fields). Streaming state crosses with
+    :func:`fir_state_from_numpy` (``fir=conv.fir``)."""
+    if not isinstance(config, ConvolverConfig):
+        config = ConvolverConfig(**{f.name: getattr(config, f.name) for f in dataclasses.fields(ConvolverConfig)})
+    fir = partitioned_fir_from_numpy(jax_conv_h_re, jax_conv_h_im, config.block, engine=config.engine,
+                                     src_engine=src_engine, device=device)
+    return MultichannelConvolver.from_spectra(fir.h_re, fir.h_im, config)

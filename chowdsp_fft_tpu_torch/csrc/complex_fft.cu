@@ -28,8 +28,10 @@
 // pass, so the TPU's ordered-in-kernel gate has no counterpart here.
 // MAX_CN = 13824 (n1 = 108) is the largest smooth n1 * 128 whose two
 // buffers fit the 227 KB a block may use (16384 would need 270 KB).
+// The per-row body lives in row_fft.cuh, shared with the pipelined form
+// (pipelined_fft.cu).
 
-#include "stockham.cuh"
+#include "row_fft.cuh"
 
 #ifndef CHOWDSP_MAX_CN
 #error "build with -DCHOWDSP_MAX_CN=<largest complex N> (ops/_cuda.py passes it)"
@@ -51,24 +53,8 @@ cfft_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
   const size_t base = static_cast<size_t>(blockIdx.x) * n * stride;
   float2* a = smem;
   float2* b = smem + padded(n);
-
-  // Backward unordered: input position p holds bin perm[p].
-  const int* scatter = SIGN > 0 ? perm : nullptr;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const size_t at = base + static_cast<size_t>(i) * stride;
-    a[slot(scatter ? __ldg(scatter + i) : i)] = make_float2(xre[at], xim[at]);
-  }
-  __syncthreads();
-  const float2* z = run_stages<SIGN>(a, b, n, rad, stage_tw);
-
-  // Forward unordered: output position p takes bin perm[p].
-  const int* gather = SIGN < 0 ? perm : nullptr;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float2 v = z[slot(gather ? __ldg(gather + i) : i)];
-    const size_t at = base + static_cast<size_t>(i) * stride;
-    yre[at] = v.x;
-    yim[at] = v.y;
-  }
+  cfft_row_load<SIGN>(xre + base, xim + base, stride, perm, a, n);
+  cfft_row_finish<SIGN>(a, b, n, rad, stage_tw, perm, yre + base, yim + base, stride);
 }
 
 template <int SIGN>

@@ -33,8 +33,10 @@
 // memory. Twiddles come from the plan's float32 tables (built in float64
 // on the host), read through the read-only cache; no sinf/cosf in kernel.
 // Rows are independent, so a ragged batch needs no padding or masking.
+// The per-row bodies live in row_fft.cuh, shared with the pipelined forms
+// (pipelined_fft.cu).
 
-#include "stockham.cuh"
+#include "row_fft.cuh"
 
 #ifndef CHOWDSP_MAX_N
 #error "build with -DCHOWDSP_MAX_N=<largest real N> (ops/_cuda.py passes it)"
@@ -45,42 +47,20 @@ namespace {
 constexpr int kMaxN = CHOWDSP_MAX_N;  // 8.25N bytes of shared memory per block
 static_assert(two_buffers_bytes(kMaxN / 2) <= kMaxSmemBytes, "MAX_N exceeds shared memory");
 
-// K1: x (rows, N) -> packed planes (rows, N/2).
+// K1: x (rows, N) -> packed planes, row r at yre/yim + r * ystride
+// (ystride N/2: two planes; N with yim = yre + N/2: the joint [re | im]
+// rows of the JAX package's _rfft_packed_joint).
 __global__ void __launch_bounds__(kMaxThreads)
-rfft_packed_kernel(const float* __restrict__ x, float* __restrict__ yre,
-                   float* __restrict__ yim, int n, Radices rad,
-                   const float2* __restrict__ stage_tw,
-                   const float2* __restrict__ split_tw,
-                   const int* __restrict__ perm) {
+rfft_packed_kernel(const float* __restrict__ x, float* yre, float* yim, int ystride, int n,
+                   Radices rad, const float2* __restrict__ stage_tw,
+                   const float2* __restrict__ split_tw, const int* __restrict__ perm) {
   extern __shared__ float2 smem[];
   const int M = n / 2;
   const size_t row = blockIdx.x;
   float2* a = smem;
   float2* b = smem + padded(M);
-
-  const float2* xr = reinterpret_cast<const float2*>(x + row * n);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) a[slot(i)] = xr[i];
-  __syncthreads();
-  const float2* Z = run_stages<-1>(a, b, M, rad, stage_tw);
-
-  // Split (stockham.cuh split_bin); the Nyquist bin goes to im[0].
-  float* ore = yre + row * M;
-  float* oim = yim + row * M;
-  for (int pos = threadIdx.x; pos < M; pos += blockDim.x) {
-    const int k = perm ? __ldg(perm + pos) : pos;
-    float re, im;
-    if (k == 0) {
-      const float2 z0 = Z[slot(0)];
-      re = z0.x + z0.y;
-      im = z0.x - z0.y;
-    } else {
-      const float2 X = split_bin(Z[slot(k)], Z[slot(M - k)], __ldg(split_tw + k));
-      re = X.x;
-      im = X.y;
-    }
-    ore[pos] = re;
-    oim[pos] = im;
-  }
+  rfft_row_load(reinterpret_cast<const float2*>(x + row * n), a, M);
+  rfft_row_finish(a, b, M, rad, stage_tw, split_tw, perm, yre + row * ystride, yim + row * ystride);
 }
 
 // K2 (CONV = false): packed planes (rows, N/2) -> x (rows, N), unscaled.
@@ -101,47 +81,10 @@ irfft_packed_kernel(const float* __restrict__ are, const float* __restrict__ aim
   const size_t row = blockIdx.x;
   float2* a = smem;
   float2* b = smem + padded(M);
-
-  const float* pre = are + row * M;
-  const float* pim = aim + row * M;
   const size_t brow = (CONV && b_rows > 1) ? row : 0;
-  for (int pos = threadIdx.x; pos < M; pos += blockDim.x) {
-    float re = pre[pos], im = pim[pos];
-    if (CONV) {
-      const float br = bre[brow * M + pos], bi = bim[brow * M + pos];
-      if (pos == 0) {
-        re = re * br;
-        im = im * bi;
-      } else {
-        const float pr = re * br - im * bi;
-        im = re * bi + im * br;
-        re = pr;
-      }
-      re *= scale;
-      im *= scale;
-    }
-    if (pos == 0) {  // position 0 is bin 0 in every layout
-      nyq = im;
-      im = 0.0f;
-    }
-    a[slot(perm ? __ldg(perm + pos) : pos)] = make_float2(re, im);
-  }
-  __syncthreads();
-
-  // Merge (stockham.cuh merge_bin), with X[M] the Nyquist bin.
-  for (int k = threadIdx.x; k < M; k += blockDim.x) {
-    const float2 xr = k == 0 ? make_float2(nyq, 0.0f) : cconj(a[slot(M - k)]);
-    b[slot(k)] = merge_bin(a[slot(k)], xr, __ldg(split_tw + k));
-  }
-  __syncthreads();
-  const float2* zt = run_stages<1>(b, a, M, rad, stage_tw);
-
-  // zt == M * (x_even + i x_odd); N * x = 2 * M * x.
-  float2* out = reinterpret_cast<float2*>(x + row * n);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const float2 z = zt[slot(i)];
-    out[i] = make_float2(2.0f * z.x, 2.0f * z.y);
-  }
+  irfft_row_load<CONV>(are + row * M, aim + row * M, CONV ? bre + brow * M : nullptr,
+                       CONV ? bim + brow * M : nullptr, scale, perm, a, &nyq, M);
+  irfft_row_finish(a, b, M, &nyq, rad, stage_tw, split_tw, x + row * n);
 }
 
 constexpr int smem_bytes(int n) { return two_buffers_bytes(n / 2); }
@@ -152,11 +95,13 @@ extern "C" {
 
 int hopper_real_fft_max_n() { return kMaxN; }
 
-// K1. Returns a cudaError_t value; 0 means the launch was accepted.
-int k1_rfft_packed(const float* x, float* yre, float* yim, int rows, int n,
+// K1; ystride is the output row stride in floats (N/2 for two planes, N
+// for joint rows). Returns a cudaError_t value; 0 means the launch was
+// accepted.
+int k1_rfft_packed(const float* x, float* yre, float* yim, int ystride, int rows, int n,
                    const int* radices, int nstages, const void* stage_tw,
                    const void* split_tw, const int* perm, void* stream) {
-  if (n < 4 || n > kMaxN || n % 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 4 || n > kMaxN || n % 2 || ystride < n / 2) return static_cast<int>(cudaErrorInvalidValue);
   Radices rad;
   int err = make_radices(radices, nstages, &rad);
   if (err) return err;
@@ -166,7 +111,7 @@ int k1_rfft_packed(const float* x, float* yre, float* yim, int rows, int n,
   const int M = n / 2;
   rfft_packed_kernel<<<rows, threads_for(M), smem_bytes(n),
                        static_cast<cudaStream_t>(stream)>>>(
-      x, yre, yim, n, rad, static_cast<const float2*>(stage_tw),
+      x, yre, yim, ystride, n, rad, static_cast<const float2*>(stage_tw),
       static_cast<const float2*>(split_tw), perm);
   return static_cast<int>(cudaGetLastError());
 }

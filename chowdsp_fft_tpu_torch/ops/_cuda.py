@@ -58,7 +58,9 @@ _SIGNATURES = {
     "hopper_real_fft_max_n": [],
     "hopper_complex_fft_max_n": [],
     "hopper_small_dft_max_n": [],
-    "k1_rfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
+    # K1: x, y re/im, output row stride, rows, N, radices, nstages, stage
+    # twiddles, split twiddles, permutation, stream.
+    "k1_rfft_packed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
     "k2_irfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
     "k3_convolve_irfft_packed": [
         _P, _P, _P, _P, _I, ctypes.c_float, _P, _I, _I, _P, _I, _P, _P, _P, _P,
@@ -77,6 +79,11 @@ _SIGNATURES = {
     # twiddles, split twiddles, stream.
     "k7a_rfft_cols": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
     "k7b_irfft_cols": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
+    # The pipelined forms take their grid kernel's arguments.
+    "hopper_pipelined_blocks_per_sm": [_I, _I],
+    "k1db_rfft_packed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    "k2db_irfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
+    "k4db_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
 }
 
 
@@ -171,9 +178,10 @@ class Kernel:
 
 
 def check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device,
-          dtype: torch.dtype = torch.float32):
+          dtype: torch.dtype = torch.float32, align: int = 8):
     """Refuse what a kernel does not take: another dtype, device or shape,
-    a non-contiguous or misaligned tensor, or one that requires grad."""
+    a non-contiguous tensor or one not ``align``-byte aligned (16 for the
+    pipelined kernels' 16-byte copies), or one that requires grad."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
@@ -182,8 +190,8 @@ def check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.devi
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.data_ptr() % 8:
-        raise ValueError(f"{name}: expected 8-byte aligned data")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: expected {align}-byte aligned data")
     if t.requires_grad:
         raise RuntimeError(
             f"{name}: the Hopper kernels have no autograd yet; detach the input "

@@ -13,6 +13,11 @@ CUDA tensors it launches the kernel or raises.
 
 Domain: N = n1 * 128, n1 {2,3,5}-smooth, 256 < N <= MAX_CN = 13824 (two
 padded N-point buffers, 16.5N bytes, in one block's 227 KB).
+
+``cfft_db_kernel`` is K4-db (``csrc/pipelined_fft.cu``), the pipelined
+form of K4 (JAX's ``_cfft_pair_db``): the same forms, modes and domain,
+bit-identical output, persistent blocks that load the next row while the
+current one computes. No dispatch path runs it.
 """
 
 from __future__ import annotations
@@ -26,12 +31,17 @@ from . import stockham
 from ._cuda import MAX_CN, Kernel, check, device_perm, launch, require_cuda, require_domain
 from .tables import LANES, cfft_inverse_perm, cfft_unordered_perm, is_smooth_multiple
 
-__all__ = ["K4", "MAX_CN", "in_domain", "cfft_kernel", "cfft_plain"]
+__all__ = ["K4", "K4_DB", "MAX_CN", "in_domain", "cfft_kernel", "cfft_db_kernel", "cfft_plain"]
 
 K4 = Kernel(
     "cfft_kernel",
     "chowdsp_fft_tpu_torch/csrc/complex_fft.cu",
     "chowdsp_fft_tpu/ops/pallas_fft.py:620 (_fft_kernel, called by _pallas_cfft_pair :648)",
+)
+K4_DB = Kernel(
+    "cfft_db_kernel",
+    "chowdsp_fft_tpu_torch/csrc/pipelined_fft.cu",
+    "chowdsp_fft_tpu/ops/pallas_fft.py:739 (_cfft_db_kernel, called by _cfft_pair_db :867)",
 )
 
 
@@ -62,7 +72,7 @@ def shape_of(x) -> tuple[int, ...]:
     return tuple((x if isinstance(x, torch.Tensor) else x[0]).shape)
 
 
-def complex_io(name: str, x, shape, out_shape=None):
+def complex_io(name: str, x, shape, out_shape=None, align: int = 8):
     """Check the input, complex data of ``shape`` ((rows, N) rows; the
     composite's (B, L, M) tiles), and allocate the output, of ``out_shape``
     (default ``shape``) in ``x``'s form. Returns (device, element stride,
@@ -72,14 +82,14 @@ def complex_io(name: str, x, shape, out_shape=None):
     out_shape = shape if out_shape is None else out_shape
     if isinstance(x, torch.Tensor):
         require_cuda(name, x)
-        check(name, x, shape, x.device, torch.complex64)
+        check(name, x, shape, x.device, torch.complex64, align)
         y = torch.empty(out_shape, dtype=torch.complex64, device=x.device)
         xp, yp = x.data_ptr(), y.data_ptr()
         return x.device, 2, (xp, xp + 4), y, (yp, yp + 4)
     re, im = x
     require_cuda(name, re)
-    check(f"{name} re", re, shape, re.device)
-    check(f"{name} im", im, shape, re.device)
+    check(f"{name} re", re, shape, re.device, align=align)
+    check(f"{name} im", im, shape, re.device, align=align)
     yre = torch.empty(out_shape, dtype=torch.float32, device=re.device)
     yim = torch.empty_like(yre)
     return re.device, 1, (re.data_ptr(), im.data_ptr()), (yre, yim), (yre.data_ptr(), yim.data_ptr())
@@ -103,18 +113,30 @@ def cfft_plain(x, plan: FFTPlan, forward: bool = True, ordered: bool = True):
     return like(x, y)
 
 
-def cfft_kernel(x, plan: FFTPlan, forward: bool = True, ordered: bool = True):
-    """K4 on (rows, N) complex64, or on a (re, im) pair of (rows, N)
-    float32 planes; returns the same form."""
-    require_domain(K4, plan.kind == FFT_COMPLEX and in_domain(plan.n), plan.n, plan.kind)
+def _cfft(kernel: Kernel, entry: str, x, plan: FFTPlan, forward: bool, ordered: bool, align: int):
+    require_domain(kernel, plan.kind == FFT_COMPLEX and in_domain(plan.n), plan.n, plan.kind)
     if is_cpu(x):
         return cfft_plain(x, plan, forward, ordered)
     rows = shape_of(x)[0]
-    dev, stride, src, out, dst = complex_io(K4.name, x, (rows, plan.n))
+    dev, stride, src, out, dst = complex_io(kernel.name, x, (rows, plan.n), align=align)
     if rows:
         tabs = plan.device_tables(dev)
         radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
         perm = None if ordered else device_perm(cfft_unordered_perm, plan.n, str(dev)).data_ptr()
-        launch(K4, "k4_cfft", dev, *src, *dst, stride, rows, plan.n, -1 if forward else 1,
+        launch(kernel, entry, dev, *src, *dst, stride, rows, plan.n, -1 if forward else 1,
                ctypes.addressof(radices), len(plan.radices), tabs.stage_flat.data_ptr(), perm)
     return out
+
+
+def cfft_kernel(x, plan: FFTPlan, forward: bool = True, ordered: bool = True):
+    """K4 on (rows, N) complex64, or on a (re, im) pair of (rows, N)
+    float32 planes; returns the same form."""
+    return _cfft(K4, "k4_cfft", x, plan, forward, ordered, 8)
+
+
+def cfft_db_kernel(x, plan: FFTPlan, forward: bool = True, ordered: bool = True):
+    """K4-db: :func:`cfft_kernel`'s forms and modes (forward with
+    unordered output is JAX's ``reverse_order=False``, backward with
+    unordered input its ``reverse_order=True``), bit-identical output.
+    The input must be 16-byte aligned."""
+    return _cfft(K4_DB, "k4db_cfft", x, plan, forward, ordered, 16)

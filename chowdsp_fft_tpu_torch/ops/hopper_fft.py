@@ -14,7 +14,13 @@ Four kernel families, each checking its own size domain:
   512;
 - K6, K7a, K7b (``csrc/composite_fft.cu``, ``hopper_composite``): the
   two-level composite, complex and real, for every other size the JAX
-  ``pallas`` engine serves, up to 2^20.
+  ``pallas`` engine serves, up to 2^20;
+- K1-db, K2-db (this module) and K4-db (``hopper_cfft``)
+  (``csrc/pipelined_fft.cu``): the pipelined forms of K1, K2 and K4,
+  persistent blocks that load the next row while the current one
+  computes, bit-identical to their grid kernels on the same domains. As
+  in the JAX package, no dispatch path runs them (only its tests call its
+  ``_db`` functions); ``auto`` and ``hopper`` run the grid kernels.
 
 The engine serves exactly the JAX engine's domain (``supports_plan``) and
 ``auto`` prefers it where the JAX engine is preferred (``prefers``). Each
@@ -74,6 +80,10 @@ __all__ = [
     "rfft_packed_plain",
     "irfft_packed_plain",
     "convolve_irfft_packed_plain",
+    "rfft_packed_joint_kernel",
+    "rfft_packed_joint_db_kernel",
+    "irfft_packed_db_kernel",
+    "rfft_packed_joint_plain",
 ]
 
 MIN_N = 2 * LANES  # exclusive: real N <= 256 goes to K5
@@ -94,9 +104,19 @@ K3 = Kernel(
     "chowdsp_fft_tpu_torch/csrc/real_fft.cu",
     "chowdsp_fft_tpu/ops/pallas_fft.py:1989 (_irfft_conv_kernel)",
 )
+K1_DB = Kernel(
+    "rfft_packed_joint_db_kernel",
+    "chowdsp_fft_tpu_torch/csrc/pipelined_fft.cu",
+    "chowdsp_fft_tpu/ops/pallas_fft.py:1628 (_rfft_db_kernel, called by _rfft_packed_joint_db :1731)",
+)
+K2_DB = Kernel(
+    "irfft_packed_db_kernel",
+    "chowdsp_fft_tpu_torch/csrc/pipelined_fft.cu",
+    "chowdsp_fft_tpu/ops/pallas_fft.py:1756 (_irfft_db_kernel, called by _irfft_packed_db :1863)",
+)
 K4 = hopper_cfft.K4
 KERNELS = (K1, K2, K3, K4, hopper_small.K5_COMPLEX, hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE,
-           *hopper_composite.KERNELS)
+           *hopper_composite.KERNELS, K1_DB, K2_DB, hopper_cfft.K4_DB)
 
 
 def reset_launch_counts() -> None:
@@ -165,6 +185,12 @@ def convolve_irfft_packed_plain(are, aim, bre, bim, scale: float, plan: FFTPlan,
     return irfft_packed_plain(pr, pi, plan, ordered)
 
 
+def rfft_packed_joint_plain(x: torch.Tensor, plan: FFTPlan, ordered: bool = True) -> torch.Tensor:
+    """Plain version of K1's joint form and of K1-db: (rows, N) ->
+    (rows, N) rows [re | im] (JAX's ``_rfft_packed_joint``)."""
+    return torch.cat(rfft_packed_plain(x, plan, ordered), dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -198,24 +224,65 @@ def rfft_packed_kernel(x: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     yim = torch.empty_like(yre)
     if rows:
         _launch_real(K1, "k1_rfft_packed", plan, x.device, ordered,
-                     x.data_ptr(), yre.data_ptr(), yim.data_ptr(), rows, plan.n)
+                     x.data_ptr(), yre.data_ptr(), yim.data_ptr(), plan.n // 2, rows, plan.n)
     return yre, yim
+
+
+def _rfft_joint(kernel: Kernel, entry: str, x: torch.Tensor, plan: FFTPlan, ordered: bool, align: int):
+    """K1 or K1-db into joint rows: re at [0, N/2), im at [N/2, N), row
+    stride N."""
+    _require_real_domain(kernel, plan)
+    if x.device.type == "cpu":
+        return rfft_packed_joint_plain(x, plan, ordered)
+    require_cuda(kernel.name, x)
+    rows, n = x.shape[0], plan.n
+    _check("x", x, (rows, n), x.device, align=align)
+    y = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    if rows:
+        _launch_real(kernel, entry, plan, x.device, ordered,
+                     x.data_ptr(), y.data_ptr(), y.data_ptr() + 4 * (n // 2), n, rows, n)
+    return y
+
+
+def rfft_packed_joint_kernel(x: torch.Tensor, plan: FFTPlan, ordered: bool = True) -> torch.Tensor:
+    """K1 with the joint output of JAX's ``_rfft_packed_joint``: (rows, N)
+    f32 -> (rows, N) rows [re | im], Nyquist in im[0]."""
+    return _rfft_joint(K1, "k1_rfft_packed", x, plan, ordered, 8)
+
+
+def rfft_packed_joint_db_kernel(x: torch.Tensor, plan: FFTPlan, ordered: bool = True) -> torch.Tensor:
+    """K1-db, the pipelined K1 (JAX's ``_rfft_packed_joint_db``): the same
+    joint rows, bit-identical to :func:`rfft_packed_joint_kernel`. The
+    input must be 16-byte aligned."""
+    return _rfft_joint(K1_DB, "k1db_rfft_packed", x, plan, ordered, 16)
+
+
+def _irfft(kernel: Kernel, entry: str, yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool,
+           align: int):
+    """K2 or K2-db: packed planes (rows, N/2) x2 -> (rows, N) f32."""
+    _require_real_domain(kernel, plan)
+    if yre.device.type == "cpu" and yim.device.type == "cpu":
+        return irfft_packed_plain(yre, yim, plan, ordered)
+    require_cuda(kernel.name, yre)
+    rows = yre.shape[0]
+    _check("yre", yre, (rows, plan.n // 2), yre.device, align=align)
+    _check("yim", yim, (rows, plan.n // 2), yre.device, align=align)
+    x = torch.empty((rows, plan.n), dtype=torch.float32, device=yre.device)
+    if rows:
+        _launch_real(kernel, entry, plan, yre.device, ordered,
+                     yre.data_ptr(), yim.data_ptr(), x.data_ptr(), rows, plan.n)
+    return x
 
 
 def irfft_packed_kernel(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     """K2 on packed planes (rows, N/2) x2 -> (rows, N) f32."""
-    _require_real_domain(K2, plan)
-    if yre.device.type == "cpu" and yim.device.type == "cpu":
-        return irfft_packed_plain(yre, yim, plan, ordered)
-    require_cuda(K2.name, yre)
-    rows = yre.shape[0]
-    _check("yre", yre, (rows, plan.n // 2), yre.device)
-    _check("yim", yim, (rows, plan.n // 2), yre.device)
-    x = torch.empty((rows, plan.n), dtype=torch.float32, device=yre.device)
-    if rows:
-        _launch_real(K2, "k2_irfft_packed", plan, yre.device, ordered,
-                     yre.data_ptr(), yim.data_ptr(), x.data_ptr(), rows, plan.n)
-    return x
+    return _irfft(K2, "k2_irfft_packed", yre, yim, plan, ordered, 8)
+
+
+def irfft_packed_db_kernel(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool = True):
+    """K2-db, the pipelined K2 (JAX's ``_irfft_packed_db``): bit-identical
+    to :func:`irfft_packed_kernel`. The planes must be 16-byte aligned."""
+    return _irfft(K2_DB, "k2db_irfft_packed", yre, yim, plan, ordered, 16)
 
 
 def convolve_irfft_packed_kernel(are, aim, bre, bim, scale: float, plan: FFTPlan, ordered: bool = True):

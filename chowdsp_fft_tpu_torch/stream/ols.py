@@ -51,6 +51,14 @@ def _frame_overlap(x: torch.Tensor, block: int, overlap: int) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
+def filter_device(h, device: torch.device | str | None = None) -> torch.device | str:
+    """Where a filter built from ``h`` lives: ``device`` if given, else a
+    tensor ``h``'s device, else the card."""
+    if device is not None:
+        return device
+    return h.device if isinstance(h, torch.Tensor) else "cuda"
+
+
 def fir_filter_ols(
     x: torch.Tensor,
     h: torch.Tensor,
@@ -113,11 +121,14 @@ class PartitionedFIR:
     ``init_state()`` returns the state dict (keys ``fdl_re``, ``fdl_im``,
     ``prev``); ``step()`` maps (state, block) -> (new state, filtered
     block). Use :func:`partitioned_fir_apply` for whole (batched) streams.
-    The filter and its state live on ``h``'s device.
+    The filter and its state live on ``device``: by default a tensor
+    ``h``'s own device, the card for anything else (a numpy array, a list).
+    Input blocks are moved to the filter's device.
     """
 
-    def __init__(self, h: torch.Tensor, block: int = 1024, engine: str = "auto"):
-        h = torch.as_tensor(h, dtype=torch.float32)
+    def __init__(self, h: torch.Tensor, block: int = 1024, engine: str = "auto",
+                 device: torch.device | str | None = None):
+        h = torch.as_tensor(h, dtype=torch.float32, device=filter_device(h, device))
         self._setup(block, engine, -(-h.shape[-1] // int(block)))
         taps = h.shape[-1]
         hpad = F.pad(h, (0, self.partitions * self.block - taps))
@@ -152,6 +163,11 @@ class PartitionedFIR:
         fir.h_im = h_im.to(torch.float32)
         return fir
 
+    def _on_device(self, x) -> torch.Tensor:
+        """Input blocks go to the filter's device (as JAX puts them on its
+        default device)."""
+        return torch.as_tensor(x, dtype=torch.float32, device=self.h_re.device)
+
     def init_state(self, batch_shape: tuple[int, ...] = ()) -> dict:
         m = self.n // 2
         dev = self.h_re.device
@@ -173,7 +189,7 @@ class PartitionedFIR:
         """Filter whole (..., T) streams: all block spectra from ONE batched
         rfft, the FDL as a causal shift-and-accumulate along the block axis
         (the same math as stepping :meth:`step` block by block)."""
-        x = torch.as_tensor(x, dtype=torch.float32)
+        x = self._on_device(x)
         t = x.shape[-1]
         nb = -(-t // self.block)
         frames = _frame_overlap(x, self.block, self.block)[..., :nb, :]
@@ -199,7 +215,7 @@ class PartitionedFIR:
         All K spectra come from one batched rfft and the FDL becomes K
         contiguous-slice accumulates against the carried spectrum history;
         the same math as K sequential :meth:`step` calls."""
-        xk = torch.as_tensor(xk, dtype=torch.float32)
+        xk = self._on_device(xk)
         k = xk.shape[-2]
         # frame j = [block_{j-1} | block_j], with block_{-1} = prev
         blocks_all = torch.cat([state["prev"][..., None, :], xk], dim=-2)
@@ -232,7 +248,7 @@ class PartitionedFIR:
         """Process one (..., block) input block -> (..., block) output.
         The caller's state is not modified: the new FDL is a rolled copy,
         into which the new spectrum is written in place."""
-        xblock = torch.as_tensor(xblock, dtype=torch.float32)
+        xblock = self._on_device(xblock)
         frame = torch.cat([state["prev"], xblock], dim=-1)  # (..., n)
         xre, xim = api.rfft_packed_unordered(frame, plan=self.plan, engine=self.engine)
         fdl_re = torch.roll(state["fdl_re"], 1, dims=-2)

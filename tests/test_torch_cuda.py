@@ -186,3 +186,59 @@ def test_long_filter_ols_launches_composite(dev):
     torch.cuda.synchronize()
     assert maxerr(y, yp) <= 1e-4
     assert all(k.launches > 0 for k in (hc.K7A, hc.K7B, hc.K6_L2, hc.K6_L2_REV))
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("n,rows", [(384, 5), (1920, 133), (4096, 1000), (4096, 1), (8192, 531), (16384, 300)])
+def test_real_db_kernels_equal_grid(dev, n, rows, ordered):
+    """K1-db and K2-db run K1's and K2's row bodies on the same tables:
+    torch.equal to the grid kernels, ragged batches and a single row."""
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    x = rand((rows, n), dev, n)
+    hf.reset_launch_counts()
+    joint = hf.rfft_packed_joint_kernel(x, plan, ordered)
+    joint_db = hf.rfft_packed_joint_db_kernel(x, plan, ordered)
+    re, im = hf.rfft_packed_kernel(x, plan, ordered)
+    assert torch.equal(joint_db, joint)
+    assert torch.equal(joint, torch.cat([re, im], -1))
+    assert maxerr(joint_db, hf.rfft_packed_joint_plain(x, plan, ordered)) <= 2e-7 * n
+    back_db = hf.irfft_packed_db_kernel(re, im, plan, ordered)
+    assert torch.equal(back_db, hf.irfft_packed_kernel(re, im, plan, ordered))
+    assert maxerr(back_db / n, x) <= 2e-7 * n
+    torch.cuda.synchronize()
+    assert (hf.K1.launches, hf.K1_DB.launches, hf.K2.launches, hf.K2_DB.launches) == (2, 1, 1, 1)
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("n,rows", [(384, 7), (1024, 1000), (4096, 1), (9216, 140), (10240, 3),
+                                    (hopper_cfft.MAX_CN, 133)])
+def test_k4_db_equals_grid(dev, n, rows, forward, ordered):
+    """K4-db in both input forms, both directions and orders: the landing
+    buffer up to 9216 points, the register prefetch above."""
+    plan = ct.cached_plan(n, ct.FFT_COMPLEX)
+    z = crand((rows, n), dev, n)
+    hf.reset_launch_counts()
+    y = hopper_cfft.cfft_kernel(z, plan, forward, ordered)
+    y_db = hopper_cfft.cfft_db_kernel(z, plan, forward, ordered)
+    assert torch.equal(y_db, y)
+    planes = (z.real.contiguous(), z.imag.contiguous())
+    yr, yi = hopper_cfft.cfft_db_kernel(planes, plan, forward, ordered)
+    assert torch.equal(torch.complex(yr, yi), y)
+    plain = hopper_cfft.cfft_plain(z, plan, forward, ordered)
+    assert maxerr(torch.view_as_real(y_db), torch.view_as_real(plain)) <= 2e-7 * n
+    torch.cuda.synchronize()
+    assert hopper_cfft.K4_DB.launches == 2
+
+
+def test_db_kernels_refuse_misaligned_input(dev):
+    """The pipelined kernels copy rows 16 bytes at a time."""
+    plan = ct.cached_plan(1024, ct.FFT_REAL)
+    x = rand((2 * 1024 + 2,), dev, 7)[2:].reshape(2, 1024)
+    assert x.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte"):
+        hf.rfft_packed_joint_db_kernel(x, plan)
+    hf.rfft_packed_joint_kernel(x, plan)  # the grid kernel takes 8-byte alignment
+    s = x[:, :512]
+    with pytest.raises(ValueError, match="contiguous|16-byte"):
+        hf.irfft_packed_db_kernel(s, s, plan)

@@ -46,6 +46,17 @@ w = channelizer.channelize(torch.randn(16 * 64, dtype=torch.complex64), 16)
 assert w.shape == (16, 64)
 audio = models.SDRChain(models.SDRChainConfig(channels=16), device="cpu")(torch.randn(16 * 2 * 4 * 32, dtype=torch.complex64))
 assert audio.shape == (16, 32) and bool(torch.isfinite(audio).all())
+from chowdsp_fft_tpu_torch.models import convolver
+from chowdsp_fft_tpu_torch.stream import stft
+x = torch.randn(2, 4096)
+assert torch.allclose(stream.istft(stream.stft(x, n_fft=512), length=4096), x, atol=1e-4)
+conv = models.MultichannelConvolver(torch.randn(300) / 300, models.ConvolverConfig(channels=2, block=256), device="cpu")
+assert conv.apply(x).shape == (2, 4096)
+from chowdsp_fft_tpu_torch.ops import hopper_cfft as hc4
+p = ct.cached_plan(1024, ct.FFT_REAL)
+j = hopper_fft.rfft_packed_joint_db_kernel(x[:, :1024].contiguous(), p)
+assert hopper_fft.irfft_packed_db_kernel(j[:, :512].contiguous(), j[:, 512:].contiguous(), p).shape == (2, 1024)
+assert hc4.cfft_db_kernel(torch.randn(2, 1024, dtype=torch.complex64), ct.cached_plan(1024, ct.FFT_COMPLEX)).shape == (2, 1024)
 assert all(k.launches == 0 for k in hopper_fft.KERNELS)
 assert not any(name == "jax" or name.startswith("jax.") for name, m in sys.modules.items() if m is not None)
 assert not any(name.startswith("chowdsp_fft_tpu.") or name == "chowdsp_fft_tpu" for name in sys.modules)
@@ -85,6 +96,10 @@ def test_cpu_tensors_launch_no_kernel():
         z = torch.from_numpy((rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))).astype(np.complex64))
         ct.ifft_unordered(ct.fft_unordered(z))
         ct.ifft_planes(*ct.fft_planes(z.real, z.imag, engine="hopper"), engine="hopper")
+    plan, cplan = ct.cached_plan(2048, ct.FFT_REAL), ct.cached_plan(2048, ct.FFT_COMPLEX)
+    j = hopper_fft.rfft_packed_joint_db_kernel(x, plan)  # the pipelined forms
+    hopper_fft.irfft_packed_db_kernel(j[:, :1024].contiguous(), j[:, 1024:].contiguous(), plan)
+    hopper_cfft.cfft_db_kernel(torch.complex(x, x), cplan)
     assert all(k.launches == 0 for k in hopper_fft.KERNELS)
 
 
@@ -104,6 +119,12 @@ def test_non_cuda_device_raises_instead_of_falling_back():
         hopper_cfft.cfft_kernel(z, cplan)
     with pytest.raises(ValueError, match="CUDA"):
         hopper_cfft.cfft_kernel((x, x), cplan)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_fft.rfft_packed_joint_db_kernel(x, plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_fft.irfft_packed_db_kernel(s, s, plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_cfft.cfft_db_kernel(z, cplan)
     small = ct.cached_plan(256, ct.FFT_COMPLEX)
     with pytest.raises(ValueError, match="CUDA"):
         hopper_small.small_cfft_kernel(z[:, :256], small)
@@ -201,13 +222,52 @@ def test_constructors_default_to_the_card():
     signatures, so no tensor is built on a missing card."""
     builders = [
         models.SDRChain.__init__,
+        models.MultichannelConvolver.__init__,
         stream.Channelizer.__init__,
         stream.design_lowpass,
         convert.partitioned_fir_from_numpy,
         convert.cfft_unordered_from_numpy,
         convert.sdr_chain_from_numpy,
+        convert.convolver_from_numpy,
     ]
     for fn in builders:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
-    for fn in (stream.channelize, stream.fir_filter_ols, stream.PartitionedFIR.__init__, ct.fft, ct.rfft_packed):
+    # A filter follows a tensor h, and goes to the card from anything else.
+    assert inspect.signature(stream.PartitionedFIR.__init__).parameters["device"].default is None
+    for fn in (stream.channelize, stream.fir_filter_ols, stream.stft, stream.istft, ct.fft, ct.rfft_packed):
         assert "device" not in inspect.signature(fn).parameters, fn.__qualname__
+
+
+def test_filters_from_host_arrays_default_to_the_card():
+    """PartitionedFIR and MultichannelConvolver built from a numpy array
+    go to the card (here, without one, asking for it raises); a tensor
+    keeps its device and ``device`` overrides both."""
+    h = np.ones(300, np.float32) / 300
+    cfg = models.ConvolverConfig(channels=2, block=128)
+    assert stream.filter_device(h) == "cuda"
+    assert stream.filter_device(torch.from_numpy(h)) == torch.device("cpu")
+    assert stream.filter_device(h, "cpu") == "cpu"
+    builds = (lambda: stream.PartitionedFIR(h, block=128), lambda: models.MultichannelConvolver(h, cfg))
+    for build in builds:
+        if torch.cuda.is_available():
+            assert build().h_re.device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+                build()
+    assert stream.PartitionedFIR(torch.from_numpy(h), block=128).h_re.device.type == "cpu"
+    assert stream.PartitionedFIR(h, block=128, device="cpu").h_re.device.type == "cpu"
+    assert models.MultichannelConvolver(h, cfg, device="cpu").h_re.device.type == "cpu"
+
+
+def test_filter_takes_host_blocks_to_its_device():
+    """A filter off the CPU takes numpy blocks to its own device in
+    apply_offline, step and step_k, as JAX puts them on its device (a card
+    filter used to refuse them). Shown on the "meta" device, where the
+    Stockham engine runs shapes only."""
+    fir = stream.PartitionedFIR(np.ones(300, np.float32), block=128, engine="stockham", device="meta")
+    x = np.ones((2, 1000), np.float32)
+    assert fir.apply_offline(x).device.type == "meta"
+    state, y = fir.step(fir.init_state((2,)), x[:, :128])
+    assert y.device.type == "meta"
+    _, y = fir.step_k(state, x[:, :384].reshape(2, 3, 128))
+    assert y.device.type == "meta" and y.shape == (2, 3, 128)
