@@ -21,7 +21,12 @@ Phases, each of which asserts:
    ``engine_for`` picks the Hopper engine at the path's sizes;
 5. timing at N=4096, B=1024 (kernel, plain version, cuFFT), informational;
 6. K4 and K5 against their plain versions and float64, bound 2e-7*N:
-   forward/backward x ordered/unordered, planes and complex64;
+   K4 forward/backward x ordered/unordered, planes and complex64; K5 at
+   every size of its domain (60 complex N, 47 real), at 1, T-1, T+1 and
+   2001 rows (T its tile of rows) and at config 5's 32768 rows of 256,
+   forward and backward, planes (bit-equal to complex64), real forward and
+   inverse; a zeroed output and a real forward without its Nyquist slot
+   must fail the check;
 7. BASELINE config 5 at its published width: ``models.SDRChain`` (256
    channels) on one 2^24-sample capture of FM carriers plus noise,
    against float64 definitions (scipy ``upfirdn`` decimators, the
@@ -36,9 +41,13 @@ Phases, each of which asserts:
 10. coverage: every kernel record launched on its path, ``engine_for`` at
     the complex, small and composite sizes;
 11. timing (informational): K4 at N=4096, B=1024 against ``torch.fft.fft``,
-    K5 at N=256, B=32768 against ``torch.fft.ifft`` / ``rfft`` / ``irfft``,
-    each kernel's plain version, the config-5 chain's wall time per call
-    and its device time by kernel (``torch.profiler``);
+    K5 at N=256, B=32768 against ``torch.fft.ifft`` / ``rfft`` / ``irfft``
+    (inverses unscaled, ``norm="forward"``, as the kernels are), each
+    kernel's plain version, K5's tile geometry and resident blocks per SM
+    and its device time at tiles of 256 to 2048 points;
+    the config-5 chain and ``partitioned_fir_apply(block=128)`` on config
+    3's streams (the K5-real path): wall time per call, device time by
+    kernel (``torch.profiler``) and idle share;
 12. the composite kernels (K6 in its four roles, K7a, K7b) against their
     plain versions and the composites against float64, bound 2e-7*N
     (or 2e-7*L times the output's rms where smaller, L the kernel's own
@@ -82,6 +91,12 @@ Phases, each of which asserts:
     at the headline shape, config 4's ``apply`` (wall, device time by
     kernel, idle share) and one ``step``, and ``spectrogram``.
 
+Every kernel time is taken twice (phases 5, 11, 15, 19): ``ms``, CUDA
+events around 20 calls from Python (host-inclusive: the wrapper, ctypes
+and the launch), and ``device_ms``, the same 20 calls captured in one CUDA
+graph and replayed (``graph_time_ms``: no host in the loop); the matching
+``torch.fft`` call likewise (``library_ms``, ``library_device_ms``).
+
 Phases run in the order 1-9, 12-14, 16-18, 10, 11, 15, 19. The line before the last
 is the kernel report as JSON; the last line is ``{"ok": true, "device":
 {...}}``. Exits non-zero on any failure and when no CUDA device is
@@ -91,6 +106,7 @@ present.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import statistics
 import subprocess
@@ -110,6 +126,7 @@ CHANNEL_RTOL = 5e-5  # channelizer max error / reference peak (test_stream.py: 1
 AUDIO_ATOL = 1e-5  # occupied channels' demod and audio (radians per sample), max abs error
 AUDIO_SKIP = 32  # audio samples of filter transient (test_parallel.py drops 32)
 SMALL_TIMED = (256, 32768)  # K5 at config 5's channelizer shape
+SMALL_ROWS = 2001  # phase 6's many-row case at every K5 size
 K4_PATH = (1024, CONFIG5_SAMPLES // 1024)  # K4 at phase 8's channelizer shape
 
 
@@ -240,6 +257,93 @@ def time_ms(fn, args_list, iters: int = 20, rounds: int = 7, gap_s: float = 0.05
     return statistics.median(per_call)
 
 
+def graph_time_ms(fn, args_list, iters: int = 20, rounds: int = 7, gap_s: float = 0.05) -> float:
+    """Device time per call: ``iters`` calls (rotating over ``args_list``)
+    captured in one CUDA graph on a side stream, replayed in spaced rounds
+    timed with CUDA events; the median over rounds of the mean per call.
+    No host work runs between the launches, so the wrappers' Python and
+    ctypes cost does not show. A capture that fails raises: there is no
+    fallback to :func:`time_ms`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: plans, tables, cuFFT plans
+        for a in args_list:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        time.sleep(gap_s)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(per_call)
+
+
+def both_ms(fn, args_list) -> tuple[float, float]:
+    """(host-inclusive ms per call, device ms per call by graph replay)."""
+    return time_ms(fn, args_list), graph_time_ms(fn, args_list)
+
+
+def kernel_times(fn, plain, args_list, library=None, library_args=None) -> dict:
+    """A kernel's row of the report at one shape: its host-inclusive and
+    device ms, its plain version's host-inclusive ms, and the same two
+    times of the PyTorch call that computes the same function (None where
+    there is none), on ``library_args`` (default: the kernel's)."""
+    ms, device_ms = both_ms(fn, args_list)
+    lib_ms = lib_device_ms = None
+    if library is not None:
+        lib_ms, lib_device_ms = both_ms(library, library_args or args_list)
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": time_ms(plain, args_list),
+            "library_ms": lib_ms, "library_device_ms": lib_device_ms}
+
+
+def log_times(phase: int, name: str, shape: str, t: dict, card: str) -> None:
+    lib = ("none" if t["library_ms"] is None
+           else f"{t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f} ms)")
+    log(f"phase {phase} {name} {shape}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), plain "
+        f"{t['plain_ms']:.4f} ms, library {lib} [{card}]")
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host-clock time per call of ``fn``, each call ending in
+    ``synchronize``, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def breakdown(phase: int, name: str, fn, wall: float, card: str, top: int = 10) -> dict[str, float]:
+    """Log the wall, the device time by kernel of one call (profiler) and
+    the idle share; returns the device time by kernel name."""
+    by_kernel = kernel_device_times(fn)
+    device_ms = sum(by_kernel.values())
+    log(f"phase {phase} {name}: wall {wall:.3f} ms per call (median, host clock), device {device_ms:.3f} ms, "
+        f"idle share {1 - device_ms / wall:.3f} [{card}]")
+    for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"  {ms:9.4f} ms  {kname[:110]}")
+    return by_kernel
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: K4 and K5 against their plain versions and float64
 # ---------------------------------------------------------------------------
@@ -300,24 +404,62 @@ def phase6(ct, hopper_cfft, hopper_small, tables, dev, rng) -> dict[str, float]:
     def small_c_plain(z, plan, forward, ordered):
         return hopper_small.small_cfft_plain(z, plan, forward)
 
-    for n, rows in ((8, 1), (32, 33), (64, 7), (256, 300), (480, 9), SMALL_TIMED):
-        complex_case(hopper_small.K5_COMPLEX, small_c, small_c_plain, n, rows, (True,))
+    caught: dict[str, float] = {}
+
+    def fails(tag, bad, want, bound):
+        """The check can fail: ``bad`` (a broken output) must be out of
+        bound where the kernel's output was in."""
+        err = max_err(bad, want)
+        require(err > bound, f"{tag}: the check passes a broken output ({err:.3e} <= {bound:.3e})")
+        caught[tag] = min(caught.get(tag, np.inf), err / bound)
+
+    def real_case(n, rows, broken):
         plan = ct.cached_plan(n, ct.FFT_REAL)
         bound = TOL * n
-        x64 = rng.standard_normal((rows, n))
+        x64 = rng.standard_normal((rows, n)).astype(np.float32).astype(np.float64)
         xt = torch.from_numpy(x64.astype(np.float32)).to(dev)
         re, im = hopper_small.small_rfft_kernel(xt, plan)
         pre, pim = hopper_small.small_rfft_plain(xt, plan)
-        ref_re, ref_im = packed_ref(x64.astype(np.float32).astype(np.float64))
-        note(hopper_small.K5_REAL, f"N={n} rows={rows} plain", max(max_err(re, pre), max_err(im, pim)), bound)
-        note(hopper_small.K5_REAL, f"N={n} rows={rows} f64", max(max_err(re, ref_re), max_err(im, ref_im)), bound)
+        ref_re, ref_im = packed_ref(x64)
+        tag = f"real N={n} rows={rows}"
+        note(hopper_small.K5_REAL, f"{tag} plain", max(max_err(re, pre), max_err(im, pim)), bound)
+        note(hopper_small.K5_REAL, f"{tag} f64", max(max_err(re, ref_re), max_err(im, ref_im)), bound)
         sre = torch.from_numpy(ref_re.astype(np.float32)).to(dev)
         sim = torch.from_numpy(ref_im.astype(np.float32)).to(dev)
         back = hopper_small.small_irfft_kernel(sre, sim, plan)
         pback = hopper_small.small_irfft_plain(sre, sim, plan)
-        note(hopper_small.K5_REAL_INVERSE, f"N={n} rows={rows} plain", max_err(back / n, pback / n), bound)
-        note(hopper_small.K5_REAL_INVERSE, f"N={n} rows={rows} f64", max_err(back / n, x64.astype(np.float32)), bound)
+        note(hopper_small.K5_REAL_INVERSE, f"{tag} plain", max_err(back / n, pback / n), bound)
+        note(hopper_small.K5_REAL_INVERSE, f"{tag} f64", max_err(back / n, x64), bound)
+        if broken:
+            no_nyq = im.clone()
+            no_nyq[:, 0] = 0
+            fails("real forward without its Nyquist slot", no_nyq, ref_im, bound)
+            fails("zeroed real forward", torch.zeros_like(re), ref_re, bound)
+            fails("zeroed real inverse", torch.zeros_like(back), x64, bound)
+
+    # Every size of K5's domain, complex and (even N) real, at 1, T-1, T+1
+    # and SMALL_ROWS rows (T the kernel's tile of rows at that size; T-1
+    # is 0 where T = 1), forward and backward, planes and complex64; and
+    # config 5's shape.
+    sizes = [n for n in range(hopper_small.MIN_SMALL, hopper_small.MAX_SMALL_N + 1)
+             if hopper_small.in_domain(n) and ct.is_valid_size(n)]
+    for n in sizes:
+        for kind in ("complex", "real") if n % 2 == 0 else ("complex",):
+            tile = hopper_small.launch_geometry(n, kind, 1).tile_rows
+            for rows in (1, tile - 1, tile + 1, SMALL_ROWS):
+                if kind == "complex":
+                    complex_case(hopper_small.K5_COMPLEX, small_c, small_c_plain, n, rows, (True,))
+                else:
+                    real_case(n, rows, rows == SMALL_ROWS)
+        z = crandn(rng, (SMALL_ROWS, n))
+        fails("zeroed complex forward", np.zeros_like(z), np.fft.fft(z.astype(np.complex128), axis=-1), TOL * n)
+    complex_case(hopper_small.K5_COMPLEX, small_c, small_c_plain, *SMALL_TIMED, (True,))
+    real_case(*SMALL_TIMED, True)
     torch.cuda.synchronize()
+    log(f"phase 6 K5: {len(sizes)} complex and {sum(n % 2 == 0 for n in sizes)} real sizes, N={sizes[0]}..{sizes[-1]}, "
+        f"at 1, T-1, T+1 and {SMALL_ROWS} rows and N={SMALL_TIMED[0]} at {SMALL_TIMED[1]}: within 2e-7*N of the "
+        "plain versions and float64; a broken output fails by at least "
+        + ", ".join(f"{r:.0f}x its bound ({tag})" for tag, r in caught.items()))
     log("phase 6 ok: K4, K5 within 2e-7*N of their plain versions and float64; "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
@@ -498,68 +640,120 @@ def kernel_device_times(fn) -> dict[str, float]:
     return out
 
 
-def phase11(ct, hopper_cfft, hopper_small, models, dev, capture, card) -> dict[str, tuple[float, float]]:
-    timing: dict[str, tuple[float, float]] = {}
+def k5_tile_sweep(ct, hopper_small, lib, dev, card) -> None:
+    """Device time of each K5 body at N=256, B=32768 with tiles of 256 to
+    2048 points (launch_geometry's ``tile_points``; the wrappers use
+    TILE_POINTS), calling the C entries directly: the measurement behind
+    the tile size. These launches are not counted."""
+    n, rows = SMALL_TIMED
+    cplan, rplan = ct.cached_plan(n, ct.FFT_COMPLEX), ct.cached_plan(n, ct.FFT_REAL)
+    sets = []
+    for _ in range(2):
+        z = torch.randn(rows, n, dtype=torch.complex64, device=dev)
+        x = torch.randn(rows, n, device=dev)
+        re, im = hopper_small.small_rfft_kernel(x, rplan)
+        sets.append((z, torch.empty_like(z), x, torch.empty_like(re), torch.empty_like(im), re, im,
+                     torch.empty_like(x)))
+
+    def call(entry, plan, tile, *args):
+        tabs = plan.device_tables(dev)
+        radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
+        split = () if tabs.split_tw is None else (tabs.split_tw.data_ptr(),)
+        geometry = hopper_small.launch_geometry(plan.n, plan.kind, rows, tile)
+        err = getattr(lib, entry)(*args, ctypes.addressof(radices), len(plan.radices), tabs.stage_flat.data_ptr(),
+                                  *split, *geometry.args, torch.cuda.current_stream(dev).cuda_stream)
+        require(err == 0, f"{entry} with {tile}-point tiles: cudaError {err}")
+
+    def bodies(tile):
+        def cfft(i):
+            z, y = sets[i][0], sets[i][1]
+            call("k5_small_cfft", cplan, tile, z.data_ptr(), z.data_ptr() + 4, y.data_ptr(), y.data_ptr() + 4, 2,
+                 rows, n, 1)
+
+        def rfft(i):
+            x, yr, yi = sets[i][2:5]
+            call("k5_small_rfft", rplan, tile, x.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, n)
+
+        def irfft(i):
+            re, im, xo = sets[i][5:8]
+            call("k5_small_irfft", rplan, tile, re.data_ptr(), im.data_ptr(), xo.data_ptr(), rows, n)
+
+        return {"complex backward": cfft, "real forward": rfft, "real inverse": irfft}
+
+    for tile in (256, 512, 1024, 2048):
+        ms = {name: graph_time_ms(fn, [(0,), (1,)]) for name, fn in bodies(tile).items()}
+        geometries = [hopper_small.launch_geometry(n, kind, rows, tile) for kind in ("complex", "real", "real")]
+        blocks = [lib.hopper_small_fft_blocks_per_sm(body, g.threads, g.smem_bytes)
+                  for body, g in enumerate(geometries)]
+        kept = " (the wrappers' tile)" if tile == hopper_small.TILE_POINTS else ""
+        log(f"phase 11 K5 tiles of {tile} points{kept}, N={n} B={rows}: "
+            + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
+            + f" (device); threads {[g.threads for g in geometries]}, resident blocks per SM {blocks} [{card}]")
+
+
+def phase11(ct, hopper_cfft, hopper_small, models, stream, lib, dev, capture, x, h, card) -> dict[str, dict]:
+    """K4 at the headline shape and the three K5 bodies at N=256, B=32768
+    (kernel_times; the inverse library calls unscaled, norm="forward", as
+    the kernels are), K5's launch geometry and resident blocks per SM;
+    then the config-5 chain and the block-128 PartitionedFIR on config 3's
+    streams (wall, device time by kernel, idle share)."""
+    times: dict[str, dict] = {}
     n, rows = HEADLINE
     plan = ct.cached_plan(n, ct.FFT_COMPLEX)
-    zs = [torch.randn(rows, n, dtype=torch.complex64, device=dev) for _ in range(4)]
-    args = [(z,) for z in zs]
-    timing[hopper_cfft.K4.name] = (
-        time_ms(lambda z: hopper_cfft.cfft_kernel(z, plan, True, True), args),
-        time_ms(lambda z: hopper_cfft.cfft_plain(z, plan, True, True), args),
-    )
-    cufft = time_ms(lambda z: torch.fft.fft(z), args)
-    timing["cufft_fft"] = cufft
-    log(f"phase 11 K4 fft N={n} B={rows} complex64: kernel {timing[hopper_cfft.K4.name][0]:.4f} ms, "
-        f"plain {timing[hopper_cfft.K4.name][1]:.4f} ms, torch.fft.fft (cuFFT) {cufft:.4f} ms [{card}]")
+    args = [(torch.randn(rows, n, dtype=torch.complex64, device=dev),) for _ in range(4)]
+    times[hopper_cfft.K4.name] = kernel_times(lambda z: hopper_cfft.cfft_kernel(z, plan, True, True),
+                                              lambda z: hopper_cfft.cfft_plain(z, plan, True, True), args,
+                                              lambda z: torch.fft.fft(z))
+    log_times(11, hopper_cfft.K4.name, f"N={n} B={rows} complex64 forward", times[hopper_cfft.K4.name], card)
+    del args
 
     n, rows = SMALL_TIMED
     cplan, rplan = ct.cached_plan(n, ct.FFT_COMPLEX), ct.cached_plan(n, ct.FFT_REAL)
     zs = [(torch.randn(rows, n, dtype=torch.complex64, device=dev),) for _ in range(2)]
     xs = [(torch.randn(rows, n, device=dev),) for _ in range(2)]
-    specs = [hopper_small.small_rfft_kernel(x, rplan) for (x,) in xs]
-    timing[hopper_small.K5_COMPLEX.name] = (
-        time_ms(lambda z: hopper_small.small_cfft_kernel(z, cplan, False), zs),
-        time_ms(lambda z: hopper_small.small_cfft_plain(z, cplan, False), zs),
-    )
-    timing[hopper_small.K5_REAL.name] = (
-        time_ms(lambda x: hopper_small.small_rfft_kernel(x, rplan), xs),
-        time_ms(lambda x: hopper_small.small_rfft_plain(x, rplan), xs),
-    )
-    timing[hopper_small.K5_REAL_INVERSE.name] = (
-        time_ms(lambda r, i: hopper_small.small_irfft_kernel(r, i, rplan), specs),
-        time_ms(lambda r, i: hopper_small.small_irfft_plain(r, i, rplan), specs),
-    )
-    cu_i = time_ms(lambda z: torch.fft.ifft(z), zs)
-    cu_r = time_ms(lambda x: torch.fft.rfft(x), xs)
-    cspecs = [(torch.fft.rfft(x),) for (x,) in xs]
-    cu_ir = time_ms(lambda c: torch.fft.irfft(c, n=n), cspecs)
-    timing["cufft_small_ifft"], timing["cufft_small_rfft"], timing["cufft_small_irfft"] = cu_i, cu_r, cu_ir
-    for k in (hopper_small.K5_COMPLEX, hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE):
-        log(f"phase 11 {k.name} N={n} B={rows}: kernel {timing[k.name][0]:.4f} ms, "
-            f"plain {timing[k.name][1]:.4f} ms [{card}]")
-    log(f"phase 11 cuFFT N={n} B={rows}: torch.fft.ifft {cu_i:.4f} ms, rfft {cu_r:.4f} ms, "
-        f"irfft {cu_ir:.4f} ms [{card}]")
+    specs = [hopper_small.small_rfft_kernel(v, rplan) for (v,) in xs]
+    cspecs = [(torch.fft.rfft(v),) for (v,) in xs]
+    times[hopper_small.K5_COMPLEX.name] = kernel_times(
+        lambda z: hopper_small.small_cfft_kernel(z, cplan, False),
+        lambda z: hopper_small.small_cfft_plain(z, cplan, False), zs, lambda z: torch.fft.ifft(z, norm="forward"))
+    times[hopper_small.K5_REAL.name] = kernel_times(
+        lambda v: hopper_small.small_rfft_kernel(v, rplan),
+        lambda v: hopper_small.small_rfft_plain(v, rplan), xs, lambda v: torch.fft.rfft(v))
+    times[hopper_small.K5_REAL_INVERSE.name] = kernel_times(
+        lambda r, i: hopper_small.small_irfft_kernel(r, i, rplan),
+        lambda r, i: hopper_small.small_irfft_plain(r, i, rplan), specs,
+        lambda c: torch.fft.irfft(c, n=n, norm="forward"), cspecs)
+    del zs, xs, specs, cspecs
+    for body, (k, kind, form) in enumerate(((hopper_small.K5_COMPLEX, "complex", "complex64 backward"),
+                                            (hopper_small.K5_REAL, "real", "forward"),
+                                            (hopper_small.K5_REAL_INVERSE, "real", "inverse"))):
+        g = hopper_small.launch_geometry(n, kind, rows)
+        blocks = lib.hopper_small_fft_blocks_per_sm(body, g.threads, g.smem_bytes)
+        require(blocks >= 1, f"{k.name}: {blocks} resident blocks per SM")
+        times[k.name]["blocks_per_sm"] = blocks
+        log_times(11, k.name, f"N={n} B={rows} {form}", times[k.name], card)
+        log(f"phase 11 {k.name} geometry: tiles of {g.tile_rows} rows, {g.threads} threads, {g.smem_bytes} B of "
+            f"shared memory, {g.grid} blocks; {blocks} resident blocks per SM")
+
+    k5_tile_sweep(ct, hopper_small, lib, dev, card)
 
     chain = models.SDRChain(models.SDRChainConfig(), device=dev)
     iq = torch.from_numpy(capture).to(dev)
-    chain(iq)
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(7):
-        time.sleep(0.05)
-        t0 = time.perf_counter()
-        chain(iq)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    by_kernel = kernel_device_times(lambda: chain(iq))
-    device_ms = sum(by_kernel.values())
-    wall = statistics.median(walls)
-    log(f"phase 11 config 5 chain (2^24 samples): wall {wall:.3f} ms per call (median of 7, host clock), "
-        f"device {device_ms:.3f} ms, idle share {1 - device_ms / wall:.2f} [{card}]")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"  {ms:9.4f} ms  {name[:110]}")
-    return timing
+    breakdown(11, "config 5 chain (2^24 samples)", lambda: chain(iq), wall_ms(lambda: chain(iq), 7), card, top=12)
+    del chain, iq
+
+    # The K5-real path: partitioned_fir_apply at block 128 (N = 256) on
+    # config 3's streams, as phase 9 runs it.
+    def fir():
+        return stream.partitioned_fir_apply(x, h, block=128)
+
+    by_kernel = breakdown(11, f"partitioned_fir_apply(block=128) on config 3 ({x.shape[0]} x {x.shape[1]}, "
+                              f"{h.shape[0]} taps)", fir, wall_ms(fir, 7), card, top=12)
+    k5 = {k.name: sum(ms for name, ms in by_kernel.items() if k.name in name)
+          for k in (hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE)}
+    log(f"phase 11 block-128 FIR: K5 device time " + ", ".join(f"{name} {ms:.4f} ms" for name, ms in k5.items())
+        + f" of {sum(by_kernel.values()):.3f} ms [{card}]")
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -783,9 +977,9 @@ def phase14(ct, hc, hf, stream, dev, audio: np.ndarray, ir: np.ndarray) -> dict[
 # ---------------------------------------------------------------------------
 
 
-def phase15(ct, hc, roof, stream, dev, card, audio: np.ndarray, ir: np.ndarray) -> dict[str, tuple]:
-    """Returns {kernel: (ms, plain ms, bound, library ms or None)} at config
-    2's top row."""
+def phase15(ct, hc, roof, stream, dev, card, audio: np.ndarray, ir: np.ndarray) -> dict[str, dict]:
+    """Returns each composite kernel's kernel_times at config 2's top row,
+    with its bound under "bound"."""
     n, rows = CONFIG2_TOP
     a, c = hc.split_large(n)
     pa, pc = ct.cached_plan(a, ct.FFT_COMPLEX), ct.cached_plan(c, ct.FFT_COMPLEX)
@@ -793,21 +987,20 @@ def phase15(ct, hc, roof, stream, dev, card, audio: np.ndarray, ir: np.ndarray) 
     x3 = [(z.reshape(rows, a, c),) for (z,) in zs]
     mids = [(hc.level1(v, pa, True),) for (v,) in x3]
     tw, twb = hc.twiddle(n, True, dev), hc.twiddle(n, False, dev)
-    out: dict[str, tuple] = {}
-    out[hc.K6_L1.name] = (time_ms(lambda v: hc.level1(v, pa, True), x3),
-                          time_ms(lambda v: hc.level1_plain(v, pa, True), x3),
-                          roof.level_roofline(n, rows, a),
-                          time_ms(lambda v: torch.fft.fft(v, dim=1), x3))
-    out[hc.K6_L2.name] = (time_ms(lambda v: hc.level2(v, tw, pc, True), mids),
-                          time_ms(lambda v: hc.level2_plain(v, tw, pc, True), mids),
-                          roof.level_roofline(n, rows, c, table_points=n), None)
-    out[hc.K6_L2_REV.name] = (time_ms(lambda v: hc.level2(v, twb, pc, False), mids),
-                              time_ms(lambda v: hc.level2_plain(v, twb, pc, False), mids),
-                              roof.level_roofline(n, rows, c, table_points=n), None)
-    out[hc.K6_L1_REV.name] = (time_ms(lambda v: hc.level1(v, pa, False), mids),
-                              time_ms(lambda v: hc.level1_plain(v, pa, False), mids),
-                              roof.level_roofline(n, rows, a),
-                              time_ms(lambda v: torch.fft.ifft(v, dim=-1), mids))
+    out: dict[str, dict] = {}
+    out[hc.K6_L1.name] = kernel_times(lambda v: hc.level1(v, pa, True), lambda v: hc.level1_plain(v, pa, True), x3,
+                                      lambda v: torch.fft.fft(v, dim=1))
+    out[hc.K6_L1.name]["bound"] = roof.level_roofline(n, rows, a)
+    out[hc.K6_L2.name] = kernel_times(lambda v: hc.level2(v, tw, pc, True),
+                                      lambda v: hc.level2_plain(v, tw, pc, True), mids)
+    out[hc.K6_L2.name]["bound"] = roof.level_roofline(n, rows, c, table_points=n)
+    out[hc.K6_L2_REV.name] = kernel_times(lambda v: hc.level2(v, twb, pc, False),
+                                          lambda v: hc.level2_plain(v, twb, pc, False), mids)
+    out[hc.K6_L2_REV.name]["bound"] = roof.level_roofline(n, rows, c, table_points=n)
+    out[hc.K6_L1_REV.name] = kernel_times(lambda v: hc.level1(v, pa, False),
+                                          lambda v: hc.level1_plain(v, pa, False), mids,
+                                          lambda v: torch.fft.ifft(v, dim=-1, norm="forward"))
+    out[hc.K6_L1_REV.name]["bound"] = roof.level_roofline(n, rows, a)
     cplan = ct.cached_plan(n, ct.FFT_COMPLEX)
     whole = {
         "fft": (time_ms(lambda v: ct.fft(v), zs), time_ms(lambda v: torch.fft.fft(v), zs),
@@ -823,15 +1016,14 @@ def phase15(ct, hc, roof, stream, dev, card, audio: np.ndarray, ir: np.ndarray) 
     xs = [(torch.randn(rows, n, device=dev),) for _ in range(2)]
     xr3 = [(x.reshape(rows, ra, rc),) for (x,) in xs]
     packed = [hc.rfft_cols(v, pra) for (v,) in xr3]
-    out[hc.K7A.name] = (time_ms(lambda v: hc.rfft_cols(v, pra), xr3),
-                        time_ms(lambda v: hc.rfft_cols_plain(v, pra), xr3),
-                        roof.level_roofline(n, rows, ra, "real"),
-                        time_ms(lambda v: torch.fft.rfft(v, dim=1), xr3))
+    out[hc.K7A.name] = kernel_times(lambda v: hc.rfft_cols(v, pra), lambda v: hc.rfft_cols_plain(v, pra), xr3,
+                                    lambda v: torch.fft.rfft(v, dim=1))
+    out[hc.K7A.name]["bound"] = roof.level_roofline(n, rows, ra, "real")
     specs = [(torch.fft.rfft(v.transpose(1, 2), dim=-1),) for (v,) in xr3]
-    out[hc.K7B.name] = (time_ms(lambda r, i: hc.irfft_cols(r, i, pra), packed),
-                        time_ms(lambda r, i: hc.irfft_cols_plain(r, i, pra), packed),
-                        roof.level_roofline(n, rows, ra, "real"),
-                        time_ms(lambda s: torch.fft.irfft(s, n=ra, dim=-1), specs))
+    out[hc.K7B.name] = kernel_times(lambda r, i: hc.irfft_cols(r, i, pra),
+                                    lambda r, i: hc.irfft_cols_plain(r, i, pra), packed,
+                                    lambda sp: torch.fft.irfft(sp, n=ra, dim=-1, norm="forward"), specs)
+    out[hc.K7B.name]["bound"] = roof.level_roofline(n, rows, ra, "real")
     del specs
     rspecs = [ct.rfft_packed(x) for (x,) in xs]
     cuspecs = [(torch.fft.rfft(x),) for (x,) in xs]
@@ -843,10 +1035,8 @@ def phase15(ct, hc, roof, stream, dev, card, audio: np.ndarray, ir: np.ndarray) 
     del xs, xr3, packed, rspecs, cuspecs
 
     for k in hc.KERNELS:
-        ms, plain_ms, bound, lib = out[k.name]
-        lib_s = "null" if lib is None else f"{lib:.4f} ms"
-        log(f"phase 15 {k.name} (N=2^20, B=64): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound.ms:.4f} ms ({bound.bound_by}), library {lib_s} [{card}]")
+        log_times(15, k.name, f"(N=2^20, B=64; bound {out[k.name]['bound'].ms:.4f} ms, "
+                              f"{out[k.name]['bound'].bound_by})", out[k.name], card)
     for name, (ms, lib, plain_ms) in whole.items():
         kind = "complex" if name in ("fft", "ifft") else "real"
         bound = roof.fft_roofline(n, rows, kind)
@@ -855,18 +1045,9 @@ def phase15(ct, hc, roof, stream, dev, card, audio: np.ndarray, ir: np.ndarray) 
 
     x = torch.from_numpy(audio).to(dev)
     h = torch.from_numpy(ir).to(dev)
-    stream.fir_filter_ols(x, h)
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        time.sleep(0.05)
-        t0 = time.perf_counter()
-        stream.fir_filter_ols(x, h)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = wall_ms(lambda: stream.fir_filter_ols(x, h), 5)
     by_kernel = kernel_device_times(lambda: stream.fir_filter_ols(x, h))
     device_ms = sum(by_kernel.values())
-    wall = statistics.median(walls)
     blocks = audio.shape[0] * 2
     bound = roof.conv_roofline(1 << 19, blocks)
     log(f"phase 15 reverb fir_filter_ols (64 ch x 10 s, 2 s IRs): wall {wall:.3f} ms per call (median of 5, "
@@ -1101,13 +1282,14 @@ def phase18(ct, hf, hc4, lib, dev, rng, model_calls: dict) -> tuple[dict[str, fl
 
 
 def phase19(ct, hf, hc4, roof, models, stream, dev, card, audio: np.ndarray, ir: np.ndarray,
-            model_calls: dict) -> dict[str, tuple]:
+            model_calls: dict) -> dict[str, dict]:
     """Timing (informational). Each db kernel beside its grid kernel,
     grid/db/db/grid in turn, at every shape of phase 18 (K1 and K1-db
     joint unordered, K2 unordered, K4 complex64 forward ordered); at the
-    headline shape the plain versions; config 4's apply (wall, device time
-    by kernel, idle share) and one step (wall); spectrogram (wall, device).
-    Returns {db kernel: (ms, plain ms)} at the headline shape."""
+    headline shape the db kernels' device times and plain versions;
+    config 4's apply (wall, device time by kernel, idle share) and one
+    step (wall); spectrogram (wall, device). Returns each db kernel's row
+    at the headline shape (ms, device_ms, plain_ms)."""
 
     def alternate(grid_fn, db_fn, args):
         g1, d1 = time_ms(grid_fn, args), time_ms(db_fn, args)
@@ -1118,7 +1300,13 @@ def phase19(ct, hf, hc4, roof, models, stream, dev, card, audio: np.ndarray, ir:
         log(f"phase 19 A/B {name} {shape}: grid {grid_ms:.4f} ms, db {db_ms:.4f} ms, db/grid "
             f"{db_ms / grid_ms:.3f}; bound {bound.ms:.4f} ms ({bound.bound_by}) [{card}]")
 
-    out: dict[str, tuple] = {}
+    def db_times(db_fn, plain, args, host_ms):
+        """A db kernel's row: its A/B host-inclusive mean, its device time
+        by graph replay, its plain version's time (the library columns are
+        its grid kernel's)."""
+        return {"ms": host_ms, "device_ms": graph_time_ms(db_fn, args), "plain_ms": time_ms(plain, args)}
+
+    out: dict[str, dict] = {}
     for n, rows in REAL_DB_SHAPES:
         plan = ct.cached_plan(n, ct.FFT_REAL)
         xs = [(torch.randn(rows, n, device=dev),) for _ in range(2)]
@@ -1126,13 +1314,15 @@ def phase19(ct, hf, hc4, roof, models, stream, dev, card, audio: np.ndarray, ir:
                          lambda v: hf.rfft_packed_joint_db_kernel(v, plan, False), xs)
         report("K1 / K1-db", f"N={n} B={rows}", g, d, roof.fft_roofline(n, rows, "real"))
         if (n, rows) == HEADLINE:
-            out[hf.K1_DB.name] = (d, time_ms(lambda v: hf.rfft_packed_joint_plain(v, plan, False), xs))
+            out[hf.K1_DB.name] = db_times(lambda v: hf.rfft_packed_joint_db_kernel(v, plan, False),
+                                          lambda v: hf.rfft_packed_joint_plain(v, plan, False), xs, d)
         specs = [hf.rfft_packed_kernel(v, plan, False) for (v,) in xs]
         g, d = alternate(lambda r, i: hf.irfft_packed_kernel(r, i, plan, False),
                          lambda r, i: hf.irfft_packed_db_kernel(r, i, plan, False), specs)
         report("K2 / K2-db", f"N={n} B={rows}", g, d, roof.fft_roofline(n, rows, "real"))
         if (n, rows) == HEADLINE:
-            out[hf.K2_DB.name] = (d, time_ms(lambda r, i: hf.irfft_packed_plain(r, i, plan, False), specs))
+            out[hf.K2_DB.name] = db_times(lambda r, i: hf.irfft_packed_db_kernel(r, i, plan, False),
+                                          lambda r, i: hf.irfft_packed_plain(r, i, plan, False), specs, d)
         del xs, specs
     (frames, plan8k, ordered), _ = model_calls["k1"]
     (are, aim, _, k2_ordered), _ = model_calls["k2"]
@@ -1151,44 +1341,26 @@ def phase19(ct, hf, hc4, roof, models, stream, dev, card, audio: np.ndarray, ir:
                          lambda v: hc4.cfft_db_kernel(v, plan, True, True), zs)
         report("K4 / K4-db", f"N={n} B={rows}", g, d, roof.fft_roofline(n, rows, "complex"))
         if (n, rows) == HEADLINE:
-            out[hc4.K4_DB.name] = (d, time_ms(lambda v: hc4.cfft_plain(v, plan, True, True), zs))
+            out[hc4.K4_DB.name] = db_times(lambda v: hc4.cfft_db_kernel(v, plan, True, True),
+                                           lambda v: hc4.cfft_plain(v, plan, True, True), zs, d)
         del zs
 
     channels, t = audio.shape
     conv = models.MultichannelConvolver(ir, models.ConvolverConfig(channels=channels, block=CONFIG4_BLOCK))
     x = torch.from_numpy(audio).to(dev)
 
-    def wall_ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(reps):
-            time.sleep(0.05)
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(walls)
-
-    def breakdown(name, fn, wall, top=10):
-        by_kernel = kernel_device_times(fn)
-        device_ms = sum(by_kernel.values())
-        log(f"phase 19 {name}: wall {wall:.3f} ms per call (median, host clock), device {device_ms:.3f} ms, "
-            f"idle share {1 - device_ms / wall:.3f} [{card}]")
-        for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
-            log(f"  {ms:9.4f} ms  {kname[:110]}")
-
     apply_wall = wall_ms(lambda: conv.apply(x), 5)
-    breakdown(f"config 4 apply ({channels} ch x {t} samples, block {CONFIG4_BLOCK})", lambda: conv.apply(x),
-              apply_wall, top=14)
+    breakdown(19, f"config 4 apply ({channels} ch x {t} samples, block {CONFIG4_BLOCK})", lambda: conv.apply(x),
+              apply_wall, card, top=14)
     state = conv.init_state()
     frame = x[:, :CONFIG4_BLOCK]
     step_wall = wall_ms(lambda: conv.step(state, frame), 7)
-    breakdown(f"config 4 step ({channels} x {CONFIG4_BLOCK})", lambda: conv.step(state, frame), step_wall, top=6)
+    breakdown(19, f"config 4 step ({channels} x {CONFIG4_BLOCK})", lambda: conv.step(state, frame), step_wall,
+              card, top=6)
     n_fft, hop = STFT
     spec_wall = wall_ms(lambda: stream.spectrogram(x, n_fft=n_fft, hop=hop), 5)
-    breakdown(f"spectrogram (n_fft {n_fft}, hop {hop}, {channels} x {t})",
-              lambda: stream.spectrogram(x, n_fft=n_fft, hop=hop), spec_wall)
+    breakdown(19, f"spectrogram (n_fft {n_fft}, hop {hop}, {channels} x {t})",
+              lambda: stream.spectrogram(x, n_fft=n_fft, hop=hop), spec_wall, card)
     return out
 
 
@@ -1216,7 +1388,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _cuda.build()
     lib = _cuda.library()
-    limits = (lib.hopper_real_fft_max_n(), lib.hopper_complex_fft_max_n(), lib.hopper_small_dft_max_n(),
+    limits = (lib.hopper_real_fft_max_n(), lib.hopper_complex_fft_max_n(), lib.hopper_small_fft_max_n(),
               lib.hopper_composite_max_col())
     require(limits == (hf.MAX_N, hopper_cfft.MAX_CN, hopper_small.MAX_SMALL_N, hc.MAX_COL),
             f"kernel limits (MAX_N, MAX_CN, MAX_SMALL_N, MAX_COL) {limits} differ from Python's")
@@ -1285,30 +1457,23 @@ def main() -> int:
     # -- phase 5 ------------------------------------------------------------
     n, rows = HEADLINE
     plan = ct.cached_plan(n, ct.FFT_REAL)
-    xs = [torch.randn(rows, n, device=dev) for _ in range(4)]
-    specs = [hf.rfft_packed_kernel(xi, plan, False) for xi in xs]
+    xs = [(torch.randn(rows, n, device=dev),) for _ in range(4)]
+    specs = [hf.rfft_packed_kernel(xi, plan, False) for (xi,) in xs]
+    cspecs = [(torch.fft.rfft(xi),) for (xi,) in xs]
     filt = specs[0][0][:1].clone(), specs[0][1][:1].clone()
-    timing = {
-        "rfft_packed_kernel": (
-            time_ms(lambda a: hf.rfft_packed_kernel(a, plan, False), [(a,) for a in xs]),
-            time_ms(lambda a: hf.rfft_packed_plain(a, plan, False), [(a,) for a in xs]),
-        ),
-        "irfft_packed_kernel": (
-            time_ms(lambda r, i: hf.irfft_packed_kernel(r, i, plan, False), specs),
-            time_ms(lambda r, i: hf.irfft_packed_plain(r, i, plan, False), specs),
-        ),
-        "convolve_irfft_packed_kernel": (
-            time_ms(lambda r, i: hf.convolve_irfft_packed_kernel(r, i, *filt, 1.0 / n, plan, False), specs),
-            time_ms(lambda r, i: hf.convolve_irfft_packed_plain(r, i, *filt, 1.0 / n, plan, False), specs),
-        ),
+    times = {
+        hf.K1.name: kernel_times(lambda a: hf.rfft_packed_kernel(a, plan, False),
+                                 lambda a: hf.rfft_packed_plain(a, plan, False), xs, lambda a: torch.fft.rfft(a)),
+        hf.K2.name: kernel_times(lambda r, i: hf.irfft_packed_kernel(r, i, plan, False),
+                                 lambda r, i: hf.irfft_packed_plain(r, i, plan, False), specs,
+                                 lambda c: torch.fft.irfft(c, n=n, norm="forward"), cspecs),
+        hf.K3.name: kernel_times(lambda r, i: hf.convolve_irfft_packed_kernel(r, i, *filt, 1.0 / n, plan, False),
+                                 lambda r, i: hf.convolve_irfft_packed_plain(r, i, *filt, 1.0 / n, plan, False),
+                                 specs),
     }
-    cufft_r = time_ms(lambda a: torch.fft.rfft(a), [(a,) for a in xs])
-    cspecs = [(torch.fft.rfft(a),) for a in xs]
-    cufft_i = time_ms(lambda c: torch.fft.irfft(c, n=n), cspecs)
-    for name, (k_ms, p_ms) in timing.items():
-        log(f"phase 5 {name} N={n} B={rows}: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms [{card}]")
-    log(f"phase 5 torch.fft.rfft (cuFFT) N={n} B={rows}: {cufft_r:.4f} ms; "
-        f"torch.fft.irfft: {cufft_i:.4f} ms [{card}]")
+    del xs, specs, cspecs
+    for name, t in times.items():
+        log_times(5, name, f"N={n} B={rows} unordered", t, card)
 
     errs = {k.name: max(v for key, v in headline_err.items()
                         if key.startswith(prefix) and key.endswith("twin"))
@@ -1353,14 +1518,19 @@ def main() -> int:
         require(ct.engine_for(n, kind) == "stockham", f"engine_for({n}, {kind}) = {ct.engine_for(n, kind)}")
     log(f"phase 10 ok: every kernel carried its path; launches {launches}")
 
-    # -- phases 11 and 15: timing ----------------------------------------------
-    timing.update(phase11(ct, hopper_cfft, hopper_small, models, dev, capture, card))
+    # -- phases 11, 15 and 19: timing --------------------------------------------
+    times.update(phase11(ct, hopper_cfft, hopper_small, models, stream, lib, dev, capture, x, h, card))
     del capture
-    composite_timing = phase15(ct, hc, roof, stream, dev, card, audio, ir)
-    db_timing = phase19(ct, hf, hopper_cfft, roof, models, stream, dev, card, audio, ir, model_calls)
+    times.update(phase15(ct, hc, roof, stream, dev, card, audio, ir))
+    times.update(phase19(ct, hf, hopper_cfft, roof, models, stream, dev, card, audio, ir, model_calls))
     del model_calls
+    # The db forms compute their grid kernels' functions at the same shape.
+    for db, grid in ((hf.K1_DB, hf.K1), (hf.K2_DB, hf.K2), (hopper_cfft.K4_DB, hf.K4)):
+        times[db.name].update(library_ms=times[grid.name]["library_ms"],
+                              library_device_ms=times[grid.name]["library_device_ms"])
 
-    # Bounds and library calls at each kernel's timed shape (phases 5 and 11).
+    # Bounds at each kernel's timed shape (phases 5, 11 and 19; phase 15's
+    # come with its times).
     n, rows = HEADLINE
     k3_bytes = rows * roof.fft_bytes(n, "real") + 4 * n  # A in, x out, one shared B
     k3_flops = rows * (2.5 * n * np.log2(n) + 3 * n)
@@ -1376,32 +1546,23 @@ def main() -> int:
         hf.K2_DB.name: roof.fft_roofline(n, rows, "real"),
         hopper_cfft.K4_DB.name: roof.fft_roofline(n, rows, "complex"),
     }
-    library = {
-        hf.K1.name: cufft_r, hf.K2.name: cufft_i, hf.K3.name: None, hf.K4.name: timing.pop("cufft_fft"),
-        hopper_small.K5_COMPLEX.name: timing.pop("cufft_small_ifft"),
-        hopper_small.K5_REAL.name: timing.pop("cufft_small_rfft"),
-        hopper_small.K5_REAL_INVERSE.name: timing.pop("cufft_small_irfft"),
-    }
-    # The db forms compute their grid kernels' functions at the same shape.
-    library.update({hf.K1_DB.name: library[hf.K1.name], hf.K2_DB.name: library[hf.K2.name],
-                    hopper_cfft.K4_DB.name: library[hf.K4.name]})
-    timing.update(db_timing)
-    for name, (ms, plain_ms, bound, lib) in composite_timing.items():
-        timing[name] = (ms, plain_ms)
-        bounds[name] = bound
-        library[name] = lib
+    bounds.update({k.name: times[k.name]["bound"] for k in hc.KERNELS})
     direct = roof.direct_dft_roofline(*SMALL_TIMED, "complex")
-    log(f"K5 complex's own algorithm (direct DFT, {direct.flops / 1e9:.1f} GFLOP) is bound at {direct.ms:.4f} ms "
-        f"({direct.bound_by}); the function's bound is {bounds[hopper_small.K5_COMPLEX.name].ms:.4f} ms")
+    k5 = times[hopper_small.K5_COMPLEX.name]
+    log(f"K5 complex at N={SMALL_TIMED[0]}, B={SMALL_TIMED[1]}: the direct DFT of the old design did "
+        f"{direct.flops / 1e9:.1f} GFLOP, bound at {direct.ms:.4f} ms ({direct.bound_by}); the FFT now takes "
+        f"{k5['device_ms']:.4f} ms on the device ({k5['ms']:.4f} ms a call), against the function's bound "
+        f"{bounds[hopper_small.K5_COMPLEX.name].ms:.4f} ms ({bounds[hopper_small.K5_COMPLEX.name].bound_by}) [{card}]")
 
     kernels = []
     for k in hf.KERNELS:
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name], "max_abs_err": errs[k.name],
-            "ms": timing[k.name][0], "plain_ms": timing[k.name][1],
+            "ms": times[k.name]["ms"], "plain_ms": times[k.name]["plain_ms"],
             "bound_ms": bounds[k.name].ms, "bound_by": bounds[k.name].bound_by,
-            "library_ms": library[k.name],
+            "library_ms": times[k.name]["library_ms"],
+            "device_ms": times[k.name]["device_ms"], "library_device_ms": times[k.name]["library_device_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     result = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
 It keeps the JAX package's public layouts and entry points and runs the
 transforms on hand-written Hopper kernels (``ops/hopper_fft.py``,
 ``csrc/*.cu``): the packed real FFT and fast convolution (K1-K3), the
-complex FFT (K4), the small-N direct DFT (K5), the two-level composite
+complex FFT (K4), the small-N FFT (K5), the two-level composite
 up to 2^20 (K6, K7a, K7b), and the pipelined forms of K1, K2 and K4
 (K1-db, K2-db, K4-db; no dispatch path runs them, as in the JAX
 package). Sizes outside the kernels' domain run on the plain PyTorch

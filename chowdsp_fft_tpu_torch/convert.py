@@ -8,7 +8,7 @@ their layout where both sides use the same one (the four-step
 permutations of ``ops.tables.unordered_perm`` for real N on the JAX fused
 real kernel and on K1-K3, and of ``ops.tables.cfft_unordered_perm`` for
 complex N on the JAX complex kernel and on K4); where one side runs in
-natural order (a Stockham engine, the small-N direct DFT, or a size one
+natural order (a Stockham engine, the small-N transforms, or a size one
 kernel serves and the other does not) they are reordered here. A complex
 spectrum from the JAX two-level composite is refused.
 """

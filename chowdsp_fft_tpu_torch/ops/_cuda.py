@@ -31,8 +31,8 @@ MAX_N = 16384
 # Largest complex N of K4: two padded N-point buffers, 16.5N bytes, within
 # the 227 KB a block may use (n1 = 108; 16384 would need 270 KB).
 MAX_CN = 13824
-# Largest N of K5, the small-N direct DFT: the JAX package's small-N
-# domain ends below 512.
+# Largest N of K5, the small-N FFT: the JAX package's small-N domain ends
+# below 512.
 MAX_SMALL_N = 511
 # Longest column of the composite's column kernels (K6, K7): a tile of TC
 # columns holds two padded L*TC-point buffers, 16.5*L*TC bytes, and the
@@ -57,7 +57,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "hopper_real_fft_max_n": [],
     "hopper_complex_fft_max_n": [],
-    "hopper_small_dft_max_n": [],
+    "hopper_small_fft_max_n": [],
+    "hopper_small_fft_blocks_per_sm": [_I, _I, _I],
     # K1: x, y re/im, output row stride, rows, N, radices, nstages, stage
     # twiddles, split twiddles, permutation, stream.
     "k1_rfft_packed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
@@ -66,9 +67,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, ctypes.c_float, _P, _I, _I, _P, _I, _P, _P, _P, _P,
     ],
     "k4_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
-    "k5_small_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "k5_small_rfft": [_P, _P, _P, _I, _I, _P, _P],
-    "k5_small_irfft": [_P, _P, _P, _I, _I, _P, _P],
+    # K5: K4's arguments without the permutation, then the launch geometry
+    # (tile shift, threads, shared bytes, grid), stream.
+    "k5_small_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],
+    # K5 real: x or packed re/im, output(s), rows, N, radices, nstages,
+    # stage twiddles, split twiddles, geometry, stream.
+    "k5_small_rfft": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "k5_small_irfft": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "hopper_composite_max_col": [],
     "hopper_composite_col_tile": [_I],
     # K6 roles: x re/im, y re/im, element stride, batch, L, M, radices,

@@ -9,9 +9,9 @@ Four kernel families, each checking its own size domain:
   N = n1 * 128 with n1 {2,3,5}-smooth and 256 < N <= MAX_N;
 - K4 (``csrc/complex_fft.cu``, ``hopper_cfft``): the complex FFT for
   N = n1 * 128, 256 < N <= MAX_CN;
-- K5 (``csrc/small_dft.cu``, ``hopper_small``): the direct DFT, complex
-  and real, for 8 <= N <= 256 and the smooth non-multiples of 128 below
-  512;
+- K5 (``csrc/small_fft.cu``, ``hopper_small``): row-tiled mixed-radix
+  FFTs, complex and real, for 8 <= N <= 256 and the smooth non-multiples
+  of 128 below 512;
 - K6, K7a, K7b (``csrc/composite_fft.cu``, ``hopper_composite``): the
   two-level composite, complex and real, for every other size the JAX
   ``pallas`` engine serves, up to 2^20;
@@ -136,7 +136,7 @@ def _in_domain(n: int) -> bool:
 
 def supports_plan(plan: FFTPlan) -> bool:
     """The JAX engine's ``supports_plan`` (pallas_fft.py:185), size for
-    size and kind for kind: the direct-DFT sizes (K5), the single-kernel
+    size and kind for kind: the small-N sizes (K5), the single-kernel
     sizes up to 2^17 (K1-K4 up to MAX_N/MAX_CN, the composite above) and
     every composite split up to 2^20 (real plans need both factors even),
     including the medium smooth non-multiples of 128 (576, 720, ...)."""

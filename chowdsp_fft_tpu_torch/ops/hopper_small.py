@@ -1,5 +1,5 @@
-"""K5: the small-N direct DFT on hand-written CUDA kernels
-(``csrc/small_dft.cu``), counterpart of ``_small_call`` and its three
+"""K5: the small-N transforms on hand-written CUDA kernels
+(``csrc/small_fft.cu``), counterpart of ``_small_call`` and its three
 bodies in ``chowdsp_fft_tpu/ops/pallas_fft.py``.
 
 - ``small_cfft_kernel``: complex rows (complex64, or a (re, im) pair of
@@ -8,14 +8,16 @@ bodies in ``chowdsp_fft_tpu/ops/pallas_fft.py``.
   DC in re[0] and Nyquist in im[0];
 - ``small_irfft_kernel``: packed planes -> (rows, N) f32, unscaled.
 
-Bins are in natural order; that is also the unordered layout at these
-sizes, as in the JAX package. Each has a plain version here: the direct
-DFT as matrix products over ``tables.small_tables_c/r/ri``, the same
-float32 values the kernels read from ``tables.small_roots``, accumulated
-in float64 and rounded once to float32 (a float32 GEMM's running sums
-leave the 2e-7*N bound in the tail of a large batch, as a plain float32
-sum would in the kernels). A wrapper runs the plain version for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+The kernels are row-tiled mixed-radix FFTs: a block runs the plan's
+Stockham stages on a tile of ``2^shift`` consecutive rows
+(:func:`launch_geometry`), the real bodies on the N/2-point complex
+transform with K1's split and K2's merge. Bins are in natural order; that
+is also the unordered layout at these sizes, as in the JAX package. Each
+body has a plain version here, independent of the kernels' algorithm: the
+direct DFT as matrix products over ``tables.small_tables_c/r/ri``
+(float32 roots built in float64), accumulated in float64 and rounded once
+to float32. A wrapper runs the plain version for CPU tensors; for CUDA
+tensors it launches the kernel or raises.
 
 Domain (``in_domain``): 8 <= N <= 256, and the {2,3,5}-smooth sizes below
 512 that are not multiples of 128 (the JAX package's ``_small_dispatch``).
@@ -23,6 +25,8 @@ Domain (``in_domain``): 8 <= N <= 256, and the {2,3,5}-smooth sizes below
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -30,14 +34,18 @@ import torch
 from ..plans import FFT_COMPLEX, FFT_REAL, FFTPlan
 from ._cuda import MAX_SMALL_N, Kernel, check, launch, require_cuda, require_domain
 from .hopper_cfft import as_complex, complex_io, is_cpu, like, shape_of
-from .tables import is_smooth_multiple, small_roots, small_tables_c, small_tables_r, small_tables_ri
+from .tables import is_smooth_multiple, small_tables_c, small_tables_r, small_tables_ri
 
 __all__ = [
     "K5_COMPLEX",
     "K5_REAL",
     "K5_REAL_INVERSE",
     "MAX_SMALL_N",
+    "TILE_POINTS",
+    "POINTS_PER_THREAD",
+    "Geometry",
     "in_domain",
+    "launch_geometry",
     "small_cfft_kernel",
     "small_rfft_kernel",
     "small_irfft_kernel",
@@ -48,8 +56,18 @@ __all__ = [
 
 MIN_SMALL = 8
 MAX_SMALL = 256
+# Complex points a tile aims at (the largest power-of-two number of rows
+# that fits), and points per thread (csrc/small_fft.cu kPerThread): 64
+# threads hold a 512-point tile's loads in flight at once, and two padded
+# buffers of 8.4 KB let 18-20 blocks share an SM. Chosen by measurement
+# on the H100 (chip_smoke.py phase 11 times 256- to 2048-point tiles).
+TILE_POINTS = 512
+POINTS_PER_THREAD = 8
+MAX_THREADS = 1024
+SMEM_BYTES = 232448  # shared memory one block may use on sm_90 (stockham.cuh)
+STATIC_SMEM_BYTES = 0  # the K5 kernels declare no static shared memory
 
-_SRC = "chowdsp_fft_tpu_torch/csrc/small_dft.cu"
+_SRC = "chowdsp_fft_tpu_torch/csrc/small_fft.cu"
 _JAX = "chowdsp_fft_tpu/ops/pallas_fft.py"
 K5_COMPLEX = Kernel("small_cfft_kernel", _SRC, f"{_JAX}:2299 (_small_cfft_kernel, via _small_call :2252)")
 K5_REAL = Kernel("small_rfft_kernel", _SRC, f"{_JAX}:2310 (_small_rfft_kernel, via _small_call :2252)")
@@ -64,11 +82,53 @@ def in_domain(n: int) -> bool:
     return n <= MAX_SMALL_N and not is_smooth_multiple(n)
 
 
-@functools.lru_cache(maxsize=64)
-def _device_roots(n: int, device: str) -> torch.Tensor:
-    """``tables.small_roots(n)`` as complex64 (float2 on the card)."""
-    re, im = small_roots(n)
-    return torch.complex(torch.from_numpy(re.copy()), torch.from_numpy(im.copy())).to(device)
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """A K5 launch: tiles of ``2^shift`` rows, ``threads`` per block,
+    ``smem_bytes`` of dynamic shared memory (two padded buffers of the
+    tile's points, one float2 of padding per 32), ``grid`` blocks."""
+
+    shift: int
+    threads: int
+    smem_bytes: int
+    grid: int
+
+    @property
+    def tile_rows(self) -> int:
+        return 1 << self.shift
+
+    @property
+    def args(self) -> tuple[int, int, int, int]:
+        """The C entries' trailing geometry arguments."""
+        return self.shift, self.threads, self.smem_bytes, self.grid
+
+
+def launch_geometry(n: int, kind: str, rows: int, tile_points: int = TILE_POINTS) -> Geometry:
+    """The launch of a K5 body on ``rows`` rows of an N-point ``kind``
+    transform: the largest power-of-two tile of rows whose M-point
+    transforms (M = N complex, N/2 real) hold at most ``tile_points``
+    points, ``POINTS_PER_THREAD`` points a thread in whole warps (at least
+    two), and a block per tile (the last one ragged). The wrappers take
+    the default; the C entries check whatever they are given."""
+    m = n if kind == FFT_COMPLEX else n // 2
+    shift = 0
+    while m << (shift + 1) <= tile_points:
+        shift += 1
+    pts = m << shift
+    threads = min(MAX_THREADS, max(64, -(-pts // (32 * POINTS_PER_THREAD)) * 32))
+    smem = 2 * (pts + (pts >> 5)) * 8
+    return Geometry(shift, threads, smem, (rows + (1 << shift) - 1) >> shift)
+
+
+def _launch(kernel: Kernel, entry: str, plan: FFTPlan, device: torch.device, rows: int, *args):
+    """Launch a K5 entry: ``args``, then the plan's radices (host int
+    array), stage twiddles (and split twiddles for a real plan), then the
+    launch geometry."""
+    tabs = plan.device_tables(device)
+    radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
+    split = () if tabs.split_tw is None else (tabs.split_tw.data_ptr(),)
+    launch(kernel, entry, device, *args, ctypes.addressof(radices), len(plan.radices),
+           tabs.stage_flat.data_ptr(), *split, *launch_geometry(plan.n, plan.kind, rows).args)
 
 
 @functools.lru_cache(maxsize=64)
@@ -117,8 +177,8 @@ def small_cfft_kernel(x, plan: FFTPlan, forward: bool = True):
     rows = shape_of(x)[0]
     dev, stride, src, out, dst = complex_io(K5_COMPLEX.name, x, (rows, plan.n))
     if rows:
-        launch(K5_COMPLEX, "k5_small_cfft", dev, *src, *dst, stride, rows, plan.n,
-               -1 if forward else 1, _device_roots(plan.n, str(dev)).data_ptr())
+        _launch(K5_COMPLEX, "k5_small_cfft", plan, dev, rows, *src, *dst, stride, rows, plan.n,
+                -1 if forward else 1)
     return out
 
 
@@ -133,8 +193,8 @@ def small_rfft_kernel(x: torch.Tensor, plan: FFTPlan):
     yre = torch.empty((rows, n // 2), dtype=torch.float32, device=x.device)
     yim = torch.empty_like(yre)
     if rows:
-        launch(K5_REAL, "k5_small_rfft", x.device, x.data_ptr(), yre.data_ptr(), yim.data_ptr(),
-               rows, n, _device_roots(n, str(x.device)).data_ptr())
+        _launch(K5_REAL, "k5_small_rfft", plan, x.device, rows, x.data_ptr(), yre.data_ptr(), yim.data_ptr(),
+                rows, n)
     return yre, yim
 
 
@@ -149,6 +209,6 @@ def small_irfft_kernel(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
     check("yim", yim, (rows, n // 2), yre.device)
     x = torch.empty((rows, n), dtype=torch.float32, device=yre.device)
     if rows:
-        launch(K5_REAL_INVERSE, "k5_small_irfft", yre.device, yre.data_ptr(), yim.data_ptr(),
-               x.data_ptr(), rows, n, _device_roots(n, str(yre.device)).data_ptr())
+        _launch(K5_REAL_INVERSE, "k5_small_irfft", plan, yre.device, rows, yre.data_ptr(), yim.data_ptr(),
+                x.data_ptr(), rows, n)
     return x

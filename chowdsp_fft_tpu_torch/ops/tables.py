@@ -4,7 +4,8 @@ numpy only (plus the column kernel's length limit, ``_cuda.MAX_COL``).
 The Stockham kernels (K1-K4) read the plan's own twiddles
 (``plans.make_plan``: per-stage W_n^(j*p) and the real split W_N^k, both
 computed in float64 and stored in float32) and the unordered permutations
-below; the small-N direct DFT (K5) reads :func:`small_roots`; the
+below; the small-N FFT (K5) reads the same plan twiddles, and its plain
+versions the direct-DFT matrices built from :func:`small_roots`; the
 two-level composite (K6, K7) reads :func:`split_large` and the four-step
 twiddles at the end of this module.
 """
@@ -98,11 +99,11 @@ def _inverse(perm: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Small-N direct DFT (K5). The kernels read only the N roots W^m and index
-# them by (j*k) mod N; the matrices below are the same float32 values laid
-# out as the JAX package's _small_tables_c/r/ri (without its 128-lane
-# block-diagonal packing), for the plain versions. All built in float64
-# from the reduced index and cast once.
+# Small-N direct DFT: the plain versions of K5 (whose kernels run the
+# plan's FFT stages instead). The matrices hold the N roots W^m, indexed by
+# (j*k) mod N and laid out as the JAX package's _small_tables_c/r/ri
+# (without its 128-lane block-diagonal packing). All built in float64 from
+# the reduced index and cast once.
 # ---------------------------------------------------------------------------
 
 

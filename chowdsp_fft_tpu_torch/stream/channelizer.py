@@ -8,8 +8,8 @@ decimated by C:
   2. FIR each branch with the matching polyphase component of a prototype
      low-pass (one grouped ``conv1d``, full float32);
   3. an unscaled inverse DFT across the branch axis per output step, on
-     the port's complex FFT engine (``api.ifft``: the small-N direct DFT
-     K5 at C <= 256, the complex Stockham kernel K4 at C = n1*128 above),
+     the port's complex FFT engine (``api.ifft``: the small-N FFT K5 at
+     C <= 256, the complex Stockham kernel K4 at C = n1*128 above),
      then the 1/C gain.
 """
 

@@ -29,6 +29,8 @@ def rand(shape, dev, seed):
 
 
 def maxerr(a, b):
+    if not a.numel():  # no rows: nothing to differ
+        return 0.0
     if a.is_complex():
         a, b = torch.view_as_real(a), torch.view_as_real(b)
     return float((a.double() - b.double()).abs().max())
@@ -106,25 +108,67 @@ def test_k4_matches_plain(dev, n, rows, forward, ordered):
     assert hopper_cfft.K4.launches == 3
 
 
-@pytest.mark.parametrize("n,rows", [(8, 1), (9, 5), (30, 7), (32, 33), (64, 7), (225, 3), (256, 300), (480, 9)])
-def test_k5_matches_plain(dev, n, rows):
-    """Even N pairs bins in every body; odd N (complex only) does not."""
+K5_SIZES = [n for n in range(hopper_small.MIN_SMALL, hopper_small.MAX_SMALL_N + 1)
+            if hopper_small.in_domain(n) and ct.is_valid_size(n)]
+
+
+@pytest.mark.parametrize("n", K5_SIZES)
+def test_k5_matches_plain(dev, n):
+    """Every size of K5's domain, at 1 row, ragged rows around the
+    kernel's tile of rows (T - 1 and T + 1) and 1000 rows; complex64 and
+    planes alike; real bodies at even N."""
     cplan = ct.cached_plan(n, ct.FFT_COMPLEX)
-    z = crand((rows, n), dev, n)
-    for forward in (True, False):
-        y = hopper_small.small_cfft_kernel(z, cplan, forward)
-        p = hopper_small.small_cfft_plain(z, cplan, forward)
-        assert maxerr(torch.view_as_real(y), torch.view_as_real(p)) <= 2e-7 * n
+    tile = hopper_small.launch_geometry(n, "complex", 1).tile_rows
+    for rows in (1, tile - 1, tile + 1, 1000):
+        z = crand((rows, n), dev, n + rows)
+        for forward in (True, False):
+            y = hopper_small.small_cfft_kernel(z, cplan, forward)
+            p = hopper_small.small_cfft_plain(z, cplan, forward)
+            assert maxerr(torch.view_as_real(y), torch.view_as_real(p)) <= 2e-7 * n * (1 if forward else n)
+            yr, yi = hopper_small.small_cfft_kernel((z.real.contiguous(), z.imag.contiguous()), cplan, forward)
+            assert torch.equal(torch.complex(yr, yi), y)
     if n % 2:
         return
     rplan = ct.cached_plan(n, ct.FFT_REAL)
-    x = z.real.contiguous()
-    re, im = hopper_small.small_rfft_kernel(x, rplan)
-    pre, pim = hopper_small.small_rfft_plain(x, rplan)
-    assert max(maxerr(re, pre), maxerr(im, pim)) <= 2e-7 * n
-    back = hopper_small.small_irfft_kernel(re, im, rplan)
-    assert maxerr(back / n, hopper_small.small_irfft_plain(re, im, rplan) / n) <= 2e-7 * n
-    assert maxerr(back / n, x) <= 2e-7 * n
+    tile = hopper_small.launch_geometry(n, "real", 1).tile_rows
+    for rows in (1, tile - 1, tile + 1, 1000):
+        x = rand((rows, n), dev, n + rows)
+        re, im = hopper_small.small_rfft_kernel(x, rplan)
+        pre, pim = hopper_small.small_rfft_plain(x, rplan)
+        assert max(maxerr(re, pre), maxerr(im, pim)) <= 2e-7 * n
+        back = hopper_small.small_irfft_kernel(re, im, rplan)
+        assert maxerr(back / n, hopper_small.small_irfft_plain(re, im, rplan) / n) <= 2e-7 * n
+        assert maxerr(back / n, x) <= 2e-7 * n
+
+
+@pytest.mark.parametrize("n", [8, 96, 256, 480])
+def test_k5_takes_8_byte_aligned_views(dev, n):
+    """The JAX functions take any array, so K5 takes views 8 bytes past a
+    16-byte boundary, with the result of an aligned copy."""
+    rows = 37
+    cplan, rplan = ct.cached_plan(n, ct.FFT_COMPLEX), ct.cached_plan(n, ct.FFT_REAL)
+    z = torch.empty(rows * n + 1, dtype=torch.complex64, device=dev)[1:].view(rows, n)
+    z.copy_(crand((rows, n), dev, n))
+    assert z.data_ptr() % 16 == 8
+    for forward in (True, False):
+        assert torch.equal(hopper_small.small_cfft_kernel(z, cplan, forward),
+                           hopper_small.small_cfft_kernel(z.clone(), cplan, forward))
+
+    def offset(t):
+        v = torch.empty(t.numel() + 2, device=dev)[2:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 == 8
+        return v
+
+    planes = (offset(z.real.contiguous()), offset(z.imag.contiguous()))
+    yr, yi = hopper_small.small_cfft_kernel(planes, cplan, True)
+    assert torch.equal(torch.complex(yr, yi), hopper_small.small_cfft_kernel(z.clone(), cplan, True))
+    x = rand((rows, n), dev, n + 1)
+    re, im = hopper_small.small_rfft_kernel(offset(x), rplan)
+    re0, im0 = hopper_small.small_rfft_kernel(x, rplan)
+    assert torch.equal(re, re0) and torch.equal(im, im0)
+    assert torch.equal(hopper_small.small_irfft_kernel(offset(re0), offset(im0), rplan),
+                       hopper_small.small_irfft_kernel(re0, im0, rplan))
 
 
 def test_sdr_chain_launches_k5(dev):
