@@ -8,8 +8,8 @@ Phases, each of which asserts:
 
 1. identify the card (name and power limit), build the kernels (one nvcc
    per source, in parallel), check the size limits (MAX_N, MAX_CN,
-   MAX_SMALL_N, MAX_COL) against Python's and report the composite's
-   column tile;
+   MAX_SMALL_N, MAX_COL) and K5's points per thread against Python's and
+   report the composite's column tile;
 2. run K1-K3 against their plain PyTorch versions on the card and against
    float64 numpy on the host, bound 2e-7*N (max abs error);
 3. BASELINE config 3 end to end: a 4096-tap FIR on 4 x 2^20-sample
@@ -43,8 +43,7 @@ Phases, each of which asserts:
 11. timing (informational): K4 at N=4096, B=1024 against ``torch.fft.fft``,
     K5 at N=256, B=32768 against ``torch.fft.ifft`` / ``rfft`` / ``irfft``
     (inverses unscaled, ``norm="forward"``, as the kernels are), each
-    kernel's plain version, K5's tile geometry and resident blocks per SM
-    and its device time at tiles of 256 to 2048 points;
+    kernel's plain version, K5's tile geometry and resident blocks per SM;
     the config-5 chain and ``partitioned_fir_apply(block=128)`` on config
     3's streams (the K5-real path): wall time per call, device time by
     kernel (``torch.profiler``) and idle share;
@@ -106,7 +105,6 @@ present.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import json
 import statistics
 import subprocess
@@ -640,57 +638,6 @@ def kernel_device_times(fn) -> dict[str, float]:
     return out
 
 
-def k5_tile_sweep(ct, hopper_small, lib, dev, card) -> None:
-    """Device time of each K5 body at N=256, B=32768 with tiles of 256 to
-    2048 points (launch_geometry's ``tile_points``; the wrappers use
-    TILE_POINTS), calling the C entries directly: the measurement behind
-    the tile size. These launches are not counted."""
-    n, rows = SMALL_TIMED
-    cplan, rplan = ct.cached_plan(n, ct.FFT_COMPLEX), ct.cached_plan(n, ct.FFT_REAL)
-    sets = []
-    for _ in range(2):
-        z = torch.randn(rows, n, dtype=torch.complex64, device=dev)
-        x = torch.randn(rows, n, device=dev)
-        re, im = hopper_small.small_rfft_kernel(x, rplan)
-        sets.append((z, torch.empty_like(z), x, torch.empty_like(re), torch.empty_like(im), re, im,
-                     torch.empty_like(x)))
-
-    def call(entry, plan, tile, *args):
-        tabs = plan.device_tables(dev)
-        radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
-        split = () if tabs.split_tw is None else (tabs.split_tw.data_ptr(),)
-        geometry = hopper_small.launch_geometry(plan.n, plan.kind, rows, tile)
-        err = getattr(lib, entry)(*args, ctypes.addressof(radices), len(plan.radices), tabs.stage_flat.data_ptr(),
-                                  *split, *geometry.args, torch.cuda.current_stream(dev).cuda_stream)
-        require(err == 0, f"{entry} with {tile}-point tiles: cudaError {err}")
-
-    def bodies(tile):
-        def cfft(i):
-            z, y = sets[i][0], sets[i][1]
-            call("k5_small_cfft", cplan, tile, z.data_ptr(), z.data_ptr() + 4, y.data_ptr(), y.data_ptr() + 4, 2,
-                 rows, n, 1)
-
-        def rfft(i):
-            x, yr, yi = sets[i][2:5]
-            call("k5_small_rfft", rplan, tile, x.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, n)
-
-        def irfft(i):
-            re, im, xo = sets[i][5:8]
-            call("k5_small_irfft", rplan, tile, re.data_ptr(), im.data_ptr(), xo.data_ptr(), rows, n)
-
-        return {"complex backward": cfft, "real forward": rfft, "real inverse": irfft}
-
-    for tile in (256, 512, 1024, 2048):
-        ms = {name: graph_time_ms(fn, [(0,), (1,)]) for name, fn in bodies(tile).items()}
-        geometries = [hopper_small.launch_geometry(n, kind, rows, tile) for kind in ("complex", "real", "real")]
-        blocks = [lib.hopper_small_fft_blocks_per_sm(body, g.threads, g.smem_bytes)
-                  for body, g in enumerate(geometries)]
-        kept = " (the wrappers' tile)" if tile == hopper_small.TILE_POINTS else ""
-        log(f"phase 11 K5 tiles of {tile} points{kept}, N={n} B={rows}: "
-            + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
-            + f" (device); threads {[g.threads for g in geometries]}, resident blocks per SM {blocks} [{card}]")
-
-
 def phase11(ct, hopper_cfft, hopper_small, models, stream, lib, dev, capture, x, h, card) -> dict[str, dict]:
     """K4 at the headline shape and the three K5 bodies at N=256, B=32768
     (kernel_times; the inverse library calls unscaled, norm="forward", as
@@ -734,8 +681,6 @@ def phase11(ct, hopper_cfft, hopper_small, models, stream, lib, dev, capture, x,
         log_times(11, k.name, f"N={n} B={rows} {form}", times[k.name], card)
         log(f"phase 11 {k.name} geometry: tiles of {g.tile_rows} rows, {g.threads} threads, {g.smem_bytes} B of "
             f"shared memory, {g.grid} blocks; {blocks} resident blocks per SM")
-
-    k5_tile_sweep(ct, hopper_small, lib, dev, card)
 
     chain = models.SDRChain(models.SDRChainConfig(), device=dev)
     iq = torch.from_numpy(capture).to(dev)
@@ -1389,9 +1334,11 @@ def main() -> int:
     lib_path = _cuda.build()
     lib = _cuda.library()
     limits = (lib.hopper_real_fft_max_n(), lib.hopper_complex_fft_max_n(), lib.hopper_small_fft_max_n(),
-              lib.hopper_composite_max_col())
-    require(limits == (hf.MAX_N, hopper_cfft.MAX_CN, hopper_small.MAX_SMALL_N, hc.MAX_COL),
-            f"kernel limits (MAX_N, MAX_CN, MAX_SMALL_N, MAX_COL) {limits} differ from Python's")
+              lib.hopper_composite_max_col(), lib.hopper_small_fft_points_per_thread())
+    require(limits == (hf.MAX_N, hopper_cfft.MAX_CN, hopper_small.MAX_SMALL_N, hc.MAX_COL,
+                       hopper_small.POINTS_PER_THREAD),
+            f"kernel limits (MAX_N, MAX_CN, MAX_SMALL_N, MAX_COL, K5 POINTS_PER_THREAD) {limits} differ from "
+            "Python's")
     tiles = {pts: lib.hopper_composite_col_tile(pts) for pts in (256, 512, 1024, 2048)}
     require(all(t >= 1 for t in tiles.values()), f"composite column tiles {tiles}")
     log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.2f} s -> {lib_path}; composite column "

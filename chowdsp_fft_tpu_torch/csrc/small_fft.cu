@@ -47,8 +47,8 @@
 // are transformed and never stored. Every element of the batch is read
 // from and written to device memory once.
 //
-// Chosen by measurement on the H100 at N=256, B=32768 (chip_smoke.py
-// phase 11 times the tile sizes; PERF.md). What limits the kernel is
+// Chosen by measurement on the H100 at N=256, B=32768 against tiles of
+// 256, 1024 and 2048 points (PERF.md). What limits the kernel is
 // how many bytes each SM keeps in flight, since a block's load, stages and
 // store follow each other: small tiles put 18-20 blocks on an SM, and
 // issuing each thread's 8 loads at once (load_tile) beat loading point by
@@ -296,6 +296,9 @@ int allow_smem(K kernel, int smem) {
 extern "C" {
 
 int hopper_small_fft_max_n() { return kMaxSmallN; }
+
+// Tile points per thread: launch_geometry's POINTS_PER_THREAD must equal it.
+int hopper_small_fft_points_per_thread() { return kPerThread; }
 
 // Resident blocks per SM of a K5 body (0 complex, 1 real forward, 2 real
 // inverse) at `threads` threads and `smem` bytes of dynamic shared memory,

@@ -58,6 +58,7 @@ _SIGNATURES = {
     "hopper_real_fft_max_n": [],
     "hopper_complex_fft_max_n": [],
     "hopper_small_fft_max_n": [],
+    "hopper_small_fft_points_per_thread": [],
     "hopper_small_fft_blocks_per_sm": [_I, _I, _I],
     # K1: x, y re/im, output row stride, rows, N, radices, nstages, stage
     # twiddles, split twiddles, permutation, stream.

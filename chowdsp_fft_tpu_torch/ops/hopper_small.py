@@ -57,15 +57,13 @@ __all__ = [
 MIN_SMALL = 8
 MAX_SMALL = 256
 # Complex points a tile aims at (the largest power-of-two number of rows
-# that fits), and points per thread (csrc/small_fft.cu kPerThread): 64
-# threads hold a 512-point tile's loads in flight at once, and two padded
-# buffers of 8.4 KB let 18-20 blocks share an SM. Chosen by measurement
-# on the H100 (chip_smoke.py phase 11 times 256- to 2048-point tiles).
+# that fits), and points per thread (csrc/small_fft.cu kPerThread, which
+# the library reports as hopper_small_fft_points_per_thread): 64 threads
+# hold a 512-point tile's loads in flight at once, and two padded buffers
+# of 8.4 KB let 18-20 blocks share an SM. Chosen by measurement on the
+# H100 against tiles of 256, 1024 and 2048 points (PERF.md).
 TILE_POINTS = 512
 POINTS_PER_THREAD = 8
-MAX_THREADS = 1024
-SMEM_BYTES = 232448  # shared memory one block may use on sm_90 (stockham.cuh)
-STATIC_SMEM_BYTES = 0  # the K5 kernels declare no static shared memory
 
 _SRC = "chowdsp_fft_tpu_torch/csrc/small_fft.cu"
 _JAX = "chowdsp_fft_tpu/ops/pallas_fft.py"
@@ -103,19 +101,19 @@ class Geometry:
         return self.shift, self.threads, self.smem_bytes, self.grid
 
 
-def launch_geometry(n: int, kind: str, rows: int, tile_points: int = TILE_POINTS) -> Geometry:
+def launch_geometry(n: int, kind: str, rows: int) -> Geometry:
     """The launch of a K5 body on ``rows`` rows of an N-point ``kind``
     transform: the largest power-of-two tile of rows whose M-point
-    transforms (M = N complex, N/2 real) hold at most ``tile_points``
+    transforms (M = N complex, N/2 real) hold at most ``TILE_POINTS``
     points, ``POINTS_PER_THREAD`` points a thread in whole warps (at least
-    two), and a block per tile (the last one ragged). The wrappers take
-    the default; the C entries check whatever they are given."""
+    two), and a block per tile (the last one ragged). The C entries check
+    it again."""
     m = n if kind == FFT_COMPLEX else n // 2
     shift = 0
-    while m << (shift + 1) <= tile_points:
+    while m << (shift + 1) <= TILE_POINTS:
         shift += 1
     pts = m << shift
-    threads = min(MAX_THREADS, max(64, -(-pts // (32 * POINTS_PER_THREAD)) * 32))
+    threads = max(64, -(-pts // (32 * POINTS_PER_THREAD)) * 32)
     smem = 2 * (pts + (pts >> 5)) * 8
     return Geometry(shift, threads, smem, (rows + (1 << shift) - 1) >> shift)
 

@@ -20,6 +20,9 @@ from chowdsp_fft_tpu_torch.plans import is_valid_size
 SIZES = [n for n in range(hs.MIN_SMALL, hs.MAX_SMALL_N + 1) if hs.in_domain(n) and is_valid_size(n)]
 # One size per radix pattern: 4/2 only, 3 only, 5 only, mixed, the largest.
 JAX_SIZES = [8, 9, 25, 96, 125, 240, 243, 256, 405, 480]
+# Dynamic shared memory one block may opt in to on sm_90; the K5 kernels
+# declare no static shared memory, so all of it is theirs.
+SM90_SMEM_BYTES = 232448
 
 
 def tol(n):
@@ -54,7 +57,7 @@ def test_launch_geometry_at_every_size(kind):
             assert g.threads % 32 == 0 and 64 <= g.threads <= 1024
             assert hs.POINTS_PER_THREAD * g.threads >= pts  # the kernels' per-thread walk
             assert g.smem_bytes == 2 * 8 * (pts + pts // 32)
-            assert g.smem_bytes <= hs.SMEM_BYTES - hs.STATIC_SMEM_BYTES
+            assert g.smem_bytes <= SM90_SMEM_BYTES
             assert g.grid * t >= rows and (g.grid - 1) * t < max(rows, 1)
             assert g.args == (g.shift, g.threads, g.smem_bytes, g.grid)
 
