@@ -20,20 +20,21 @@
 // pipeline, so that chunk i+1 streams in while chunk i computes. Here:
 //   * persistent blocks: grid = min(rows, SMs x resident blocks per SM at
 //     the kernel's shared memory); block g walks rows g, g+G, g+2G, ...;
-//   * the load of row r+G is issued before row r's stages: 16-byte
+//   * the load of row r+G is issued while row r computes: 16-byte
 //     cp.async.cg copies into an unpadded landing buffer (4N B for K1 and
 //     K2, 8N B for K4), waited for (cp.async.wait_group 0, then a barrier)
-//     only when row r+G starts. The row body's first pass (K1's load, K2's
-//     permuted scatter, K4's scatter) reads the landing buffer into the
-//     padded work buffers: a 16-byte copy cannot land in the padded layout
-//     (slot(i) = i + i/32 misaligns every odd group of 32 float2);
-//   * outputs are plain coalesced stores, as in the grid forms;
+//     only when row r+G starts. K1 and K4 (row_passes.cuh) issue it as soon
+//     as their first pass has read the landing buffer into registers (or,
+//     for K4's backward unordered rows, scattered it into the work buffer);
+//     K2 after its permuted scatter into the padded work buffers (a 16-byte
+//     copy cannot land in the padded layout: slot(i) = i + i/32 misaligns
+//     every odd group of 32 float2);
+//   * outputs are the grid forms' stores.
 //   * K4 above 9216 points: two padded buffers and a landing buffer
 //     (24.5N B) exceed the 227 KB a block may use, so the next row is
-//     prefetched into registers instead: ordinary loads issued before the
-//     stages, at most ceil(MAX_CN / 1024) = 14 float2 per thread, written
-//     to shared memory after them.
-// Shared memory per block: 12.25N B for K1 and K2 (200 KB at MAX_N =
+//     prefetched into registers instead (the thread's 16 points), issued
+//     as soon as the current row sits in shared memory.
+// Shared memory per block: 12.25N B for K1-db and K2-db (200 KB at MAX_N =
 // 16384), 24.5N B for K4 up to 9216 points, 16.5N B above.
 
 #include "row_fft.cuh"
@@ -51,15 +52,18 @@ constexpr int kMaxN = CHOWDSP_MAX_N;
 constexpr int kMaxCN = CHOWDSP_MAX_CN;
 
 // K1-db, K2-db: two padded N/2-point buffers and an N-float landing buffer.
-constexpr int real_db_smem(int n) { return two_buffers_bytes(n / 2) + 4 * n; }
+constexpr int rfft_db_smem(int n) { return row_smem_bytes(n / 2, 1) + 4 * n; }
+constexpr int irfft_db_smem(int n) { return two_buffers_bytes(n / 2) + 4 * n; }
 // K4-db lands rows in shared memory where the 8N B landing buffer fits
 // beside the two padded buffers, else prefetches them into registers.
-constexpr bool cfft_lands(int n) { return two_buffers_bytes(n) + 8 * n <= kMaxSmemBytes; }
-constexpr int cfft_db_smem(int n) { return two_buffers_bytes(n) + (cfft_lands(n) ? 8 * n : 0); }
-// float2 per thread of a register-prefetched row (1024 threads above 4096 points).
-constexpr int kPrefetch = (kMaxCN + kMaxThreads - 1) / kMaxThreads;
-static_assert(real_db_smem(kMaxN) <= kMaxSmemBytes, "K1-db/K2-db at MAX_N exceed shared memory");
-static_assert(two_buffers_bytes(kMaxCN) <= kMaxSmemBytes, "K4-db at MAX_CN exceeds shared memory");
+constexpr bool cfft_lands(int n) { return row_smem_bytes(n, 1) + 8 * n <= kMaxSmemBytes; }
+constexpr int cfft_db_smem(int n) { return row_smem_bytes(n, 1) + (cfft_lands(n) ? 8 * n : 0); }
+constexpr int kMaxK1DbThreads = 512;  // M/16 at MAX_N: 128 registers a thread
+static_assert(rfft_db_smem(kMaxN) <= kMaxSmemBytes, "K1-db at MAX_N exceeds shared memory");
+static_assert(kMaxN / 2 / kRowPoints <= kMaxK1DbThreads, "K1-db at MAX_N exceeds its threads a block");
+static_assert(irfft_db_smem(kMaxN) <= kMaxSmemBytes, "K2-db at MAX_N exceeds shared memory");
+static_assert(row_smem_bytes(kMaxCN, 1) <= kMaxSmemBytes, "K4-db at MAX_CN exceeds shared memory");
+static_assert(kMaxCN / kRowPoints <= kMaxThreads, "K4-db at MAX_CN exceeds the threads of a block");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -77,28 +81,29 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes
 }
 
 // K1-db: x (rows, N) -> packed planes at yre/yim + r * ystride (joint
-// [re | im] rows: ystride N, yim = yre + N/2).
-__global__ void __launch_bounds__(kMaxThreads)
-rfft_db_kernel(const float* __restrict__ x, float* yre, float* yim, int ystride, int rows, int n,
-               Radices rad, const float2* __restrict__ stage_tw,
-               const float2* __restrict__ split_tw, const int* __restrict__ perm) {
+// [re | im] rows: ystride N, yim = yre + N/2); M/16 threads a block.
+__global__ void __launch_bounds__(kMaxK1DbThreads)
+rfft_db_kernel(const float* __restrict__ x, float* yre, float* yim, int ystride, int rows, int n, Passes ps,
+               const float2* __restrict__ tw, const float2* __restrict__ split_tw,
+               const int* __restrict__ perm) {
   extern __shared__ __align__(16) float2 smem[];
   const int M = n / 2;
   float2* land = smem;
   float2* a = smem + M;
-  float2* b = a + padded(M);
   const int G = gridDim.x;
   int row = blockIdx.x;
   copy_async(land, x + static_cast<size_t>(row) * n, 4 * n);
   cp_async_commit();
   for (; row < rows; row += G) {
     cp_async_wait_all();
-    __syncthreads();  // the row has landed; the previous row's stores are done with a and b
-    rfft_row_load(land, a, M);
-    if (row + G < rows) copy_async(land, x + static_cast<size_t>(row + G) * n, 4 * n);
-    cp_async_commit();
+    __syncthreads();  // the row has landed; the previous row's stores are done with its buffers
+    const int next = row + G;
     const size_t out = static_cast<size_t>(row) * ystride;
-    rfft_row_finish(a, b, M, rad, stage_tw, split_tw, perm, yre + out, yim + out);
+    rfft_row(reinterpret_cast<const float*>(land), a, a + padded(M), M, ps, tw, split_tw, perm, yre + out,
+             yim + out, true, threadIdx.x, blockDim.x, [&] {
+               if (next < rows) copy_async(land, x + static_cast<size_t>(next) * n, 4 * n);
+               cp_async_commit();
+             });
   }
 }
 
@@ -135,14 +140,15 @@ irfft_db_kernel(const float* __restrict__ yre, const float* __restrict__ yim,
   }
 }
 
-// K4-db. SIGN = -1 forward, +1 backward; LAND: cp.async into the landing
-// buffer (interleaved rows as they are in device memory; planes as the
-// re row, then the im row), else register prefetch.
-template <int SIGN, bool LAND>
-__global__ void __launch_bounds__(kMaxThreads)
+// K4-db. SIGN = -1 forward, +1 backward; N/16 threads a block, MAXT the
+// launch bound (as K4's). LAND: cp.async into the landing buffer
+// (interleaved rows as they are in device memory; planes as the re row,
+// then the im row), else a register prefetch of the thread's 16 points.
+template <int SIGN, int MAXT, bool LAND>
+__global__ void __launch_bounds__(MAXT)
 cfft_db_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
                float* __restrict__ yre, float* __restrict__ yim, int stride, int rows, int n,
-               Radices rad, const float2* __restrict__ stage_tw, const int* __restrict__ perm) {
+               Passes ps, const float2* __restrict__ tw, const int* __restrict__ perm) {
   extern __shared__ __align__(16) float2 smem[];
   float* land = reinterpret_cast<float*>(smem);
   float2* a = LAND ? smem + n : smem;
@@ -150,7 +156,9 @@ cfft_db_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
   const float* lre = land;
   const float* lim = land + (stride == 2 ? 1 : n);
   const int G = gridDim.x;
-  float2 reg[kPrefetch];
+  const int t = threadIdx.x;
+  const int tpr = blockDim.x;
+  float2 reg[kRowPoints];
 
   auto fetch = [&](int r) {
     const size_t base = static_cast<size_t>(r) * n * stride;
@@ -161,38 +169,33 @@ cfft_db_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
         copy_async(land, xre + base, 4 * n);
         copy_async(land + n, xim + base, 4 * n);
       }
+      cp_async_commit();
     } else {
+      const ComplexIn in{xre + base, xim + base, stride == 2};
 #pragma unroll
-      for (int j = 0; j < kPrefetch; ++j) {
-        const int i = threadIdx.x + j * blockDim.x;
-        if (i < n) {
-          const size_t at = base + static_cast<size_t>(i) * stride;
-          reg[j] = make_float2(xre[at], xim[at]);
-        }
-      }
+      for (int c = 0; c < kRowPoints; ++c) reg[c] = in(t + c * tpr);
     }
   };
 
   int row = blockIdx.x;
   fetch(row);
-  if (LAND) cp_async_commit();
   for (; row < rows; row += G) {
     if (LAND) cp_async_wait_all();
-    __syncthreads();
-    if (LAND) {
-      cfft_row_load<SIGN>(lre, lim, stride, perm, a, n);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kPrefetch; ++j) {
-        const int i = threadIdx.x + j * blockDim.x;
-        if (i < n) cfft_put<SIGN>(a, perm, i, reg[j]);
-      }
-      __syncthreads();
-    }
-    if (row + G < rows) fetch(row + G);
-    if (LAND) cp_async_commit();
+    __syncthreads();  // the row has landed; the previous row's stores are done with a and b
+    const int next = row + G;
     const size_t base = static_cast<size_t>(row) * n * stride;
-    cfft_row_finish<SIGN>(a, b, n, rad, stage_tw, perm, yre + base, yim + base, stride);
+    auto hook = [&] {
+      if (next < rows) {
+        fetch(next);
+      } else if (LAND) {
+        cp_async_commit();
+      }
+    };
+    if (LAND) {
+      cfft_row<SIGN>(lre, lim, stride, perm, a, b, n, ps, tw, yre + base, yim + base, true, t, tpr, hook);
+    } else {
+      cfft_row_from<SIGN>(reg, perm, a, b, n, ps, tw, yre + base, yim + base, stride, true, t, tpr, hook);
+    }
   }
 }
 
@@ -218,36 +221,40 @@ int persistent_grid(K kernel, int threads, int smem, int rows, int* grid) {
   return 0;
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 int real_setup(int n, const int* radices, int nstages, Radices* rad) {
   // Rows of N floats and of N/2 floats are whole 16-byte copies.
   if (n < 16 || n > kMaxN || n % 8) return static_cast<int>(cudaErrorInvalidValue);
   return make_radices(radices, nstages, rad);
 }
 
-template <int SIGN, bool LAND>
-int launch_cfft_db(const float* xre, const float* xim, float* yre, float* yim, int stride,
-                   int rows, int n, const Radices& rad, const float2* tw, const int* perm,
-                   cudaStream_t stream) {
-  auto kernel = cfft_db_kernel<SIGN, LAND>;
-  int err = set_smem(kernel, LAND ? kMaxSmemBytes : two_buffers_bytes(kMaxCN));
+template <int SIGN, int MAXT, bool LAND>
+int launch_cfft_db(const float* xre, const float* xim, float* yre, float* yim, int stride, int rows, int n,
+                   const Passes& ps, const float2* tw, const int* perm, cudaStream_t stream) {
+  auto kernel = cfft_db_kernel<SIGN, MAXT, LAND>;
+  int err = set_smem(kernel, cfft_db_smem(n));
   if (err) return err;
-  const int threads = threads_for(n);
-  if (!LAND && threads * kPrefetch < n) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = n / kRowPoints;
   int grid = 0;
   err = persistent_grid(kernel, threads, cfft_db_smem(n), rows, &grid);
   if (err) return err;
-  kernel<<<grid, threads, cfft_db_smem(n), stream>>>(xre, xim, yre, yim, stride, rows, n, rad, tw, perm);
+  kernel<<<grid, threads, cfft_db_smem(n), stream>>>(xre, xim, yre, yim, stride, rows, n, ps, tw, perm);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int SIGN>
-int cfft_db(const float* xre, const float* xim, float* yre, float* yim, int stride, int rows,
-            int n, const Radices& rad, const float2* tw, const int* perm, cudaStream_t stream) {
+int cfft_db(const float* xre, const float* xim, float* yre, float* yim, int stride, int rows, int n,
+            const Passes& ps, const float2* tw, const int* perm, cudaStream_t stream) {
+  if (n / kRowPoints <= 512)  // up to 8192 points: the landing buffer fits
+    return launch_cfft_db<SIGN, 512, true>(xre, xim, yre, yim, stride, rows, n, ps, tw, perm, stream);
   return cfft_lands(n)
-             ? launch_cfft_db<SIGN, true>(xre, xim, yre, yim, stride, rows, n, rad, tw, perm, stream)
-             : launch_cfft_db<SIGN, false>(xre, xim, yre, yim, stride, rows, n, rad, tw, perm, stream);
+             ? launch_cfft_db<SIGN, 1024, true>(xre, xim, yre, yim, stride, rows, n, ps, tw, perm, stream)
+             : launch_cfft_db<SIGN, 1024, false>(xre, xim, yre, yim, stride, rows, n, ps, tw, perm, stream);
+}
+
+template <typename K>
+int blocks_at(K kernel, int threads, int smem, int* per_sm) {
+  const int err = set_smem(kernel, smem);
+  return err ? err : resident_blocks(kernel, threads, smem, per_sm);
 }
 
 }  // namespace
@@ -258,49 +265,44 @@ extern "C" {
 // K1-db, 2 K2-db, 4 K4-db forward); 0 if the query fails.
 int hopper_pipelined_blocks_per_sm(int which, int n) {
   int per_sm = 0;
-  int err = 0;
-  if (which == 1 || which == 2) {
-    if (n < 16 || n > kMaxN) return 0;
-    const int threads = threads_for(n / 2);
-    err = which == 1 ? set_smem(rfft_db_kernel, real_db_smem(kMaxN))
-                     : set_smem(irfft_db_kernel, real_db_smem(kMaxN));
-    if (!err)
-      err = which == 1 ? resident_blocks(rfft_db_kernel, threads, real_db_smem(n), &per_sm)
-                       : resident_blocks(irfft_db_kernel, threads, real_db_smem(n), &per_sm);
-  } else if (which == 4) {
-    if (n < 16 || n > kMaxCN) return 0;
-    const int threads = threads_for(n);
-    if (cfft_lands(n)) {
-      err = set_smem(cfft_db_kernel<-1, true>, kMaxSmemBytes);
-      if (!err) err = resident_blocks(cfft_db_kernel<-1, true>, threads, cfft_db_smem(n), &per_sm);
-    } else {
-      err = set_smem(cfft_db_kernel<-1, false>, two_buffers_bytes(kMaxCN));
-      if (!err) err = resident_blocks(cfft_db_kernel<-1, false>, threads, cfft_db_smem(n), &per_sm);
-    }
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if ((which == 1 || which == 2) && n >= 16 && n <= kMaxN && n % (2 * kRowPoints) == 0) {
+    err = which == 1 ? blocks_at(rfft_db_kernel, n / 2 / kRowPoints, rfft_db_smem(n), &per_sm)
+                     : blocks_at(irfft_db_kernel, threads_for(n / 2), irfft_db_smem(n), &per_sm);
+  } else if (which == 4 && n >= 16 && n <= kMaxCN && n % kRowPoints == 0) {
+    const int threads = n / kRowPoints;
+    if (threads <= 512)
+      err = blocks_at(cfft_db_kernel<-1, 512, true>, threads, cfft_db_smem(n), &per_sm);
+    else
+      err = cfft_lands(n) ? blocks_at(cfft_db_kernel<-1, 1024, true>, threads, cfft_db_smem(n), &per_sm)
+                          : blocks_at(cfft_db_kernel<-1, 1024, false>, threads, cfft_db_smem(n), &per_sm);
   }
   return err ? 0 : per_sm;
 }
 
-// K1-db; ystride as k1_rfft_packed's. x and the output rows must be
-// 16-byte aligned. Returns a cudaError_t value; 0 means the launch was
-// accepted.
+// K1-db; k1_rfft_packed's arguments without the launch geometry (one row
+// a block, M/16 threads, a persistent grid). x must be 16-byte aligned.
+// Returns a cudaError_t value; 0 means the launch was accepted.
 int k1db_rfft_packed(const float* x, float* yre, float* yim, int ystride, int rows, int n,
-                     const int* radices, int nstages, const void* stage_tw,
+                     const int* radices, int nstages, const int* passes, int npasses, const void* tw,
                      const void* split_tw, const int* perm, void* stream) {
   Radices rad;
   int err = real_setup(n, radices, nstages, &rad);
   if (err) return err;
+  Passes ps;
+  err = check_passes(passes, npasses, rad, n / 2, &ps);
+  if (err) return err;
   if (ystride < n / 2 || !aligned16(x)) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
-  err = set_smem(rfft_db_kernel, real_db_smem(kMaxN));
+  err = set_smem(rfft_db_kernel, rfft_db_smem(n));
   if (err) return err;
-  const int threads = threads_for(n / 2);
+  const int threads = n / 2 / kRowPoints;
   int grid = 0;
-  err = persistent_grid(rfft_db_kernel, threads, real_db_smem(n), rows, &grid);
+  err = persistent_grid(rfft_db_kernel, threads, rfft_db_smem(n), rows, &grid);
   if (err) return err;
-  rfft_db_kernel<<<grid, threads, real_db_smem(n), static_cast<cudaStream_t>(stream)>>>(
-      x, yre, yim, ystride, rows, n, rad, static_cast<const float2*>(stage_tw),
-      static_cast<const float2*>(split_tw), perm);
+  rfft_db_kernel<<<grid, threads, rfft_db_smem(n), static_cast<cudaStream_t>(stream)>>>(
+      x, yre, yim, ystride, rows, n, ps, static_cast<const float2*>(tw), static_cast<const float2*>(split_tw),
+      perm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -313,34 +315,38 @@ int k2db_irfft_packed(const float* yre, const float* yim, float* x, int rows, in
   if (err) return err;
   if (!aligned16(yre) || !aligned16(yim)) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
-  err = set_smem(irfft_db_kernel, real_db_smem(kMaxN));
+  err = set_smem(irfft_db_kernel, irfft_db_smem(kMaxN));
   if (err) return err;
   const int threads = threads_for(n / 2);
   int grid = 0;
-  err = persistent_grid(irfft_db_kernel, threads, real_db_smem(n), rows, &grid);
+  err = persistent_grid(irfft_db_kernel, threads, irfft_db_smem(n), rows, &grid);
   if (err) return err;
-  irfft_db_kernel<<<grid, threads, real_db_smem(n), static_cast<cudaStream_t>(stream)>>>(
+  irfft_db_kernel<<<grid, threads, irfft_db_smem(n), static_cast<cudaStream_t>(stream)>>>(
       yre, yim, x, rows, n, rad, static_cast<const float2*>(stage_tw),
       static_cast<const float2*>(split_tw), perm);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4-db, with k4_cfft's arguments. The input rows must be 16-byte aligned
-// (xre; and xim for planes).
-int k4db_cfft(const float* xre, const float* xim, float* yre, float* yim, int stride, int rows,
-              int n, int sign, const int* radices, int nstages, const void* stage_tw,
+// K4-db; k4_cfft's arguments without the launch geometry (one row a
+// block, N/16 threads, a persistent grid). The input rows must be 16-byte
+// aligned (xre; and xim for planes).
+int k4db_cfft(const float* xre, const float* xim, float* yre, float* yim, int stride, int rows, int n, int sign,
+              const int* radices, int nstages, const int* passes, int npasses, const void* tw,
               const int* perm, void* stream) {
   if (n < 16 || n > kMaxCN || n % 4 || (stride != 1 && stride != 2) || (sign != 1 && sign != -1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(xre) || (stride == 1 && !aligned16(xim))) return static_cast<int>(cudaErrorInvalidValue);
   Radices rad;
-  const int err = make_radices(radices, nstages, &rad);
+  int err = make_radices(radices, nstages, &rad);
+  if (err) return err;
+  Passes ps;
+  err = check_passes(passes, npasses, rad, n, &ps);
   if (err) return err;
   if (rows == 0) return 0;
-  const float2* tw = static_cast<const float2*>(stage_tw);
+  const float2* twp = static_cast<const float2*>(tw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return sign < 0 ? cfft_db<-1>(xre, xim, yre, yim, stride, rows, n, rad, tw, perm, s)
-                  : cfft_db<1>(xre, xim, yre, yim, stride, rows, n, rad, tw, perm, s);
+  return sign < 0 ? cfft_db<-1>(xre, xim, yre, yim, stride, rows, n, ps, twp, perm, s)
+                  : cfft_db<1>(xre, xim, yre, yim, stride, rows, n, ps, twp, perm, s);
 }
 
 }  // extern "C"

@@ -20,21 +20,25 @@
 // L2-resident) and writes 4N B. The arithmetic is O(N log N) flops per row,
 // far below the H100's flop/byte balance.
 //
-// Design: one thread block per row. The row is staged in shared memory as
-// N/2 complex points (x[2m] + i x[2m+1]); the half-length complex FFT runs
-// there as the plan's mixed-radix {4,2,3,5} Stockham stages (stockham.cuh,
-// shared with the complex kernel), ping-ponging
-// between two padded shared buffers (8.25N bytes per block, so N <= 16384
-// fits in 132 KB), then the half-complex split/merge gives the real
-// spectrum. Each
-// element of the row is read from and written to device memory exactly
-// once, with neighbouring threads on neighbouring addresses; unordered
-// positions are a gather/scatter inside shared memory, never in device
-// memory. Twiddles come from the plan's float32 tables (built in float64
-// on the host), read through the read-only cache; no sinf/cosf in kernel.
-// Rows are independent, so a ragged batch needs no padding or masking.
-// The per-row bodies live in row_fft.cuh, shared with the pipelined forms
-// (pipelined_fft.cu).
+// Design. K1 runs the register-resident pass engine (row_passes.cuh): the
+// row is read once from device memory as N/2 complex points (x[2m] +
+// i x[2m+1]) straight into the first pass's registers, the half-length
+// FFT runs as the plan's stages fused in pairs, each pass exchanging
+// through two padded shared buffers (8.25N bytes per row), and the last
+// exchange's reads do the half-complex split and the unordered gather and
+// store both planes with float4 stores. Several rows share a block where
+// a row is small (ops/row_passes.launch_geometry; the C entry checks the
+// geometry again). K2/K3 stage the packed planes in shared memory (the
+// unordered scatter inside shared memory, never in device memory), merge,
+// and run the plan's mixed-radix {4,2,3,5} Stockham stages (stockham.cuh)
+// between two padded shared buffers (8.25N bytes per block, so
+// N <= 16384 fits in 132 KB). Each element of a row is read from and
+// written to device memory exactly once, with neighbouring threads on
+// neighbouring addresses. Twiddles come from the plan's float32 tables
+// (built in float64 on the host), read through the read-only cache; no
+// sinf/cosf in kernel. Rows are independent, so a ragged batch needs no
+// padding. The per-row bodies live in row_fft.cuh, shared with the
+// pipelined forms (pipelined_fft.cu).
 
 #include "row_fft.cuh"
 
@@ -44,23 +48,32 @@
 
 namespace {
 
-constexpr int kMaxN = CHOWDSP_MAX_N;  // 8.25N bytes of shared memory per block
+constexpr int kMaxN = CHOWDSP_MAX_N;  // K2/K3: 8.25N bytes of shared memory per block
 static_assert(two_buffers_bytes(kMaxN / 2) <= kMaxSmemBytes, "MAX_N exceeds shared memory");
+// K1's threads a block: M/16 a row, so 512 at MAX_N (the geometry puts
+// several small rows in a block only below 128 threads); the launch
+// bound leaves the compiler 128 registers a thread.
+constexpr int kMaxK1Threads = 512;
+static_assert(kMaxN / 2 / kRowPoints <= kMaxK1Threads, "K1 at MAX_N exceeds its threads a block");
 
 // K1: x (rows, N) -> packed planes, row r at yre/yim + r * ystride
 // (ystride N/2: two planes; N with yim = yre + N/2: the joint [re | im]
-// rows of the JAX package's _rfft_packed_joint).
-__global__ void __launch_bounds__(kMaxThreads)
-rfft_packed_kernel(const float* __restrict__ x, float* yre, float* yim, int ystride, int n,
-                   Radices rad, const float2* __restrict__ stage_tw,
+// rows of the JAX package's _rfft_packed_joint). A block takes
+// rows_per_block consecutive rows, M/16 threads each.
+__global__ void __launch_bounds__(kMaxK1Threads)
+rfft_packed_kernel(const float* __restrict__ x, float* yre, float* yim, int ystride, int rows, int n,
+                   Passes ps, int rows_per_block, const float2* __restrict__ tw,
                    const float2* __restrict__ split_tw, const int* __restrict__ perm) {
   extern __shared__ float2 smem[];
   const int M = n / 2;
-  const size_t row = blockIdx.x;
-  float2* a = smem;
-  float2* b = smem + padded(M);
-  rfft_row_load(reinterpret_cast<const float2*>(x + row * n), a, M);
-  rfft_row_finish(a, b, M, rad, stage_tw, split_tw, perm, yre + row * ystride, yim + row * ystride);
+  const int tpr = M / kRowPoints;
+  const int g = threadIdx.x / tpr;
+  const int t = threadIdx.x - g * tpr;
+  const int r = blockIdx.x * rows_per_block + g;
+  const size_t row = r < rows ? r : rows - 1;
+  float2* a = smem + 2 * g * padded(M);
+  rfft_row(x + row * n, a, a + padded(M), M, ps, tw, split_tw, perm, yre + row * ystride, yim + row * ystride,
+           r < rows, t, tpr, NoHook{});
 }
 
 // K2 (CONV = false): packed planes (rows, N/2) -> x (rows, N), unscaled.
@@ -95,23 +108,44 @@ extern "C" {
 
 int hopper_real_fft_max_n() { return kMaxN; }
 
+// Points a thread owns in K1 and K4's pass engine (row_passes.cuh).
+int hopper_row_points_per_thread() { return kRowPoints; }
+
+// K1 blocks resident on one SM at a launch geometry's threads and shared
+// bytes; 0 if the query fails.
+int hopper_real_fft_blocks_per_sm(int threads, int smem) {
+  int per_sm = 0;
+  if (threads < 1 || threads > kMaxK1Threads || set_smem(rfft_packed_kernel, smem)) return 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rfft_packed_kernel, threads, smem) ? 0 : per_sm;
+}
+
 // K1; ystride is the output row stride in floats (N/2 for two planes, N
-// for joint rows). Returns a cudaError_t value; 0 means the launch was
-// accepted.
+// for joint rows); passes: npasses (r0, r1) pairs of the plan's stages
+// (ops/row_passes.pass_plan); tw: the passes' twiddle tables
+// (ops/row_passes.pass_twiddles); split_tw: the split twiddles in
+// position order (the plan's, or gathered to the unordered layout); then the
+// launch geometry (ops/row_passes.launch_geometry), checked here. Returns
+// a cudaError_t value; 0 means the launch was accepted.
 int k1_rfft_packed(const float* x, float* yre, float* yim, int ystride, int rows, int n,
-                   const int* radices, int nstages, const void* stage_tw,
-                   const void* split_tw, const int* perm, void* stream) {
+                   const int* radices, int nstages, const int* passes, int npasses, const void* tw,
+                   const void* split_tw, const int* perm, int rows_per_block, int threads, int smem,
+                   int grid, void* stream) {
   if (n < 4 || n > kMaxN || n % 2 || ystride < n / 2) return static_cast<int>(cudaErrorInvalidValue);
   Radices rad;
   int err = make_radices(radices, nstages, &rad);
   if (err) return err;
-  if (rows == 0) return 0;
-  err = set_smem(rfft_packed_kernel, smem_bytes(kMaxN));
-  if (err) return err;
+  Passes ps;
   const int M = n / 2;
-  rfft_packed_kernel<<<rows, threads_for(M), smem_bytes(n),
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, yre, yim, ystride, n, rad, static_cast<const float2*>(stage_tw),
+  err = check_passes(passes, npasses, rad, M, &ps);
+  if (err) return err;
+  if (rows == 0) return 0;
+  err = check_row_geometry(M, rows, rows_per_block, threads, smem, grid);
+  if (err) return err;
+  if (threads > kMaxK1Threads) return static_cast<int>(cudaErrorInvalidValue);
+  err = set_smem(rfft_packed_kernel, smem);
+  if (err) return err;
+  rfft_packed_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, yre, yim, ystride, rows, n, ps, rows_per_block, static_cast<const float2*>(tw),
       static_cast<const float2*>(split_tw), perm);
   return static_cast<int>(cudaGetLastError());
 }

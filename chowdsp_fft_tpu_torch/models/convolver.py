@@ -76,7 +76,7 @@ class MultichannelConvolver(nn.Module):
     @property
     def fir(self) -> PartitionedFIR:
         """The FDL on the module's current spectra."""
-        return PartitionedFIR.from_spectra(self.h_re, self.h_im, self.config.block, self.config.engine)
+        return PartitionedFIR._on_spectra(self.h_re, self.h_im, self.config.block, self.config.engine)
 
     # -- offline -----------------------------------------------------------
 

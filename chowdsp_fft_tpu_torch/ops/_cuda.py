@@ -26,10 +26,12 @@ import tempfile
 
 import torch
 
-# Largest real N of K1-K3: two padded N/2-point buffers, 8.25N bytes.
+# Largest real N of K1-K3: K2/K3 hold two padded N/2-point buffers, 8.25N
+# bytes (K1 one, 4.1N bytes).
 MAX_N = 16384
-# Largest complex N of K4: two padded N-point buffers, 16.5N bytes, within
-# the 227 KB a block may use (n1 = 108; 16384 would need 270 KB).
+# Largest complex N of K4: the JAX-era limit of two padded N-point buffers
+# (16.5N bytes) in the 227 KB a block may use (n1 = 108). K4's pass engine
+# holds one buffer (8.25N bytes, 114 KB here); the composite runs above.
 MAX_CN = 13824
 # Largest N of K5, the small-N FFT: the JAX package's small-N domain ends
 # below 512.
@@ -60,14 +62,24 @@ _SIGNATURES = {
     "hopper_small_fft_max_n": [],
     "hopper_small_fft_points_per_thread": [],
     "hopper_small_fft_blocks_per_sm": [_I, _I, _I],
-    # K1: x, y re/im, output row stride, rows, N, radices, nstages, stage
-    # twiddles, split twiddles, permutation, stream.
-    "k1_rfft_packed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    "hopper_row_points_per_thread": [],
+    # K1 / K4 blocks resident per SM at (threads, shared bytes).
+    "hopper_real_fft_blocks_per_sm": [_I, _I],
+    "hopper_complex_fft_blocks_per_sm": [_I, _I],
+    # K1: x, y re/im, output row stride, rows, N, radices, nstages, pass
+    # plan (r0, r1 pairs), npasses, pass twiddles, split twiddles (in
+    # position order),
+    # permutation, launch geometry (rows per block, threads, shared bytes,
+    # grid), stream.
+    "k1_rfft_packed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "k2_irfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
     "k3_convolve_irfft_packed": [
         _P, _P, _P, _P, _I, ctypes.c_float, _P, _I, _I, _P, _I, _P, _P, _P, _P,
     ],
-    "k4_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    # K4: x re/im, y re/im, element stride, rows, N, sign, radices,
+    # nstages, pass plan, npasses, pass twiddles, permutation, geometry,
+    # stream.
+    "k4_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     # K5: K4's arguments without the permutation, then the launch geometry
     # (tile shift, threads, shared bytes, grid), stream.
     "k5_small_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],
@@ -85,11 +97,12 @@ _SIGNATURES = {
     # twiddles, split twiddles, stream.
     "k7a_rfft_cols": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
     "k7b_irfft_cols": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
-    # The pipelined forms take their grid kernel's arguments.
+    # The pipelined forms take their grid kernel's arguments (K1-db and
+    # K4-db without the launch geometry: they pick a persistent grid).
     "hopper_pipelined_blocks_per_sm": [_I, _I],
-    "k1db_rfft_packed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    "k1db_rfft_packed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "k2db_irfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
-    "k4db_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    "k4db_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
 }
 
 
@@ -119,17 +132,20 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands concurrently; raise with every failure's stderr."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands concurrently; raise with every failure's stderr,
+    else return each command's stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    errors = []
+    errors, outs = [], []
     for cmd, proc in zip(cmds, procs):
         _, err = proc.communicate()
+        outs.append(err)
         if proc.returncode != 0:
             errors.append(f"{' '.join(cmd)} -> {proc.returncode}\n{err}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return outs
 
 
 def build() -> pathlib.Path:
@@ -144,12 +160,33 @@ def build() -> pathlib.Path:
         return lib
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in _sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-                  for s, o in zip(_sources(), objs)])
+        reports = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(s)]
+                            for s, o in zip(_sources(), objs)])
         out = pathlib.Path(tmp) / lib.name
         _run_all([[nvcc, "-shared", "-o", str(out), *map(str, objs)]])
+        ptxas_report(lib).write_text("".join(reports))
         os.replace(out, lib)
     return lib
+
+
+def ptxas_report(lib: pathlib.Path) -> pathlib.Path:
+    """Where :func:`build` keeps ptxas's resource report (registers,
+    spills, stack) of the library's kernels."""
+    return lib.with_suffix(".ptxas.txt")
+
+
+def kernel_resources(lib: pathlib.Path, name: str) -> list[str]:
+    """ptxas's register and spill lines for each compiled kernel whose
+    mangled name contains ``name``: "<mangled tail>: <lines>"."""
+    out, cur = [], None
+    for line in ptxas_report(lib).read_text().splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1] if "'" in line else None
+        elif "Function properties for" in line:
+            cur = line.split("for")[-1].strip()
+        elif cur and name in cur and ("registers" in line or "spill" in line):
+            out.append(f"{cur[-48:]}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -203,6 +240,13 @@ def check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.devi
             f"{name}: the Hopper kernels have no autograd yet; detach the input "
             "explicitly or run on the CPU"
         )
+
+
+@functools.lru_cache(maxsize=512)
+def host_ints(values: tuple[int, ...]):
+    """``values`` as a C int array (cached, so it outlives the call that
+    passes its address)."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 @functools.lru_cache(maxsize=128)

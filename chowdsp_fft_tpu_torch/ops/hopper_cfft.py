@@ -11,8 +11,10 @@ complex transform followed (forward) or preceded (backward) by the same
 permutation. The wrapper runs the plain version for CPU tensors; for
 CUDA tensors it launches the kernel or raises.
 
-Domain: N = n1 * 128, n1 {2,3,5}-smooth, 256 < N <= MAX_CN = 13824 (two
-padded N-point buffers, 16.5N bytes, in one block's 227 KB).
+Domain: N = n1 * 128, n1 {2,3,5}-smooth, 256 < N <= MAX_CN = 13824. The
+kernel runs the register-resident pass engine shared with K1
+(``csrc/row_passes.cuh``; launch geometry from
+``row_passes.launch_geometry``).
 
 ``cfft_db_kernel`` is K4-db (``csrc/pipelined_fft.cu``), the pipelined
 form of K4 (JAX's ``_cfft_pair_db``): the same forms, modes and domain,
@@ -27,8 +29,8 @@ import ctypes
 import torch
 
 from ..plans import FFT_BACKWARD, FFT_COMPLEX, FFT_FORWARD, FFTPlan
-from . import stockham
-from ._cuda import MAX_CN, Kernel, check, device_perm, launch, require_cuda, require_domain
+from . import row_passes, stockham
+from ._cuda import MAX_CN, Kernel, check, device_perm, host_ints, launch, require_cuda, require_domain
 from .tables import LANES, cfft_inverse_perm, cfft_unordered_perm, is_smooth_multiple
 
 __all__ = ["K4", "K4_DB", "MAX_CN", "in_domain", "cfft_kernel", "cfft_db_kernel", "cfft_plain"]
@@ -120,11 +122,13 @@ def _cfft(kernel: Kernel, entry: str, x, plan: FFTPlan, forward: bool, ordered: 
     rows = shape_of(x)[0]
     dev, stride, src, out, dst = complex_io(kernel.name, x, (rows, plan.n), align=align)
     if rows:
-        tabs = plan.device_tables(dev)
-        radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
+        tw, _ = row_passes.device_tables(plan.n, plan.kind, str(dev))
+        geo = row_passes.launch_geometry(plan, rows)
         perm = None if ordered else device_perm(cfft_unordered_perm, plan.n, str(dev)).data_ptr()
+        tail = geo.args if kernel is K4 else ()  # K4-db picks its own persistent grid
         launch(kernel, entry, dev, *src, *dst, stride, rows, plan.n, -1 if forward else 1,
-               ctypes.addressof(radices), len(plan.radices), tabs.stage_flat.data_ptr(), perm)
+               ctypes.addressof(host_ints(plan.radices)), len(plan.radices),
+               ctypes.addressof(host_ints(geo.flat_passes)), len(geo.passes), tw.data_ptr(), perm, *tail)
     return out
 
 

@@ -47,8 +47,8 @@ import torch
 
 from .. import api as _api
 from ..plans import FFT_COMPLEX, FFT_FORWARD, FFT_REAL, FFTPlan, cached_plan
-from . import hopper_cfft, hopper_composite, hopper_small, stockham
-from ._cuda import MAX_CN, MAX_N, Kernel, check as _check, device_perm, launch, require_cuda, require_domain
+from . import hopper_cfft, hopper_composite, hopper_small, row_passes, stockham
+from ._cuda import MAX_CN, MAX_N, Kernel, check as _check, device_perm, host_ints, launch, require_cuda, require_domain
 from .convolve import convolve_accumulate_packed
 from .layout import packed_planes_to_spectrum, spectrum_to_packed_planes
 from .tables import (
@@ -197,7 +197,7 @@ def rfft_packed_joint_plain(x: torch.Tensor, plan: FFTPlan, ordered: bool = True
 
 
 def _launch_real(kernel: Kernel, entry: str, plan: FFTPlan, device: torch.device, ordered: bool, *args):
-    """Launch a K1-K3 entry with ``args`` followed by the plan's tables:
+    """Launch a K2/K3 entry with ``args`` followed by the plan's tables:
     radices (host int array), stage and split twiddles (complex64 on the
     device, i.e. float2), and the unordered permutation (int32 on the
     device, NULL for ordered bins)."""
@@ -206,6 +206,24 @@ def _launch_real(kernel: Kernel, entry: str, plan: FFTPlan, device: torch.device
     perm = None if ordered else device_perm(unordered_perm, plan.n, str(device)).data_ptr()
     launch(kernel, entry, device, *args, ctypes.addressof(radices), len(plan.radices),
            tabs.stage_flat.data_ptr(), tabs.split_tw.data_ptr(), perm)
+
+
+def _launch_k1(kernel: Kernel, entry: str, plan: FFTPlan, device: torch.device, ordered: bool, rows: int,
+               *args):
+    """Launch K1 or K1-db with ``args`` (x, outputs, output row stride,
+    rows, N) followed by the plan's radices and pass plan (host int
+    arrays), the pass twiddles and the split twiddles in position order
+    (complex64 on the device, i.e. float2; ``row_passes.device_tables``),
+    the unordered permutation (NULL for ordered bins) and, for the grid
+    form, the launch geometry (``row_passes.launch_geometry``)."""
+    tw, split_unordered = row_passes.device_tables(plan.n, plan.kind, str(device))
+    split = plan.device_tables(device).split_tw if ordered else split_unordered
+    geo = row_passes.launch_geometry(plan, rows)
+    perm = None if ordered else device_perm(unordered_perm, plan.n, str(device)).data_ptr()
+    tail = geo.args if kernel is K1 else ()
+    launch(kernel, entry, device, *args, ctypes.addressof(host_ints(plan.radices)), len(plan.radices),
+           ctypes.addressof(host_ints(geo.flat_passes)), len(geo.passes), tw.data_ptr(), split.data_ptr(), perm,
+           *tail)
 
 
 def _require_real_domain(kernel: Kernel, plan: FFTPlan):
@@ -223,8 +241,8 @@ def rfft_packed_kernel(x: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     yre = torch.empty((rows, plan.n // 2), dtype=torch.float32, device=x.device)
     yim = torch.empty_like(yre)
     if rows:
-        _launch_real(K1, "k1_rfft_packed", plan, x.device, ordered,
-                     x.data_ptr(), yre.data_ptr(), yim.data_ptr(), plan.n // 2, rows, plan.n)
+        _launch_k1(K1, "k1_rfft_packed", plan, x.device, ordered, rows,
+                   x.data_ptr(), yre.data_ptr(), yim.data_ptr(), plan.n // 2, rows, plan.n)
     return yre, yim
 
 
@@ -239,8 +257,8 @@ def _rfft_joint(kernel: Kernel, entry: str, x: torch.Tensor, plan: FFTPlan, orde
     _check("x", x, (rows, n), x.device, align=align)
     y = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     if rows:
-        _launch_real(kernel, entry, plan, x.device, ordered,
-                     x.data_ptr(), y.data_ptr(), y.data_ptr() + 4 * (n // 2), n, rows, n)
+        _launch_k1(kernel, entry, plan, x.device, ordered, rows,
+                   x.data_ptr(), y.data_ptr(), y.data_ptr() + 4 * (n // 2), n, rows, n)
     return y
 
 

@@ -152,15 +152,22 @@ class PartitionedFIR:
     ) -> "PartitionedFIR":
         """Build from (..., P, block) packed filter spectra that are already
         in the engine's unordered layout (see
-        ``convert.partitioned_fir_from_numpy``)."""
+        ``convert.partitioned_fir_from_numpy``). The filter keeps copies:
+        the caller may refill its tensors afterwards."""
+        return cls._on_spectra(h_re.to(torch.float32, copy=True), h_im.to(torch.float32, copy=True), block, engine)
+
+    @classmethod
+    def _on_spectra(cls, h_re: torch.Tensor, h_im: torch.Tensor, block: int, engine: str) -> "PartitionedFIR":
+        """A filter that reads ``h_re``/``h_im`` in place (float32 spectra
+        its owner keeps, as ``MultichannelConvolver``'s buffers)."""
         if h_re.shape != h_im.shape or h_re.shape[-1] != int(block):
             raise ValueError(
                 f"spectra must be (..., P, {block}) planes, got {tuple(h_re.shape)} and {tuple(h_im.shape)}"
             )
         fir = cls.__new__(cls)
         fir._setup(block, engine, h_re.shape[-2])
-        fir.h_re = h_re.to(torch.float32)
-        fir.h_im = h_im.to(torch.float32)
+        fir.h_re = h_re
+        fir.h_im = h_im
         return fir
 
     def _on_device(self, x) -> torch.Tensor:
@@ -240,7 +247,7 @@ class PartitionedFIR:
         new_state = {
             "fdl_re": torch.flip(e_re[..., k : k + p_total, :], dims=[-2]),
             "fdl_im": torch.flip(e_im[..., k : k + p_total, :], dims=[-2]),
-            "prev": xk[..., -1, :],
+            "prev": xk[..., -1, :].clone(),  # a copy: the caller may refill xk
         }
         return new_state, yfull[..., self.block :]
 
@@ -265,7 +272,8 @@ class PartitionedFIR:
                 scaling=1.0 / self.n,
             )
         yfull = api.irfft_packed_unordered(acc[0], acc[1], plan=self.plan, engine=self.engine)
-        return {"fdl_re": fdl_re, "fdl_im": fdl_im, "prev": xblock}, yfull[..., self.block :]
+        # prev is a copy: the caller may refill xblock before the next step.
+        return {"fdl_re": fdl_re, "fdl_im": fdl_im, "prev": xblock.clone()}, yfull[..., self.block :]
 
 
 def partitioned_fir_apply(

@@ -11,7 +11,7 @@ import torch
 
 import chowdsp_fft_tpu_torch as ct
 from chowdsp_fft_tpu_torch import models, stream
-from chowdsp_fft_tpu_torch.ops import hopper_cfft, hopper_small
+from chowdsp_fft_tpu_torch.ops import hopper_cfft, hopper_small, tables
 from chowdsp_fft_tpu_torch.ops import hopper_fft as hf
 
 pytestmark = pytest.mark.cuda
@@ -106,6 +106,65 @@ def test_k4_matches_plain(dev, n, rows, forward, ordered):
     assert maxerr(torch.view_as_real(back / n), torch.view_as_real(z)) <= 2e-7 * n
     torch.cuda.synchronize()
     assert hopper_cfft.K4.launches == 3
+
+
+K1_SIZES = [n for n in range(257, hf.MAX_N + 1) if hf._in_domain(n)]
+K4_SIZES = [n for n in range(257, hopper_cfft.MAX_CN + 1) if hopper_cfft.in_domain(n)]
+
+
+def view8(t):
+    """``t``'s values in a tensor whose data is 8 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() * t.element_size() // 4 + 4, dtype=torch.float32, device=t.device)
+    base = (16 - flat.data_ptr() % 16) % 16 // 4 + 2
+    v = flat[base : base + t.numel() * t.element_size() // 4].view(t.dtype).reshape(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 == 8
+    return v
+
+
+@pytest.mark.parametrize("n", K1_SIZES)
+def test_k1_at_every_size(dev, n):
+    """K1's pass engine at every size of its domain, 1, 7 and 300 rows,
+    both orders: within 2e-7*N of its plain version and of float64; the
+    joint form equals the planes, also on an 8-byte aligned view."""
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    for rows in (1, 7, 300):
+        x = rand((rows, n), dev, n + rows)
+        spec = np.fft.rfft(x.double().cpu().numpy(), axis=-1)
+        want = np.concatenate([spec[:, : n // 2].real, spec[:, : n // 2].imag], -1)
+        want[:, n // 2] = spec[:, n // 2].real
+        for ordered in (True, False):
+            sel = np.arange(n // 2) if ordered else tables.unordered_perm(n)
+            yre, yim = hf.rfft_packed_kernel(x, plan, ordered)
+            y = torch.cat([yre, yim], -1)
+            assert maxerr(y, torch.cat(hf.rfft_packed_plain(x, plan, ordered), -1)) <= 2e-7 * n
+            assert float(np.abs(y.double().cpu().numpy() - want[:, np.concatenate([sel, sel + n // 2])]).max()) <= 2e-7 * n
+            assert torch.equal(hf.rfft_packed_joint_kernel(x, plan, ordered), y)
+            assert torch.equal(hf.rfft_packed_joint_kernel(view8(x), plan, ordered), y)
+
+
+@pytest.mark.parametrize("n", K4_SIZES)
+def test_k4_at_every_size(dev, n):
+    """K4's pass engine at every size of its domain, 1, 7 and 130 rows,
+    both directions and orders, complex64 and planes: within 2e-7*N of
+    its plain version (and of float64 forward); planes and an 8-byte
+    aligned complex64 view give the same bits."""
+    plan = ct.cached_plan(n, ct.FFT_COMPLEX)
+    for rows in (1, 7, 130):
+        z = crand((rows, n), dev, n + rows)
+        spec = np.fft.fft(z.cpu().numpy().astype(np.complex128), axis=-1)
+        for forward in (True, False):
+            for ordered in (True, False):
+                y = hopper_cfft.cfft_kernel(z, plan, forward, ordered)
+                p = hopper_cfft.cfft_plain(z, plan, forward, ordered)
+                scale = 1.0 if forward else 1.0 / n
+                assert maxerr(y * scale, p * scale) <= 2e-7 * n
+                if forward:
+                    sel = slice(None) if ordered else tables.cfft_unordered_perm(n)
+                    assert float(np.abs(y.cpu().numpy() - spec[:, sel]).max()) <= 2e-7 * n
+                yr, yi = hopper_cfft.cfft_kernel((z.real.contiguous(), z.imag.contiguous()), plan, forward, ordered)
+                assert torch.equal(torch.complex(yr, yi), y)
+                assert torch.equal(hopper_cfft.cfft_kernel(view8(z), plan, forward, ordered), y)
 
 
 K5_SIZES = [n for n in range(hopper_small.MIN_SMALL, hopper_small.MAX_SMALL_N + 1)
@@ -258,8 +317,8 @@ def test_real_db_kernels_equal_grid(dev, n, rows, ordered):
 @pytest.mark.parametrize("n,rows", [(384, 7), (1024, 1000), (4096, 1), (9216, 140), (10240, 3),
                                     (hopper_cfft.MAX_CN, 133)])
 def test_k4_db_equals_grid(dev, n, rows, forward, ordered):
-    """K4-db in both input forms, both directions and orders: the landing
-    buffer up to 9216 points, the register prefetch above."""
+    """K4-db in both input forms, both directions and orders, up to MAX_CN
+    (the landing buffer fits beside one work buffer at every size)."""
     plan = ct.cached_plan(n, ct.FFT_COMPLEX)
     z = crand((rows, n), dev, n)
     hf.reset_launch_counts()

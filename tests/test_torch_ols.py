@@ -152,3 +152,51 @@ def test_convert_rejects_bad_spectra():
     with pytest.raises(ValueError):
         convert.partitioned_fir_from_numpy(np.zeros((2, 100), np.float32), np.zeros((2, 100), np.float32), 512,
                                            device="cpu")
+
+
+@pytest.mark.parametrize("method", ["step", "step_k"])
+def test_stream_state_survives_a_refilled_block(pfir_case, method):
+    """A streaming caller that refills one input tensor in place between
+    calls gets what fresh tensors give, and what JAX gives on the same
+    numpy data: the state keeps a copy of the last block, not a view of
+    the caller's tensor."""
+    c = pfir_case
+    block, k = c["block"], (1 if method == "step" else 2)
+    x = c["x"][:, : 4 * k * block]
+    chunks = [np.ascontiguousarray(x[:, i * k * block : (i + 1) * k * block]).reshape(2, k, block)
+              for i in range(4)]
+    if method == "step":
+        chunks = [ch[:, 0, :] for ch in chunks]
+    jfir = jstream.PartitionedFIR(c["h"], block=block)
+    pfir = pstream.PartitionedFIR(torch.from_numpy(c["h"]), block=block)
+    jst, fresh_st, reused_st = jfir.init_state((2,)), pfir.init_state((2,)), pfir.init_state((2,))
+    buf = torch.empty(chunks[0].shape)
+    for ch in chunks:
+        jst, jy = getattr(jfir, method)(jst, ch)
+        fresh_st, fresh_y = getattr(pfir, method)(fresh_st, torch.from_numpy(ch.copy()))
+        buf.copy_(torch.from_numpy(ch))
+        reused_st, reused_y = getattr(pfir, method)(reused_st, buf)
+        assert torch.equal(reused_y, fresh_y)
+        np.testing.assert_allclose(np_(reused_y), np.asarray(jy), atol=PFIR_ATOL, rtol=0)
+    buf.fill_(1e3)  # a refill after the last call leaves the state alone
+    for key in ("fdl_re", "fdl_im", "prev"):
+        assert torch.equal(reused_st[key], fresh_st[key])
+    y = np_(pfir.apply_offline(torch.from_numpy(np.ascontiguousarray(x))))
+    np.testing.assert_allclose(np_(reused_y).reshape(2, -1), y[:, -k * block :], atol=PFIR_ATOL, rtol=0)
+
+
+def test_from_spectra_keeps_copies(pfir_case):
+    """A filter built from spectra is not changed by a later write to the
+    caller's tensors, and keeps matching JAX."""
+    c = pfir_case
+    block = c["block"]
+    jfir = jstream.PartitionedFIR(c["h"], block=block)
+    h_re = torch.from_numpy(np.array(jfir.h_re))
+    h_im = torch.from_numpy(np.array(jfir.h_im))
+    fir = pstream.PartitionedFIR.from_spectra(h_re, h_im, block)
+    h_re.fill_(7.0)
+    h_im.zero_()
+    assert not torch.equal(fir.h_re, h_re)
+    y = np_(fir.apply_offline(torch.from_numpy(c["x"])))
+    np.testing.assert_allclose(y, c["jax"], atol=PFIR_ATOL, rtol=0)
+    np.testing.assert_allclose(y, c["ref"], atol=PFIR_ATOL, rtol=0)
