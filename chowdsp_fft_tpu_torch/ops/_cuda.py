@@ -26,12 +26,10 @@ import tempfile
 
 import torch
 
-# Largest real N of K1-K3: K2/K3 hold two padded N/2-point buffers, 8.25N
-# bytes (K1 one, 4.1N bytes).
+# Largest real N of K1-K3: two padded N/2-point buffers, 8.25N bytes.
 MAX_N = 16384
-# Largest complex N of K4: the JAX-era limit of two padded N-point buffers
-# (16.5N bytes) in the 227 KB a block may use (n1 = 108). K4's pass engine
-# holds one buffer (8.25N bytes, 114 KB here); the composite runs above.
+# Largest complex N of K4: two padded N-point buffers, 16.5N bytes, within
+# the 227 KB a block may use (n1 = 108; 16384 would need 270 KB).
 MAX_CN = 13824
 # Largest N of K5, the small-N FFT: the JAX package's small-N domain ends
 # below 512.
