@@ -10,7 +10,8 @@ Phases, each of which asserts:
    per source, in parallel), check the size limits (MAX_N, MAX_CN,
    MAX_SMALL_N, MAX_COL) and K5's and the K1/K4 row engine's points per
    thread against Python's, report ptxas's registers and spills of the
-   K1/K4 kernels and the composite's column tile;
+   K1/K4 kernels and of the column engine's (K6's four roles, K7b), and
+   K7a's column tile;
 2. run K1-K3 against their plain PyTorch versions on the card and against
    float64 numpy on the host, bound 2e-7*N (max abs error); K1 at every
    size of its domain (36 N) at 1, 7 and 1001 rows, both orders, planes,
@@ -61,7 +62,10 @@ Phases, each of which asserts:
     length: ``held``):
     complex N from 16384 to 2^20, real N from 32768 to 2^20, odd and even
     batches, planes and complex64; a zeroed K7b output and K7b without
-    its Nyquist slot must fail the check;
+    its Nyquist slot must fail the check; then K6's four roles (complex64
+    and planes) and K7b on their own at every column length the
+    composite's splits produce (``hopper_composite.column_lengths``: 71
+    complex lengths, 51 real), 3 rows of a ragged 37 columns;
 13. BASELINE config 2's top row: ``fft``/``ifft``/``rfft_packed``/
     ``irfft_packed`` with ``engine="auto"`` at N=2^20, B=64, every row
     against the plain composite, 4 rows against float64; each composite
@@ -73,8 +77,10 @@ Phases, each of which asserts:
     K7b and the line transforms' K4 carried it;
 15. timing (informational): each composite kernel at config 2's top row
     against its plain version, its bound (``utils/roofline.py``) and the
-    matching ``torch.fft`` call, the whole transforms, and the reverb's
-    wall and device time per call;
+    matching ``torch.fft`` call, with the column engine's launch geometry
+    and resident blocks per SM there; K6 level 2 and its reverse on the
+    real composite's planes; the whole transforms, and the reverb's wall
+    and device time per call;
 16. BASELINE config 4 as examples/02_convolution_reverb.py deploys it:
     ``models.MultichannelConvolver`` built from the numpy IR bank (64
     channels, 2 s IRs) on its default device, ``apply`` on 64 x 10 s at
@@ -803,6 +809,7 @@ def phase11(ct, hopper_cfft, hopper_small, row_passes, models, stream, lib, dev,
 COMPOSITE_COMPLEX = ((16384, 7), (65536, 4), (1 << 17, 3), (196608, 2), (1 << 18, 5), (1 << 20, 2))
 COMPOSITE_REAL = ((32768, 5), (1 << 17, 4), (1 << 18, 3), (3 << 18, 2), (1 << 20, 3))
 CONFIG2_TOP = (1 << 20, 64)  # BASELINE config 2's largest N, at bench.py's batch of 64
+LEVEL_N = 1 << 20  # phase 12 holds a column kernel at every length on the path of the largest composite
 REVERB = {"channels": 64, "seconds": 10, "ir_seconds": 2, "rate": 48000}
 REVERB_ATOL = 1e-3  # vs float64: config 3's atol; the wet signal's rms is ~0.8 here
 REVERB_ENGINE_ATOL = 2e-4  # vs the same call on the Stockham engine (two float32 paths)
@@ -913,6 +920,39 @@ def phase12(ct, hc, dev, rng) -> dict[str, float]:
             err, bound = held(out / a, want, n, a)
             require(err > bound, f"{tag} k7b check passes a {bad} output: {err:.3e} <= {bound:.3e}")
             caught[bad] = min(caught.get(bad, np.inf), err / bound)
+    # Every column length the composite's splits produce: K6's four roles
+    # on 3 batch rows of a ragged M = 37 columns, complex64 and planes, and
+    # K7b on the packed spectrum of unit-scale columns, each held on the
+    # path of the largest composite (2^20), i.e. at its own length's bound.
+    lengths, real_lengths = hc.column_lengths()
+    cols = 37
+    for length in lengths:
+        plan = ct.cached_plan(length, ct.FFT_COMPLEX)
+        z = torch.from_numpy(crandn(rng, (3, length, cols))).to(dev)
+        zr = torch.from_numpy(crandn(rng, (3, cols, length))).to(dev)
+        tw = torch.polar(torch.ones(length, cols, device=dev), torch.rand(length, cols, device=dev) * 6.2832)
+        for form in ("complex64", "planes"):
+            def f(v, form=form):
+                return v if form == "complex64" else (v.real.contiguous(), v.imag.contiguous())
+            tag = f"L={length} {form}"
+            note(hc.K6_L1, f"{tag} l1", cx(hc.level1(f(z), plan, True)), hc.level1_plain(z, plan, True),
+                 LEVEL_N, length)
+            note(hc.K6_L2, f"{tag} l2", cx(hc.level2(f(z), tw, plan, True)), hc.level2_plain(z, tw, plan, True),
+                 LEVEL_N, length)
+            note(hc.K6_L2_REV, f"{tag} l2_rev", cx(hc.level2(f(z), tw, plan, False)),
+                 hc.level2_plain(z, tw, plan, False), LEVEL_N, length)
+            note(hc.K6_L1_REV, f"{tag} l1_rev", cx(hc.level1(f(zr), plan, False)), hc.level1_plain(zr, plan, False),
+                 LEVEL_N, length)
+    for a in real_lengths:
+        plan = ct.cached_plan(a, ct.FFT_REAL)
+        x = torch.from_numpy(rng.standard_normal((3, a, cols)).astype(np.float32)).to(dev)
+        pre, pim = hc.rfft_cols_plain(x, plan)
+        xb = hc.irfft_cols(pre, pim, plan)
+        note(hc.K7B, f"A={a} k7b", xb / a, hc.irfft_cols_plain(pre, pim, plan) / a, LEVEL_N, a)
+        note(None, f"A={a} k7b vs x", xb / a, x, LEVEL_N, a)
+    log(f"phase 12: K6 (four roles, complex64 and planes) at all {len(lengths)} column lengths "
+        f"{lengths[0]}..{lengths[-1]} and K7b at all {len(real_lengths)} lengths A {real_lengths[0]}..{real_lengths[-1]}, "
+        f"3 rows of {cols} columns, within their bounds of their plain versions")
     torch.cuda.synchronize()
     log("phase 12 ok: K6 (four roles), K7a, K7b within their bounds of their plain versions, composites "
         "of float64; " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + "; the K7b check fails "
@@ -1016,9 +1056,13 @@ def phase14(ct, hc, hf, stream, dev, audio: np.ndarray, ir: np.ndarray) -> dict[
 # ---------------------------------------------------------------------------
 
 
-def phase15(ct, hc, roof, stream, dev, card, audio: np.ndarray, ir: np.ndarray) -> dict[str, dict]:
+def phase15(ct, hc, roof, stream, lib, dev, card, audio: np.ndarray, ir: np.ndarray) -> dict[str, dict]:
     """Returns each composite kernel's kernel_times at config 2's top row,
-    with its bound under "bound"."""
+    with its bound under "bound"; logs the column engine's launch geometry
+    and resident blocks per SM there, and K6 level 2 on the real
+    composite's planes."""
+    from chowdsp_fft_tpu_torch.ops import col_passes
+
     n, rows = CONFIG2_TOP
     a, c = hc.split_large(n)
     pa, pc = ct.cached_plan(a, ct.FFT_COMPLEX), ct.cached_plan(c, ct.FFT_COMPLEX)
@@ -1052,6 +1096,28 @@ def phase15(ct, hc, roof, stream, dev, card, audio: np.ndarray, ir: np.ndarray) 
     ra, rc = hc.split_large(n, real=True)
     pra = ct.cached_plan(ra, ct.FFT_REAL)
     rplan = ct.cached_plan(n, ct.FFT_REAL)
+    for k, role, plan, cols, form, seg in (
+            (hc.K6_L1, 0, pa, c, "complex64", 8), (hc.K6_L2, 1, pc, a, "complex64", 8),
+            (hc.K6_L2_REV, 2, pc, a, "complex64", 8), (hc.K6_L1_REV, 3, pa, c, "complex64", 8),
+            (hc.K6_L2, 1, ct.cached_plan(rc, ct.FFT_COMPLEX), ra // 2, "planes", 4),
+            (hc.K6_L2_REV, 2, ct.cached_plan(rc, ct.FFT_COMPLEX), ra // 2, "planes", 4),
+            (hc.K7B, 4, pra, rc, "real", 4)):
+        g = col_passes.launch_geometry(plan, rows, cols, seg)
+        log(f"phase 15 {k.name} geometry ({form}, L={plan.n if role < 4 else plan.n // 2}): passes {g.passes}, "
+            f"{g.lanes} columns and {g.threads} threads a block, {g.smem_bytes} B; "
+            f"{lib.hopper_composite_blocks_per_sm(role, g.threads, g.smem_bytes)} resident blocks per SM")
+
+    # K6 level 2 on the real composite's (B, C, A/2) planes.
+    prc = ct.cached_plan(rc, ct.FFT_COMPLEX)
+    grids = [((torch.randn(rows, rc, ra // 2, device=dev), torch.randn(rows, rc, ra // 2, device=dev)),)
+             for _ in range(2)]
+    rtw, rtwb = hc.real_twiddle(n, True, dev), hc.real_twiddle(n, False, dev)
+    planes_bound = roof.level_roofline(n // 2, rows, rc, table_points=n // 2)
+    for k, twt, fwd in ((hc.K6_L2, rtw, True), (hc.K6_L2_REV, rtwb, False)):
+        t = kernel_times(lambda v: hc.level2(v, twt, prc, fwd), lambda v: hc.level2_plain(v, twt, prc, fwd), grids)
+        log_times(15, k.name, f"planes of the real composite (B=64, C={rc}, A/2={ra // 2}; bound "
+                              f"{planes_bound.ms:.4f} ms, {planes_bound.bound_by})", t, card)
+    del grids
     xs = [(torch.randn(rows, n, device=dev),) for _ in range(2)]
     xr3 = [(x.reshape(rows, ra, rc),) for (x,) in xs]
     packed = [hc.rfft_cols(v, pra) for (v,) in xr3]
@@ -1466,13 +1532,15 @@ def main() -> int:
             f"kernel limits (MAX_N, MAX_CN, MAX_SMALL_N, MAX_COL, K5 POINTS_PER_THREAD, K1/K4 POINTS_PER_THREAD) "
             f"{limits} differ from Python's")
     # ptxas's registers and spills of the row engine's kernels (K1, K4 and
-    # their pipelined forms), as the build recorded them.
-    for mangled in ("18rfft_packed_kernel", "11cfft_kernel", "14rfft_db_kernel", "14cfft_db_kernel"):
+    # their pipelined forms) and the column engine's (K6's four roles, K7b),
+    # as the build recorded them.
+    for mangled in ("18rfft_packed_kernel", "11cfft_kernel", "14rfft_db_kernel", "14cfft_db_kernel",
+                    "20column_passes_kernel", "23irfft_col_passes_kernel"):
         for line in _cuda.kernel_resources(lib_path, mangled):
             log(f"phase 1 ptxas {mangled[2:]}: {line}")
     tiles = {pts: lib.hopper_composite_col_tile(pts) for pts in (256, 512, 1024, 2048)}
     require(all(t >= 1 for t in tiles.values()), f"composite column tiles {tiles}")
-    log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.2f} s -> {lib_path}; composite column "
+    log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.2f} s -> {lib_path}; K7a's column "
         f"tile by column length {tiles}")
 
     # -- phase 2 ------------------------------------------------------------
@@ -1604,7 +1672,7 @@ def main() -> int:
     # -- phases 11, 15 and 19: timing --------------------------------------------
     times.update(phase11(ct, hopper_cfft, hopper_small, row_passes, models, stream, lib, dev, capture, x, h, card))
     del capture
-    times.update(phase15(ct, hc, roof, stream, dev, card, audio, ir))
+    times.update(phase15(ct, hc, roof, stream, lib, dev, card, audio, ir))
     times.update(phase19(ct, hf, hopper_cfft, roof, row_passes, lib, models, stream, dev, card, audio, ir, model_calls))
     del model_calls
     # The db forms compute their grid kernels' functions at the same shape.

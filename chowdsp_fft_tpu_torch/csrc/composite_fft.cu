@@ -29,25 +29,32 @@
 // N = 2^20). The arithmetic is O(log L) flops per point, far below the
 // H100's flop/byte balance.
 //
-// Design: one thread block per tile of TC adjacent columns of one batch
-// row; TC is the largest power of two up to kMaxTile whose two padded
-// L*TC-point buffers fit the 227 KB of shared memory (tile_shift: TC = 8
-// at L = 1024, 135 KB; 4 at L = 2048; 16 at L <= 512). Column-side loads and stores take one
-// TC*4-byte segment per plane and row of the tile (32 B at TC = 8, one
-// DRAM sector; 64 B interleaved), consecutive threads on consecutive
-// columns, then rows; row-side loads and stores (level 1's transposed
-// side) are whole contiguous rows of L points. In shared memory the tile's
-// columns are interleaved (point l of column j at l*TC + j), so the
-// Stockham stages (stockham.cuh, with 2^ls = TC lanes) keep neighbouring
-// threads on neighbouring words. Each element of the array is read from
-// and written to device memory once per kernel. Twiddles come from the
-// plans' float32 tables and the four-step table, all built in float64 on
-// the host and read through the read-only cache; no sinf/cosf. A ragged
-// last tile (M not a multiple of TC) is masked.
+// Design. K6 and K7b run the column engine (col_passes.cuh): a block takes
+// a tile of 2^ls adjacent columns of one batch row (at most 16 columns and
+// 4096 points, 256 threads, three blocks an SM; 8192 points and 512
+// threads, one block an SM, where a narrower tile would leave a column less
+// than a 32-byte sector a row and plane), 16 points of one column a
+// thread. The thread loads its points from device memory straight into
+// registers, every load issued before the first is used (complex64 as
+// float2), consecutive threads on consecutive columns; the plan's stages
+// run fused in pairs, the first from those registers (16 | L), the passes
+// between one butterfly at a time through two padded tile buffers, the
+// last back into registers, from which the points are stored. K7b folds
+// the merge into the reads after its load and stores the even and odd
+// samples from registers. The launch geometry comes from
+// ops/col_passes.launch_geometry and is checked here. K7a keeps the stage
+// engine (stockham.cuh): TC adjacent columns, TC the largest power of two
+// up to kMaxTile whose two padded A/2*TC-point buffers fit (tile_shift),
+// interleaved in shared memory (point l of column j at l*TC + j), scalar
+// loads and stores. Each element of the array is read from and written to
+// device memory once per kernel. Twiddles come from float32 tables (the
+// column passes', the plans' stage and split tables, the four-step table),
+// all built in float64 on the host and read through the read-only cache;
+// no sinf/cosf. A ragged last tile (M not a multiple of the tile) is masked.
 
 #include <climits>
 
-#include "stockham.cuh"
+#include "col_passes.cuh"
 
 #ifndef CHOWDSP_MAX_COL
 #error "build with -DCHOWDSP_MAX_COL=<longest column> (ops/_cuda.py passes it)"
@@ -56,11 +63,11 @@
 namespace {
 
 constexpr int kMaxCol = CHOWDSP_MAX_COL;
-// A tile's two buffers may take all of a block's shared memory but 1 KB,
-// which is left to the kernels' static shared memory (K7b's Nyquist slots).
+// K7a's two tile buffers may take all of a block's shared memory but 1 KB.
 constexpr int kTileBytes = kMaxSmemBytes - 1024;
 static_assert(two_buffers_bytes(kMaxCol) <= kTileBytes, "MAX_COL exceeds shared memory");
 constexpr int kMaxTile = 16;
+
 
 enum { kNoTwiddle = 0, kTwiddleBefore = 1, kTwiddleAfter = 2 };
 
@@ -78,61 +85,39 @@ __device__ __forceinline__ Tile tile_of(int M, int ls) {
   return t;
 }
 
+
 // K6. Input (B, L, M) (columns) or (B, M, L) (rows, ROWS_IN), output the
 // same way (ROWS_OUT); TW multiplies by tw[l*M + m] before or after.
-template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW>
-__global__ void __launch_bounds__(kMaxThreads)
-column_fft_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
-                  float* __restrict__ yre, float* __restrict__ yim, int stride, int L, int M,
-                  int ls, Radices rad, const float2* __restrict__ stage_tw,
-                  const float2* __restrict__ tw) {
+// K6. Input (B, L, M) (columns) or (B, M, L) (rows, ROWS_IN), output the
+// same way (ROWS_OUT); TW multiplies by tw[l*M + m] before or after.
+// Thread (t, j) loads points q*tpc + t (q < 16) of column j into
+// registers, every load issued before the first is used, and stores the
+// same points of the transform from registers.
+template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW, int MAXT>
+__global__ void __launch_bounds__(MAXT, col_min_blocks<MAXT>())
+column_passes_kernel(const float* __restrict__ xre, const float* __restrict__ xim, float* __restrict__ yre,
+                     float* __restrict__ yim, int stride, int L, int M, int ls, ColPlan plan,
+                     const float2* __restrict__ pass_tw, const float2* __restrict__ tw) {
   extern __shared__ float2 smem[];
-  const int lanes = 1 << ls;
-  const int pts = L << ls;
-  float2* a = smem;
-  float2* b = smem + padded(pts);
-  const Tile t = tile_of(M, ls);
-  const size_t base = static_cast<size_t>(t.b) * L * M;
-
-  for (int u = threadIdx.x; u < pts; u += blockDim.x) {
-    int l, j;
-    if (ROWS_IN) {
-      j = u / L;
-      l = u - j * L;
-    } else {
-      l = u >> ls;
-      j = u & (lanes - 1);
-    }
-    const int m = t.m0 + j;
-    float2 v = make_float2(0.0f, 0.0f);
-    if (m < M) {
-      const size_t at = (base + (ROWS_IN ? static_cast<size_t>(m) * L + l
-                                         : static_cast<size_t>(l) * M + m)) * stride;
-      v = make_float2(xre[at], xim[at]);
-      if (TW == kTwiddleBefore) v = cmul(v, __ldg(tw + static_cast<size_t>(l) * M + m));
-    }
-    a[slot((l << ls) + j)] = v;
-  }
-  __syncthreads();
-  const float2* z = run_stages<SIGN>(a, b, L, rad, stage_tw, ls);
-
-  for (int u = threadIdx.x; u < pts; u += blockDim.x) {
-    int l, j;
-    if (ROWS_OUT) {
-      j = u / L;
-      l = u - j * L;
-    } else {
-      l = u >> ls;
-      j = u & (lanes - 1);
-    }
-    const int m = t.m0 + j;
-    if (m >= M) continue;
-    float2 v = z[slot((l << ls) + j)];
-    if (TW == kTwiddleAfter) v = cmul(v, __ldg(tw + static_cast<size_t>(l) * M + m));
-    const size_t at = (base + (ROWS_OUT ? static_cast<size_t>(m) * L + l
-                                        : static_cast<size_t>(l) * M + m)) * stride;
-    yre[at] = v.x;
-    yim[at] = v.y;
+  const Tile tl = tile_of(M, ls);
+  const int cols = min(M - tl.m0, 1 << ls);
+  const size_t row = static_cast<size_t>(tl.b) * L * M;
+  const size_t in_at = (row + (ROWS_IN ? static_cast<size_t>(tl.m0) * L : tl.m0)) * stride;
+  const size_t out_at = (row + (ROWS_OUT ? static_cast<size_t>(tl.m0) * L : tl.m0)) * stride;
+  const bool il = stride == 2;
+  const Global<ROWS_IN, TW == kTwiddleBefore> in{const_cast<float*>(xre) + in_at, const_cast<float*>(xim) + in_at,
+                                                 L, M, cols, il, tw + tl.m0};
+  const Global<ROWS_OUT, TW == kTwiddleAfter> out{yre + out_at, yim + out_at, L, M, cols, il, tw + tl.m0};
+  const int j = threadIdx.x & ((1 << ls) - 1);
+  const int t = threadIdx.x >> ls;
+  const int tpc = blockDim.x >> ls;
+  float2 w[kRowPoints];
+#pragma unroll
+  for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < L ? in(q * tpc + t, j) : make_float2(0.0f, 0.0f);
+  run_col_passes<SIGN>(plan, w, TileBuf{smem, ls}, L, pass_tw, t, tpc, j);
+#pragma unroll
+  for (int q = 0; q < kRowPoints; ++q) {
+    if (q * tpc + t < L) out.put(q * tpc + t, j, w[q]);
   }
 }
 
@@ -191,63 +176,64 @@ rfft_cols_kernel(const float* __restrict__ x, float* __restrict__ yre,
 }
 
 // K7b: packed planes (B, C, A/2) -> x (B, A, C), unscaled: K2's merge and
-// inverse stages (real_fft.cu) per column, stored down the columns.
-__global__ void __launch_bounds__(kMaxThreads)
-irfft_cols_kernel(const float* __restrict__ yre, const float* __restrict__ yim,
-                  float* __restrict__ x, int A, int C, int ls, Radices rad,
-                  const float2* __restrict__ stage_tw, const float2* __restrict__ split_tw) {
+// inverse transform (real_fft.cu) per column, stored down the columns. The
+// tile's rows of packed bins are contiguous in device memory: the load
+// reads them with consecutive threads on consecutive bins, every load
+// issued before the first shared store, and leaves them in the tile for
+// the first pass's merge.
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT, col_min_blocks<MAXT>())
+irfft_col_passes_kernel(const float* __restrict__ yre, const float* __restrict__ yim, float* __restrict__ x,
+                        int A, int C, int ls, ColPlan plan, const float2* __restrict__ pass_tw,
+                        const float2* __restrict__ split_tw) {
   extern __shared__ float2 smem[];
-  __shared__ float nyq[kMaxTile];
   const int H = A / 2;
-  const int lanes = 1 << ls;
-  const int pts = H << ls;
-  float2* a = smem;
-  float2* b = smem + padded(pts);
-  const Tile t = tile_of(C, ls);
-  const size_t ibase = static_cast<size_t>(t.b) * C * H;
-
-  for (int u = threadIdx.x; u < pts; u += blockDim.x) {
-    const int j = u / H;
-    const int k = u - j * H;
-    const int m = t.m0 + j;
-    float re = 0.0f, im = 0.0f;
-    if (m < C) {
-      re = yre[ibase + static_cast<size_t>(m) * H + k];
-      im = yim[ibase + static_cast<size_t>(m) * H + k];
-    }
-    if (k == 0) {  // im[0] holds the Nyquist bin
-      nyq[j] = im;
-      im = 0.0f;
-    }
-    a[slot((k << ls) + j)] = make_float2(re, im);
+  const Tile tl = tile_of(C, ls);
+  const int cols = min(C - tl.m0, 1 << ls);
+  const int pts = cols * H;
+  const size_t in_at = (static_cast<size_t>(tl.b) * C + tl.m0) * H;
+  const TileBuf tile{smem, ls};
+  float2 w[kRowPoints];
+#pragma unroll
+  for (int c = 0; c < kRowPoints; ++c) {
+    const int e = threadIdx.x + c * blockDim.x;
+    w[c] = e < pts ? make_float2(__ldg(yre + in_at + e), __ldg(yim + in_at + e)) : make_float2(0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int c = 0; c < kRowPoints; ++c) {
+    const int e = threadIdx.x + c * blockDim.x;
+    const int jj = e / H;
+    if (jj < (1 << ls)) tile.put(e - jj * H, jj, w[c]);
   }
   __syncthreads();
-
-  // Merge (stockham.cuh merge_bin), with X[H] the Nyquist bin.
-  for (int u = threadIdx.x; u < pts; u += blockDim.x) {
-    const int k = u >> ls;
-    const int j = u & (lanes - 1);
-    const float2 xr = k == 0 ? make_float2(nyq[j], 0.0f) : cconj(a[slot(((H - k) << ls) + j)]);
-    b[slot(u)] = merge_bin(a[slot(u)], xr, __ldg(split_tw + k));
+  // The merge (stockham.cuh merge_bin) into thread (t, j)'s points
+  // i = q*tpc + t: Z[i] = merge(X[i], conj X[H-i], W_A^i), the DC slot
+  // carrying the Nyquist bin X[H] in its imaginary part; then a barrier
+  // before the passes write the tile.
+  const int j = threadIdx.x & ((1 << ls) - 1);
+  const int t = threadIdx.x >> ls;
+  const int tpc = blockDim.x >> ls;
+#pragma unroll
+  for (int q = 0; q < kRowPoints; ++q) {
+    const int i = q * tpc + t;
+    if (i < H) {
+      const float2 xi = tile(i, j);
+      w[q] = i == 0 ? merge_bin(make_float2(xi.x, 0.0f), make_float2(xi.y, 0.0f), __ldg(split_tw))
+                    : merge_bin(xi, cconj(tile(H - i, j)), __ldg(split_tw + i));
+    }
   }
   __syncthreads();
-  const float2* zt = run_stages<1>(b, a, H, rad, stage_tw, ls);
-
-  // zt == H * (x_even + i x_odd); A * x = 2 * H * x.
-  float* xb = x + static_cast<size_t>(t.b) * A * C;
-  for (int u = threadIdx.x; u < pts; u += blockDim.x) {
-    const int h = u >> ls;
-    const int m = t.m0 + (u & (lanes - 1));
-    if (m >= C) continue;
-    const float2 z = zt[slot(u)];
-    xb[static_cast<size_t>(2 * h) * C + m] = 2.0f * z.x;
-    xb[static_cast<size_t>(2 * h + 1) * C + m] = 2.0f * z.y;
+  run_col_passes<1>(plan, w, tile, H, pass_tw, t, tpc, j);
+  const RealCols out{x + static_cast<size_t>(tl.b) * A * C + tl.m0, C, cols};
+#pragma unroll
+  for (int q = 0; q < kRowPoints; ++q) {
+    if (q * tpc + t < H) out.put(q * tpc + t, j, w[q]);
   }
 }
 
-// log2 of the column tile for columns of 2 <= points <= kMaxCol complex
-// points: the largest power of two up to kMaxTile whose two buffers of
-// points * tile entries fit kTileBytes (one column always fits, by the
+// K7a's column tile: log2 of the largest power of two up to kMaxTile
+// whose two buffers of `points` * tile entries fit kTileBytes, for columns
+// of 2 <= points <= kMaxCol complex points (one column always fits, by the
 // static_assert above).
 int tile_shift(int points) {
   int ls = 0;
@@ -255,51 +241,51 @@ int tile_shift(int points) {
   return ls;
 }
 
-// Blocks for `batch` rows of ceil(M / 2^ls) tiles, or -1 past the grid.
-long long block_count(int batch, int M, int ls) {
-  const long long blocks = static_cast<long long>(batch) * ((M + (1 << ls) - 1) >> ls);
-  return blocks <= INT_MAX ? blocks : -1;
+// The column engine's kernels by role (hopper_composite_blocks_per_sm).
+template <int MAXT>
+const void* col_kernel(int role) {
+  switch (role) {
+    case 0: return reinterpret_cast<const void*>(column_passes_kernel<-1, false, true, kNoTwiddle, MAXT>);
+    case 1: return reinterpret_cast<const void*>(column_passes_kernel<-1, false, false, kTwiddleBefore, MAXT>);
+    case 2: return reinterpret_cast<const void*>(column_passes_kernel<1, false, false, kTwiddleAfter, MAXT>);
+    case 3: return reinterpret_cast<const void*>(column_passes_kernel<1, true, false, kNoTwiddle, MAXT>);
+    case 4: return reinterpret_cast<const void*>(irfft_col_passes_kernel<MAXT>);
+    default: return nullptr;
+  }
 }
 
-template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW>
-int launch_column(const float* xre, const float* xim, float* yre, float* yim, int stride,
-                  int batch, int L, int M, const int* radices, int nstages,
-                  const void* stage_tw, const void* tw, void* stream) {
-  if (L < 2 || L > kMaxCol || M < 0 || batch < 0 || (stride != 1 && stride != 2) ||
-      (TW != kNoTwiddle && tw == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int ls = tile_shift(L);
+// The checks every column-engine entry makes: the radices, the pass plan
+// against them and L, then (when there is work) the geometry; *run is
+// false when there is nothing to launch.
+int check_col_launch(int L, int batch, int M, const int* radices, int nstages, const int* passes, int npasses,
+                     int ls, int threads, int smem, int grid, ColPlan* plan, bool* run) {
   Radices rad;
   int err = make_radices(radices, nstages, &rad);
   if (err) return err;
-  if (batch == 0 || M == 0) return 0;
-  const long long blocks = block_count(batch, M, ls);
-  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = column_fft_kernel<SIGN, ROWS_IN, ROWS_OUT, TW>;
-  const int pts = L << ls;
-  err = set_smem(kernel, two_buffers_bytes(pts));
+  err = check_col_passes(passes, npasses, rad, L, plan);
   if (err) return err;
-  kernel<<<static_cast<int>(blocks), threads_for(pts), two_buffers_bytes(pts),
-           static_cast<cudaStream_t>(stream)>>>(
-      xre, xim, yre, yim, stride, L, M, ls, rad, static_cast<const float2*>(stage_tw),
-      static_cast<const float2*>(tw));
-  return static_cast<int>(cudaGetLastError());
+  *run = batch > 0 && M > 0;
+  return *run ? check_col_geometry(L, batch, M, ls, threads, smem, grid) : 0;
 }
 
-// Checks shared by K7a and K7b, then the tile shift, the radices and the
-// grid.
-template <typename K>
-int launch_real_cols(K kernel, int batch, int A, int C, const int* radices, int nstages,
-                     int* ls, Radices* rad, int* blocks) {
-  if (A < 4 || A > kMaxCol || A % 2 || C < 0 || batch < 0)
+template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW>
+int launch_column(const float* xre, const float* xim, float* yre, float* yim, int stride, int batch, int L, int M,
+                  const int* radices, int nstages, const int* passes, int npasses, const void* pass_tw,
+                  const void* tw, int ls, int threads, int smem, int grid, void* stream) {
+  if (L < 2 || L > kMaxCol || M < 0 || batch < 0 || (stride != 1 && stride != 2) ||
+      (TW != kNoTwiddle && tw == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  *ls = tile_shift(A / 2);
-  int err = make_radices(radices, nstages, rad);
+  ColPlan plan;
+  bool run;
+  int err = check_col_launch(L, batch, M, radices, nstages, passes, npasses, ls, threads, smem, grid, &plan, &run);
+  if (err || !run) return err;
+  auto kernel = threads <= kColNarrowThreads ? column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColNarrowThreads>
+                                             : column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColMaxThreads>;
+  err = set_smem(kernel, smem);
   if (err) return err;
-  const long long b = block_count(batch, C, *ls);
-  if (b < 0) return static_cast<int>(cudaErrorInvalidValue);
-  *blocks = static_cast<int>(b);
-  return set_smem(kernel, two_buffers_bytes((A / 2) << *ls));
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xre, xim, yre, yim, stride, L, M, ls, plan, static_cast<const float2*>(pass_tw), static_cast<const float2*>(tw));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -308,76 +294,105 @@ extern "C" {
 
 int hopper_composite_max_col() { return kMaxCol; }
 
-// The column tile the kernels take for columns of `points` complex points
-// (L for K6, A/2 for K7), or -1 outside [2, MAX_COL].
+// K7a's column tile for columns of `points` complex points (A/2), or -1
+// outside [2, MAX_COL].
 int hopper_composite_col_tile(int points) {
   return points < 2 || points > kMaxCol ? -1 : 1 << tile_shift(points);
 }
 
-// K6 level 1, forward: (B, L, M) columns -> (B, M, L) rows. Returns a
-// cudaError_t value; 0 means the launch was accepted.
-int k6_l1(const float* xre, const float* xim, float* yre, float* yim, int stride, int batch,
-          int L, int M, const int* radices, int nstages, const void* stage_tw,
-          const void* tw, void* stream) {
-  return launch_column<-1, false, true, kNoTwiddle>(xre, xim, yre, yim, stride, batch, L, M,
-                                                    radices, nstages, stage_tw, tw, stream);
+// Blocks of a column-engine kernel resident on one SM at a launch
+// geometry's threads and shared bytes (role 0-3: K6 l1, l2, l2_rev,
+// l1_rev; 4: K7b); 0 if the query fails.
+int hopper_composite_blocks_per_sm(int role, int threads, int smem) {
+  const void* kernel = threads <= kColNarrowThreads ? col_kernel<kColNarrowThreads>(role)
+                                                    : col_kernel<kColMaxThreads>(role);
+  int per_sm = 0;
+  if (kernel == nullptr || threads < 1 || threads > kColMaxThreads ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem))
+    return 0;
+  return per_sm;
+}
+
+// K6 level 1, forward: (B, L, M) columns -> (B, M, L) rows. The arguments:
+// x re/im, y re/im, element stride (1 planes, 2 complex64), batch, L, M,
+// the length-L plan's radices, the pass plan (npasses (r0, r1) pairs,
+// ops/col_passes.pass_plan) and its twiddle tables
+// (ops/col_passes.device_twiddles), the four-step table (NULL at level 1),
+// then the launch geometry (ops/col_passes.launch_geometry: lanes' shift,
+// threads, shared bytes, grid), checked here. Returns a cudaError_t value;
+// 0 means the launch was accepted.
+int k6_l1(const float* xre, const float* xim, float* yre, float* yim, int stride, int batch, int L, int M,
+          const int* radices, int nstages, const int* passes, int npasses, const void* pass_tw, const void* tw,
+          int ls, int threads, int smem, int grid, void* stream) {
+  return launch_column<-1, false, true, kNoTwiddle>(xre, xim, yre, yim, stride, batch, L, M, radices, nstages,
+                                                    passes, npasses, pass_tw, tw, ls, threads, smem, grid, stream);
 }
 
 // K6 level 2, forward: twiddle, then column DFTs of (B, L, M), stored as columns.
-int k6_l2(const float* xre, const float* xim, float* yre, float* yim, int stride, int batch,
-          int L, int M, const int* radices, int nstages, const void* stage_tw,
-          const void* tw, void* stream) {
-  return launch_column<-1, false, false, kTwiddleBefore>(xre, xim, yre, yim, stride, batch, L, M,
-                                                         radices, nstages, stage_tw, tw, stream);
+int k6_l2(const float* xre, const float* xim, float* yre, float* yim, int stride, int batch, int L, int M,
+          const int* radices, int nstages, const int* passes, int npasses, const void* pass_tw, const void* tw,
+          int ls, int threads, int smem, int grid, void* stream) {
+  return launch_column<-1, false, false, kTwiddleBefore>(xre, xim, yre, yim, stride, batch, L, M, radices, nstages,
+                                                         passes, npasses, pass_tw, tw, ls, threads, smem, grid,
+                                                         stream);
 }
 
 // K6 level 2, backward: inverse column DFTs of (B, L, M), then twiddle.
-int k6_l2_rev(const float* xre, const float* xim, float* yre, float* yim, int stride,
-              int batch, int L, int M, const int* radices, int nstages,
-              const void* stage_tw, const void* tw, void* stream) {
-  return launch_column<1, false, false, kTwiddleAfter>(xre, xim, yre, yim, stride, batch, L, M,
-                                                       radices, nstages, stage_tw, tw, stream);
+int k6_l2_rev(const float* xre, const float* xim, float* yre, float* yim, int stride, int batch, int L, int M,
+              const int* radices, int nstages, const int* passes, int npasses, const void* pass_tw,
+              const void* tw, int ls, int threads, int smem, int grid, void* stream) {
+  return launch_column<1, false, false, kTwiddleAfter>(xre, xim, yre, yim, stride, batch, L, M, radices, nstages,
+                                                       passes, npasses, pass_tw, tw, ls, threads, smem, grid, stream);
 }
 
 // K6 level 1, backward: (B, M, L) rows -> inverse DFTs -> (B, L, M) columns.
-int k6_l1_rev(const float* xre, const float* xim, float* yre, float* yim, int stride,
-              int batch, int L, int M, const int* radices, int nstages,
-              const void* stage_tw, const void* tw, void* stream) {
-  return launch_column<1, true, false, kNoTwiddle>(xre, xim, yre, yim, stride, batch, L, M,
-                                                   radices, nstages, stage_tw, tw, stream);
+int k6_l1_rev(const float* xre, const float* xim, float* yre, float* yim, int stride, int batch, int L, int M,
+              const int* radices, int nstages, const int* passes, int npasses, const void* pass_tw,
+              const void* tw, int ls, int threads, int smem, int grid, void* stream) {
+  return launch_column<1, true, false, kNoTwiddle>(xre, xim, yre, yim, stride, batch, L, M, radices, nstages,
+                                                   passes, npasses, pass_tw, tw, ls, threads, smem, grid, stream);
 }
 
 // K7a. radices, stage_tw and split_tw are the length-A real plan's.
 int k7a_rfft_cols(const float* x, float* yre, float* yim, int batch, int A, int C,
                   const int* radices, int nstages, const void* stage_tw, const void* split_tw,
                   void* stream) {
-  int ls, blocks;
+  if (A < 4 || A > kMaxCol || A % 2 || C < 0 || batch < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int ls = tile_shift(A / 2);
   Radices rad;
-  const int err = launch_real_cols(rfft_cols_kernel, batch, A, C, radices, nstages, &ls,
-                                   &rad, &blocks);
-  if (err || blocks == 0) return err;
+  int err = make_radices(radices, nstages, &rad);
+  if (err) return err;
+  const long long blocks = static_cast<long long>(batch) * ((C + (1 << ls) - 1) >> ls);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
   const int pts = (A / 2) << ls;
-  rfft_cols_kernel<<<blocks, threads_for(pts), two_buffers_bytes(pts),
+  err = set_smem(rfft_cols_kernel, two_buffers_bytes(pts));
+  if (err) return err;
+  rfft_cols_kernel<<<static_cast<int>(blocks), threads_for(pts), two_buffers_bytes(pts),
                      static_cast<cudaStream_t>(stream)>>>(
       x, yre, yim, A, C, ls, rad, static_cast<const float2*>(stage_tw),
       static_cast<const float2*>(split_tw));
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7b.
-int k7b_irfft_cols(const float* yre, const float* yim, float* x, int batch, int A, int C,
-                   const int* radices, int nstages, const void* stage_tw, const void* split_tw,
-                   void* stream) {
-  int ls, blocks;
-  Radices rad;
-  const int err = launch_real_cols(irfft_cols_kernel, batch, A, C, radices, nstages, &ls,
-                                   &rad, &blocks);
-  if (err || blocks == 0) return err;
-  const int pts = (A / 2) << ls;
-  irfft_cols_kernel<<<blocks, threads_for(pts), two_buffers_bytes(pts),
-                      static_cast<cudaStream_t>(stream)>>>(
-      yre, yim, x, A, C, ls, rad, static_cast<const float2*>(stage_tw),
-      static_cast<const float2*>(split_tw));
+// K7b. radices, the pass plan and its tables, and split_tw are the
+// length-A real plan's (its A/2-point complex transform); then the launch
+// geometry over the C columns, as K6's.
+int k7b_irfft_cols(const float* yre, const float* yim, float* x, int batch, int A, int C, const int* radices,
+                   int nstages, const int* passes, int npasses, const void* pass_tw, const void* split_tw, int ls,
+                   int threads, int smem, int grid, void* stream) {
+  if (A < 4 || A > kMaxCol || A % 2 || C < 0 || batch < 0) return static_cast<int>(cudaErrorInvalidValue);
+  ColPlan plan;
+  bool run;
+  int err = check_col_launch(A / 2, batch, C, radices, nstages, passes, npasses, ls, threads, smem, grid, &plan, &run);
+  if (err || !run) return err;
+  auto kernel = threads <= kColNarrowThreads ? irfft_col_passes_kernel<kColNarrowThreads>
+                                             : irfft_col_passes_kernel<kColMaxThreads>;
+  err = set_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      yre, yim, x, A, C, ls, plan, static_cast<const float2*>(pass_tw), static_cast<const float2*>(split_tw));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,8 +39,10 @@ Not ported, as TPU VMEM artefacts with no counterpart here: the batch
 chunking (``_batch_chunked`` :3142, ``_v2_batch_cap``), the VMEM tile laws
 (``_v2_tile``, ``_col_tile``, ``_V2_BLOCK_BYTES``) and the v1 chains
 (``_cfft_pair_large_v1`` :2851, ``_rfft/_irfft_direct_composite_v1``
-:3356, :3414). A block's column tile here is chosen by shared memory,
-in ``csrc/composite_fft.cu`` (``tile_shift``).
+:3356, :3414). K6 and K7b run the column engine (``csrc/col_passes.cuh``),
+whose tile, pass plan and grid come from ``col_passes.launch_geometry``;
+K7a's column tile is chosen by shared memory in ``csrc/composite_fft.cu``
+(``tile_shift``).
 """
 
 from __future__ import annotations
@@ -51,12 +53,16 @@ import functools
 import torch
 
 from ..plans import FFT_COMPLEX, FFT_REAL, FFTPlan, cached_plan
-from . import hopper_cfft, hopper_small, stockham
-from ._cuda import MAX_COL, Kernel, check, launch, require_cuda, require_domain
+from . import col_passes, hopper_cfft, hopper_small, stockham
+from ._cuda import MAX_COL, MAX_N, Kernel, check, host_ints, launch, require_cuda, require_domain
 from .hopper_cfft import as_complex, complex_io, is_cpu, like, shape_of
 from .layout import packed_planes_to_spectrum, spectrum_to_packed_planes
 from .tables import (
+    JAX_MAX_COMPOSITE,
     JAX_MIN_SMALL,
+    LANES,
+    is_smooth_multiple,
+    jax_has_composite_split,
     large_twiddle,
     nyquist_twiddle,
     rdc_l2_twiddle,
@@ -84,6 +90,7 @@ __all__ = [
     "rfft_composite",
     "irfft_composite",
     "cfft_rows",
+    "column_lengths",
 ]
 
 _SRC = "chowdsp_fft_tpu_torch/csrc/composite_fft.cu"
@@ -99,6 +106,28 @@ KERNELS = (K6_L1, K6_L2, K6_L2_REV, K6_L1_REV, K7A, K7B)
 
 def _col_ok(length: int) -> bool:
     return JAX_MIN_SMALL <= length <= MAX_COL
+
+
+@functools.lru_cache(maxsize=1)
+def column_lengths() -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Every column length the composite's kernels run, over every size
+    this engine sends to the composite (up to 2^20): K6's complex lengths
+    (both factors of a complex split and C of a real one) and K7's real
+    lengths A."""
+    smooth = sorted(p2 * p3 * p5 for p2 in (2 ** i for i in range(21)) for p3 in (3 ** i for i in range(13))
+                    for p5 in (5 ** i for i in range(9)) if JAX_MIN_SMALL <= p2 * p3 * p5 <= JAX_MAX_COMPOSITE)
+    complex_lengths, real_lengths = set(), set()
+    for n in smooth:
+        if hopper_small.in_domain(n):
+            continue
+        if not hopper_cfft.in_domain(n) and jax_has_composite_split(n):
+            complex_lengths.update(split_large(n))
+        k1 = 2 * LANES < n <= MAX_N and is_smooth_multiple(n)
+        if n % 2 == 0 and not k1 and jax_has_composite_split(n, real=True):
+            a, c = split_large(n, real=True)
+            real_lengths.add(a)
+            complex_lengths.add(c)
+    return tuple(sorted(complex_lengths)), tuple(sorted(real_lengths))
 
 
 # ---------------------------------------------------------------------------
@@ -136,11 +165,16 @@ def _view(x, shape):
     return x.reshape(shape) if isinstance(x, torch.Tensor) else tuple(t.reshape(shape) for t in x)
 
 
-def _stages(plan: FFTPlan, dev):
-    """The plan's radices (host int array, kept alive by the caller) and
-    its flattened stage twiddles on ``dev``."""
-    radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
-    return radices, plan.device_tables(dev)
+def _launch_columns(kernel: Kernel, entry: str, dev, plan: FFTPlan, batch: int, cols: int, segment_bytes: int,
+                    args, table):
+    """Launch a column-engine entry (K6, K7b) with ``args``, then the
+    plan's radices, the pass plan and its twiddles, ``table`` (the
+    four-step or the split twiddles) and the launch geometry over ``batch``
+    rows of ``cols`` columns of ``segment_bytes`` a row and plane."""
+    g = col_passes.launch_geometry(plan, batch, cols, segment_bytes)
+    pass_tw = col_passes.device_twiddles(plan.n, plan.kind, plan.radices, str(dev))
+    launch(kernel, entry, dev, *args, ctypes.addressof(host_ints(plan.radices)), len(plan.radices),
+           ctypes.addressof(host_ints(g.flat_passes)), len(g.passes), pass_tw.data_ptr(), table, *g.args)
 
 
 # ---------------------------------------------------------------------------
@@ -192,9 +226,8 @@ def level1(x, plan: FFTPlan, forward: bool = True):
     if (d1 if forward else d2) != length:
         raise ValueError(f"{kernel.name}: columns of length {d1 if forward else d2}, plan N={length}")
     if b and m:
-        radices, tabs = _stages(plan, dev)
-        launch(kernel, "k6_l1" if forward else "k6_l1_rev", dev, *src, *dst, stride, b, length, m,
-               ctypes.addressof(radices), len(plan.radices), tabs.stage_flat.data_ptr(), None)
+        _launch_columns(kernel, "k6_l1" if forward else "k6_l1_rev", dev, plan, b, m, 4 * stride,
+                        (*src, *dst, stride, b, length, m), None)
     return out
 
 
@@ -212,9 +245,8 @@ def level2(x, tw: torch.Tensor, plan: FFTPlan, forward: bool = True):
     dev, stride, src, out, dst = complex_io(kernel.name, x, (b, c, m))
     check(f"{kernel.name} twiddle", tw, (c, m), dev, torch.complex64)
     if b and m:
-        radices, tabs = _stages(plan, dev)
-        launch(kernel, "k6_l2" if forward else "k6_l2_rev", dev, *src, *dst, stride, b, length, m,
-               ctypes.addressof(radices), len(plan.radices), tabs.stage_flat.data_ptr(), tw.data_ptr())
+        _launch_columns(kernel, "k6_l2" if forward else "k6_l2_rev", dev, plan, b, m, 4 * stride,
+                        (*src, *dst, stride, b, length, m), tw.data_ptr())
     return out
 
 
@@ -244,10 +276,6 @@ def _require_real_cols(kernel: Kernel, plan: FFTPlan):
     require_domain(kernel, plan.kind == FFT_REAL and _col_ok(plan.n), plan.n, plan.kind)
 
 
-def _launch_real(kernel, entry, dev, plan, args):
-    radices, tabs = _stages(plan, dev)
-    launch(kernel, entry, dev, *args, ctypes.addressof(radices), len(plan.radices),
-           tabs.stage_flat.data_ptr(), tabs.split_tw.data_ptr())
 
 
 def rfft_cols(x: torch.Tensor, plan: FFTPlan):
@@ -261,8 +289,10 @@ def rfft_cols(x: torch.Tensor, plan: FFTPlan):
     yre = torch.empty((b, c, a // 2), dtype=torch.float32, device=x.device)
     yim = torch.empty_like(yre)
     if b and c:
-        _launch_real(K7A, "k7a_rfft_cols", x.device, plan,
-                     (x.data_ptr(), yre.data_ptr(), yim.data_ptr(), b, a, c))
+        tabs = plan.device_tables(x.device)
+        launch(K7A, "k7a_rfft_cols", x.device, x.data_ptr(), yre.data_ptr(), yim.data_ptr(), b, a, c,
+               ctypes.addressof(host_ints(plan.radices)), len(plan.radices), tabs.stage_flat.data_ptr(),
+               tabs.split_tw.data_ptr())
     return yre, yim
 
 
@@ -277,8 +307,9 @@ def irfft_cols(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
     check("yim", yim, (b, c, plan.n // 2), yre.device)
     x = torch.empty((b, 2 * h, c), dtype=torch.float32, device=yre.device)
     if b and c:
-        _launch_real(K7B, "k7b_irfft_cols", yre.device, plan,
-                     (yre.data_ptr(), yim.data_ptr(), x.data_ptr(), b, 2 * h, c))
+        _launch_columns(K7B, "k7b_irfft_cols", yre.device, plan, b, c, 4,
+                        (yre.data_ptr(), yim.data_ptr(), x.data_ptr(), b, 2 * h, c),
+                        plan.device_tables(yre.device).split_tw.data_ptr())
     return x
 
 

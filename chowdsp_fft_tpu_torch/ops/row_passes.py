@@ -99,15 +99,16 @@ def _block(n: int, kind: str, radices: tuple[int, ...]) -> tuple[tuple[tuple[int
     return pass_plan(radices), tpr, rpb, smem
 
 
-def pass_twiddles(radices: tuple[int, ...], L: int) -> np.ndarray:
-    """The passes' twiddle tables, concatenated in pass order (complex64):
+def pass_twiddles(radices: tuple[int, ...], L: int, passes: tuple[tuple[int, int], ...] | None = None) -> np.ndarray:
+    """The passes' twiddle tables, concatenated in pass order (complex64),
+    for ``passes`` (default: this module's :func:`pass_plan` of the radices):
     pass i (radix P = R0*R1, stride s, m = L/(P*s)) holds W_L^(j*p*s) at
     [j*m + p] for bin j < P and p < m, so that a warp's threads (p = u/s,
     consecutive or equal) read consecutive or equal entries. Each entry
     is exp(-2i*pi*e/L) for the exact integer e = j*p*s mod L, in float64,
     cast to float32 once."""
     out, s = [], 1
-    for r0, r1 in pass_plan(radices):
+    for r0, r1 in pass_plan(radices) if passes is None else passes:
         P = r0 * r1
         m = L // (P * s)
         e = (np.arange(P, dtype=np.int64)[:, None] * np.arange(m, dtype=np.int64)[None, :] * s) % L

@@ -12,6 +12,7 @@ import torch
 import chowdsp_fft_tpu_torch as ct
 from chowdsp_fft_tpu_torch import models, stream
 from chowdsp_fft_tpu_torch.ops import hopper_cfft, hopper_small, tables
+from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
 from chowdsp_fft_tpu_torch.ops import hopper_fft as hf
 
 pytestmark = pytest.mark.cuda
@@ -289,6 +290,78 @@ def test_long_filter_ols_launches_composite(dev):
     torch.cuda.synchronize()
     assert maxerr(y, yp) <= 1e-4
     assert all(k.launches > 0 for k in (hc.K7A, hc.K7B, hc.K6_L2, hc.K6_L2_REV))
+
+
+COLUMN_LENGTHS, REAL_COLUMN_LENGTHS = hc.column_lengths()
+
+
+def held_bound(want: torch.Tensor, length: int) -> float:
+    """chip_smoke's ``held`` bound for a kernel of transform length
+    ``length`` on its own: 2e-7 * length * rms of the reference."""
+    return 2e-7 * length * float(want.abs().double().pow(2).mean().sqrt())
+
+
+def aligned8(z: torch.Tensor) -> torch.Tensor:
+    """A copy of complex64 ``z`` whose data sit 8 bytes past a 16-byte
+    boundary."""
+    base = torch.empty(z.numel() + 1, dtype=torch.complex64, device=z.device)
+    view = base[1:].view(z.shape)
+    view.copy_(z)
+    assert view.data_ptr() % 16 == 8
+    return view
+
+
+@pytest.mark.parametrize("length", COLUMN_LENGTHS)
+def test_k6_roles_at_every_length(dev, length):
+    """K6 in its four roles at every column length the composite's splits
+    produce, 1 and 7 batch rows of a ragged M = 37 columns: complex64, an
+    8-byte aligned complex64 view and planes, each within held's bound of
+    its plain version (which a zeroed output fails)."""
+    plan = ct.cached_plan(length, ct.FFT_COMPLEX)
+    m = 37
+    tw = torch.polar(torch.ones(length, m, device=dev), torch.rand(length, m, device=dev) * 6.2832)
+    for rows in (1, 7):
+        cols = crand((rows, length, m), dev, length + rows)
+        trans = crand((rows, m, length), dev, length + rows + 1)
+        for form in ("complex64", "view", "planes"):
+            def f(z, form=form):
+                if form == "view":
+                    return aligned8(z)
+                return z if form == "complex64" else (z.real.contiguous(), z.imag.contiguous())
+
+            def cx(v):
+                return v if isinstance(v, torch.Tensor) else torch.complex(*v)
+
+            cases = {
+                "l1": (hc.level1(f(cols), plan, True), hc.level1_plain(cols, plan, True)),
+                "l1_rev": (hc.level1(f(trans), plan, False), hc.level1_plain(trans, plan, False)),
+                "l2": (hc.level2(f(cols), tw, plan, True), hc.level2_plain(cols, tw, plan, True)),
+                "l2_rev": (hc.level2(f(cols), tw, plan, False), hc.level2_plain(cols, tw, plan, False)),
+            }
+            for role, (got, want) in cases.items():
+                bound = held_bound(want, length)
+                assert maxerr(cx(got), want) <= bound, (role, form, rows)
+                assert maxerr(torch.zeros_like(want), want) > bound
+
+
+@pytest.mark.parametrize("a", REAL_COLUMN_LENGTHS)
+def test_k7b_at_every_length(dev, a):
+    """K7b at every real column length A, 1 and 7 batch rows of a ragged
+    C = 37 columns, on the packed spectrum of unit-scale columns: within
+    held's bound of its plain version and of A x (which a zeroed output
+    and a dropped Nyquist slot fail)."""
+    plan = ct.cached_plan(a, ct.FFT_REAL)
+    for rows in (1, 7):
+        x = rand((rows, a, 37), dev, a + rows)
+        pre, pim = hc.rfft_cols_plain(x, plan)
+        got = hc.irfft_cols(pre, pim, plan)
+        want = hc.irfft_cols_plain(pre, pim, plan)
+        bound = held_bound(want, a)
+        assert maxerr(got, want) <= bound and maxerr(got / a, x) <= held_bound(x, a)
+        no_nyq = pim.clone()
+        no_nyq[..., 0] = 0
+        assert maxerr(torch.zeros_like(want), want) > bound
+        assert maxerr(hc.irfft_cols(pre, no_nyq, plan), want) > bound
 
 
 @pytest.mark.parametrize("ordered", [True, False])
