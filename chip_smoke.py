@@ -1102,10 +1102,10 @@ def phase15(ct, hc, roof, stream, lib, dev, card, audio: np.ndarray, ir: np.ndar
             (hc.K6_L2, 1, ct.cached_plan(rc, ct.FFT_COMPLEX), ra // 2, "planes", 4),
             (hc.K6_L2_REV, 2, ct.cached_plan(rc, ct.FFT_COMPLEX), ra // 2, "planes", 4),
             (hc.K7B, 4, pra, rc, "real", 4)):
-        g = col_passes.launch_geometry(plan, rows, cols, seg)
+        g = col_passes.launch_geometry(plan, rows, cols, seg, hc.in_place_role(k, seg // 4))
         log(f"phase 15 {k.name} geometry ({form}, L={plan.n if role < 4 else plan.n // 2}): passes {g.passes}, "
-            f"{g.lanes} columns and {g.threads} threads a block, {g.smem_bytes} B; "
-            f"{lib.hopper_composite_blocks_per_sm(role, g.threads, g.smem_bytes)} resident blocks per SM")
+            f"{g.lanes} columns and {g.threads} threads a block, {g.buffers} tile buffer(s) of {g.smem_bytes} B; "
+            f"{lib.hopper_composite_blocks_per_sm(role, g.shape, g.threads, g.smem_bytes)} resident blocks per SM")
 
     # K6 level 2 on the real composite's (B, C, A/2) planes.
     prc = ct.cached_plan(rc, ct.FFT_COMPLEX)

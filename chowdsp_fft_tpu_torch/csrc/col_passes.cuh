@@ -26,27 +26,32 @@
 //     them from registers;
 //   * passes are the plan's stages, consecutive pairs fused up to 20 points
 //     a butterfly (ops/col_passes.pass_plan; (5,5) stays two passes), each
-//     a Stockham stage of radix P = R0*R1 (row_passes.cuh's pass_dft) on
-//     one butterfly at a time between two padded tile buffers, one barrier
-//     a pass. Where 16 | L the first pass (4,4) runs on the loaded
-//     registers (thread t's butterfly is its own points) and a last pass
-//     with P | 16 leaves its outputs in the registers the stores read;
-//     otherwise the points go through the tile;
-//   * tiles: at most 4096 points and 256 threads (67.6 KB, 80 registers a
-//     thread: three blocks an SM, so one block's loads and stores overlap
-//     another's passes); 8192 points and 512 threads (135 KB, one block an
-//     SM) where a narrow tile's columns would move less than a 32-byte
-//     sector a row and plane (planes at L = 1024, complex64 at L = 2048);
+//     a Stockham stage of radix P = R0*R1 (row_passes.cuh's pass_dft). Where
+//     16 | L the first pass (4,4) runs on the loaded registers (thread t's
+//     butterfly is its own points) and a last pass with P | 16 leaves its
+//     outputs in the registers the stores read; otherwise the points go
+//     through the tile;
+//   * two shapes of exchange. Two buffers: each pass between takes one
+//     butterfly at a time from one buffer to the other (P points live), one
+//     barrier a pass; tiles of at most 4096 points and 256 threads (67.6 KB,
+//     80 registers: three blocks an SM), or 8192 points and 512 threads
+//     (135 KB, one block an SM) where a narrow tile's columns would move
+//     less than a 32-byte sector a row and plane. In place, for plans whose
+//     passes between the first and the last are all (4,4) (every power of
+//     two): one buffer, each thread's one butterfly held in registers across
+//     the barrier between the pass's reads and writes; 8192 points, 512
+//     threads and 64 registers, two blocks an SM, twice the columns of a
+//     narrow tile. The wrappers pick the shape by role
+//     (ops/hopper_composite.in_place_role, measured);
 //   * twiddles: bin j = j1*R0 + j0 of a pass takes W^(j*p*s) as rows j0
 //     and j1*R0 of the pass table ([row*m + p], built in float64, rounded
 //     once) multiplied: R0 + R1 - 2 loads a butterfly instead of P - 1.
-// Tried on the H100 and left out (development runs, PERF.md): one tile
-// buffer exchanged in place (a thread's butterflies held in registers
-// across the barrier between a pass's reads and writes), which halves the
-// shared memory; with the 12 pass kinds ptxas spilled 5-10 KB a kernel at
-// 64 or 128 registers, and the kernels ran 2-5x slower than the stage
-// engine. An L2 prefetch of the next tile (cp.async.bulk.prefetch) and
-// tiles ordered batch row fastest did not help overall.
+// Tried on the H100 and left out (development runs, PERF.md): every pass
+// kind in place (a thread's ceil(16/P) butterflies held across the
+// barrier): with the 12 kinds in one kernel ptxas spilled 5-10 KB at 64 or
+// 128 registers and the kernels ran 2-5x slower than the stage engine. An
+// L2 prefetch of the next tile (cp.async.bulk.prefetch) and tiles ordered
+// batch row fastest did not help overall.
 // The launch geometry (pass plan, tile, threads, shared bytes, grid) is
 // computed in Python (ops/col_passes.launch_geometry) and checked again by
 // check_col_passes and check_col_geometry.
@@ -63,8 +68,15 @@ constexpr int kColMaxLanes = 16;  // ops/col_passes.MAX_LANES
 // (WIDE_TILE_POINTS) at most 512, one block an SM (ops/col_passes.MAX_THREADS).
 constexpr int kColNarrowThreads = 256;
 constexpr int kColMaxThreads = 512;
-template <int MAXT>
-constexpr int col_min_blocks() { return MAXT == kColNarrowThreads ? 3 : 1; }
+// The kernels' three shapes: narrow and wide tiles between two buffers,
+// and in-place tiles (one buffer, 512 threads, two blocks an SM at 64
+// registers) for plans whose passes between the first and the last are
+// all (4,4) (ops/col_passes.in_place_plan).
+enum { kColNarrow = 0, kColWide = 1, kColInPlace = 2 };
+template <int SHAPE>
+constexpr int col_threads() { return SHAPE == kColNarrow ? kColNarrowThreads : kColMaxThreads; }
+template <int SHAPE>
+constexpr int col_min_blocks() { return SHAPE == kColNarrow ? 3 : SHAPE == kColWide ? 1 : 2; }
 
 // A tile buffer in shared memory: point i of column j at slot((i << ls) + j).
 struct TileBuf {
@@ -187,6 +199,28 @@ __device__ __forceinline__ void shared_pass(const TileBuf& src, const TileBuf& d
   __syncthreads();
 }
 
+// A (4,4) pass in place in one buffer: thread (t, j)'s one butterfly is
+// read, transformed and twiddled, the block waits, it is written back, the
+// block waits again.
+template <int SIGN>
+__device__ __forceinline__ void inplace_pass44(const TileBuf& tile, int L, int s, const float2* __restrict__ tw,
+                                               int t, int j) {
+  const int nb = L / 16;
+  const int m = nb / s;
+  const unsigned magic = 0xFFFFFFFFu / static_cast<unsigned>(s) + 1u;  // s >= 16 here
+  float2 v[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = tile(k * nb + t, j);
+  pass_dft<4, 4, SIGN>(v);
+  const int p = static_cast<int>(__umulhi(static_cast<unsigned>(t), magic));
+  if (p != 0) pass_twiddle<4, 4, SIGN>(v, tw + p, m);
+  const int base = p * 16 * s + (t - p * s);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) tile.put(base + natural_bin<4, 4>(i) * s, j, v[i]);
+  __syncthreads();
+}
+
 template <int SIGN>
 __device__ __forceinline__ void dispatch_shared(int kind, const TileBuf& src, const TileBuf& dst, int L, int s,
                                                 const float2* __restrict__ tw, int t, int tpc, int j) {
@@ -251,6 +285,34 @@ __device__ __forceinline__ bool ends_in_registers(int kind) {
 // P | 16) or into a buffer that w is read back from. `w` ends holding the
 // same points of the transform.
 template <int SIGN>
+__device__ __forceinline__ void last_pass_dispatch(int kind, float2* w, const TileBuf& tile, int L, int t, int tpc,
+                                                   int j) {
+  switch (kind) {
+    case 44: last_pass_to_registers<4, 4, SIGN>(w, tile, L, t, tpc, j); break;
+    case 42: last_pass_to_registers<4, 2, SIGN>(w, tile, L, t, tpc, j); break;
+    case 41: last_pass_to_registers<4, 1, SIGN>(w, tile, L, t, tpc, j); break;
+    default: last_pass_to_registers<2, 1, SIGN>(w, tile, L, t, tpc, j); break;
+  }
+}
+
+// In place (one buffer; the plan checked by check_col_geometry): the first
+// pass from w, the (4,4) passes between in place, the last into w.
+template <int SIGN>
+__device__ __forceinline__ void run_col_passes_in_place(const ColPlan& plan, float2* w, const TileBuf& a, int L,
+                                                        const float2* __restrict__ tw, int t, int tpc, int j) {
+  first_pass_from_registers<SIGN>(w, a, L, tw, t, j);
+  tw += L;
+  int s = 16;
+  const int last = plan.count - 1;
+  for (int i = 1; i < last; ++i) {
+    inplace_pass44<SIGN>(a, L, s, tw, t, j);
+    tw += L / s;
+    s *= 16;
+  }
+  last_pass_dispatch<SIGN>(plan.kind(last), w, a, L, t, tpc, j);
+}
+
+template <int SIGN>
 __device__ __forceinline__ void run_col_passes(const ColPlan& plan, float2* w, TileBuf a, int L,
                                                const float2* __restrict__ tw, int t, int tpc, int j) {
   TileBuf b{a.buf + padded(L << a.ls), a.ls};
@@ -290,12 +352,7 @@ __device__ __forceinline__ void run_col_passes(const ColPlan& plan, float2* w, T
   }
   const int kl = plan.kind(last);
   if (direct && ends_in_registers(kl)) {
-    switch (kl) {
-      case 44: last_pass_to_registers<4, 4, SIGN>(w, a, L, t, tpc, j); break;
-      case 42: last_pass_to_registers<4, 2, SIGN>(w, a, L, t, tpc, j); break;
-      case 41: last_pass_to_registers<4, 1, SIGN>(w, a, L, t, tpc, j); break;
-      default: last_pass_to_registers<2, 1, SIGN>(w, a, L, t, tpc, j); break;
-    }
+    last_pass_dispatch<SIGN>(kl, w, a, L, t, tpc, j);
     return;
   }
   dispatch_shared<SIGN>(kl, a, b, L, s, tw, t, tpc, j);
@@ -331,17 +388,33 @@ int check_col_passes(const int* passes, int npasses, const Radices& rad, int L, 
   return 0;
 }
 
+// Host: whether a plan runs in place (one tile buffer): 16 | L, at least two
+// passes, (4,4) between the first and the last, and a last pass of P | 16.
+bool col_in_place_plan(const ColPlan& plan, int L) {
+  if (L % kRowPoints || plan.count < 2) return false;
+  for (int i = 1; i + 1 < plan.count; ++i) {
+    if (((plan.codes >> (6 * i)) & 63) != 44) return false;
+  }
+  const int kl = static_cast<int>((plan.codes >> (6 * (plan.count - 1))) & 63);
+  return kl == 44 || kl == 42 || kl == 41 || kl == 21;
+}
+
 // Host: refuse a geometry that does not cover `batch` rows of M columns of
 // L points in tiles of 2^ls columns, ceil(L/16) threads a column and one
 // padded tile buffer, or does not fit a block.
-int check_col_geometry(int L, int batch, int M, int ls, int threads, int smem, int grid) {
+// The shape (kColNarrow, kColWide, kColInPlace) follows from the shared
+// bytes and threads: one buffer runs in place, which the plan must allow.
+int check_col_geometry(const ColPlan& plan, int L, int batch, int M, int ls, int threads, int smem, int grid,
+                       int* shape) {
   if (ls < 0 || (1 << ls) > kColMaxLanes) return static_cast<int>(cudaErrorInvalidValue);
   const int tpc = (L + kRowPoints - 1) / kRowPoints;
   const long long blocks = static_cast<long long>(batch) * ((M + (1 << ls) - 1) >> ls);
-  if (threads != (tpc << ls) || threads > kColMaxThreads ||
-      smem != 2 * padded(L << ls) * static_cast<int>(sizeof(float2)) ||
-      smem > kMaxSmemBytes || blocks != grid)
+  const int buffer = padded(L << ls) * static_cast<int>(sizeof(float2));
+  const bool in_place = smem == buffer;
+  if (threads != (tpc << ls) || threads > kColMaxThreads || (smem != 2 * buffer && !in_place) ||
+      (in_place && !col_in_place_plan(plan, L)) || smem > kMaxSmemBytes || blocks != grid)
     return static_cast<int>(cudaErrorInvalidValue);
+  *shape = in_place ? kColInPlace : threads <= kColNarrowThreads ? kColNarrow : kColWide;
   return 0;
 }
 

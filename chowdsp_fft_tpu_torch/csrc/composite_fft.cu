@@ -30,21 +30,23 @@
 // H100's flop/byte balance.
 //
 // Design. K6 and K7b run the column engine (col_passes.cuh): a block takes
-// a tile of 2^ls adjacent columns of one batch row (at most 16 columns and
-// 4096 points, 256 threads, three blocks an SM; 8192 points and 512
-// threads, one block an SM, where a narrower tile would leave a column less
-// than a 32-byte sector a row and plane), 16 points of one column a
-// thread. The thread loads its points from device memory straight into
-// registers, every load issued before the first is used (complex64 as
-// float2), consecutive threads on consecutive columns; the plan's stages
-// run fused in pairs, the first from those registers (16 | L), the passes
-// between one butterfly at a time through two padded tile buffers, the
-// last back into registers, from which the points are stored. K7b folds
-// the merge into the reads after its load and stores the even and odd
-// samples from registers. The launch geometry comes from
-// ops/col_passes.launch_geometry and is checked here. K7a keeps the stage
-// engine (stockham.cuh): TC adjacent columns, TC the largest power of two
-// up to kMaxTile whose two padded A/2*TC-point buffers fit (tile_shift),
+// a tile of 2^ls adjacent columns of one batch row, 16 points of one column
+// a thread, and runs one of three shapes: narrow (at most 4096 points and
+// 256 threads, two buffers, three blocks an SM), wide (8192 points, 512
+// threads, two buffers, one block an SM, where a narrow tile's columns would
+// move less than a 32-byte sector a row and plane) or in place (8192
+// points, 512 threads, one buffer, two blocks an SM, for plans whose middle
+// passes are (4,4)). The thread loads its points from device memory
+// straight into registers, every load issued before the first is used
+// (complex64 as float2), consecutive threads on consecutive columns; the
+// plan's stages run fused in pairs, the first from those registers
+// (16 | L), the last back into registers, from which the points are
+// stored. K7b folds the merge into the reads after its load and stores the
+// even and odd samples from registers. The launch geometry comes from
+// ops/col_passes.launch_geometry and is checked here; the shape follows
+// from its threads and shared bytes. K7a keeps the stage engine
+// (stockham.cuh): TC adjacent columns, TC the largest power of two up to
+// kMaxTile whose two padded A/2*TC-point buffers fit (tile_shift),
 // interleaved in shared memory (point l of column j at l*TC + j), scalar
 // loads and stores. Each element of the array is read from and written to
 // device memory once per kernel. Twiddles come from float32 tables (the
@@ -93,8 +95,8 @@ __device__ __forceinline__ Tile tile_of(int M, int ls) {
 // Thread (t, j) loads points q*tpc + t (q < 16) of column j into
 // registers, every load issued before the first is used, and stores the
 // same points of the transform from registers.
-template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW, int MAXT>
-__global__ void __launch_bounds__(MAXT, col_min_blocks<MAXT>())
+template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW, int SHAPE>
+__global__ void __launch_bounds__(col_threads<SHAPE>(), col_min_blocks<SHAPE>())
 column_passes_kernel(const float* __restrict__ xre, const float* __restrict__ xim, float* __restrict__ yre,
                      float* __restrict__ yim, int stride, int L, int M, int ls, ColPlan plan,
                      const float2* __restrict__ pass_tw, const float2* __restrict__ tw) {
@@ -114,7 +116,11 @@ column_passes_kernel(const float* __restrict__ xre, const float* __restrict__ xi
   float2 w[kRowPoints];
 #pragma unroll
   for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < L ? in(q * tpc + t, j) : make_float2(0.0f, 0.0f);
-  run_col_passes<SIGN>(plan, w, TileBuf{smem, ls}, L, pass_tw, t, tpc, j);
+  if constexpr (SHAPE == kColInPlace) {
+    run_col_passes_in_place<SIGN>(plan, w, TileBuf{smem, ls}, L, pass_tw, t, tpc, j);
+  } else {
+    run_col_passes<SIGN>(plan, w, TileBuf{smem, ls}, L, pass_tw, t, tpc, j);
+  }
 #pragma unroll
   for (int q = 0; q < kRowPoints; ++q) {
     if (q * tpc + t < L) out.put(q * tpc + t, j, w[q]);
@@ -181,8 +187,8 @@ rfft_cols_kernel(const float* __restrict__ x, float* __restrict__ yre,
 // reads them with consecutive threads on consecutive bins, every load
 // issued before the first shared store, and leaves them in the tile for
 // the first pass's merge.
-template <int MAXT>
-__global__ void __launch_bounds__(MAXT, col_min_blocks<MAXT>())
+template <int SHAPE>
+__global__ void __launch_bounds__(col_threads<SHAPE>(), col_min_blocks<SHAPE>())
 irfft_col_passes_kernel(const float* __restrict__ yre, const float* __restrict__ yim, float* __restrict__ x,
                         int A, int C, int ls, ColPlan plan, const float2* __restrict__ pass_tw,
                         const float2* __restrict__ split_tw) {
@@ -223,7 +229,11 @@ irfft_col_passes_kernel(const float* __restrict__ yre, const float* __restrict__
     }
   }
   __syncthreads();
-  run_col_passes<1>(plan, w, tile, H, pass_tw, t, tpc, j);
+  if constexpr (SHAPE == kColInPlace) {
+    run_col_passes_in_place<1>(plan, w, tile, H, pass_tw, t, tpc, j);
+  } else {
+    run_col_passes<1>(plan, w, tile, H, pass_tw, t, tpc, j);
+  }
   const RealCols out{x + static_cast<size_t>(tl.b) * A * C + tl.m0, C, cols};
 #pragma unroll
   for (int q = 0; q < kRowPoints; ++q) {
@@ -242,30 +252,35 @@ int tile_shift(int points) {
 }
 
 // The column engine's kernels by role (hopper_composite_blocks_per_sm).
-template <int MAXT>
-const void* col_kernel(int role) {
+template <int SHAPE>
+const void* col_kernel_of(int role) {
   switch (role) {
-    case 0: return reinterpret_cast<const void*>(column_passes_kernel<-1, false, true, kNoTwiddle, MAXT>);
-    case 1: return reinterpret_cast<const void*>(column_passes_kernel<-1, false, false, kTwiddleBefore, MAXT>);
-    case 2: return reinterpret_cast<const void*>(column_passes_kernel<1, false, false, kTwiddleAfter, MAXT>);
-    case 3: return reinterpret_cast<const void*>(column_passes_kernel<1, true, false, kNoTwiddle, MAXT>);
-    case 4: return reinterpret_cast<const void*>(irfft_col_passes_kernel<MAXT>);
+    case 0: return reinterpret_cast<const void*>(column_passes_kernel<-1, false, true, kNoTwiddle, SHAPE>);
+    case 1: return reinterpret_cast<const void*>(column_passes_kernel<-1, false, false, kTwiddleBefore, SHAPE>);
+    case 2: return reinterpret_cast<const void*>(column_passes_kernel<1, false, false, kTwiddleAfter, SHAPE>);
+    case 3: return reinterpret_cast<const void*>(column_passes_kernel<1, true, false, kNoTwiddle, SHAPE>);
+    case 4: return reinterpret_cast<const void*>(irfft_col_passes_kernel<SHAPE>);
     default: return nullptr;
   }
+}
+
+const void* col_kernel(int role, int shape) {
+  return shape == kColNarrow ? col_kernel_of<kColNarrow>(role)
+         : shape == kColWide ? col_kernel_of<kColWide>(role) : col_kernel_of<kColInPlace>(role);
 }
 
 // The checks every column-engine entry makes: the radices, the pass plan
 // against them and L, then (when there is work) the geometry; *run is
 // false when there is nothing to launch.
 int check_col_launch(int L, int batch, int M, const int* radices, int nstages, const int* passes, int npasses,
-                     int ls, int threads, int smem, int grid, ColPlan* plan, bool* run) {
+                     int ls, int threads, int smem, int grid, ColPlan* plan, bool* run, int* shape) {
   Radices rad;
   int err = make_radices(radices, nstages, &rad);
   if (err) return err;
   err = check_col_passes(passes, npasses, rad, L, plan);
   if (err) return err;
   *run = batch > 0 && M > 0;
-  return *run ? check_col_geometry(L, batch, M, ls, threads, smem, grid) : 0;
+  return *run ? check_col_geometry(*plan, L, batch, M, ls, threads, smem, grid, shape) : 0;
 }
 
 template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW>
@@ -277,10 +292,13 @@ int launch_column(const float* xre, const float* xim, float* yre, float* yim, in
     return static_cast<int>(cudaErrorInvalidValue);
   ColPlan plan;
   bool run;
-  int err = check_col_launch(L, batch, M, radices, nstages, passes, npasses, ls, threads, smem, grid, &plan, &run);
+  int shape;
+  int err = check_col_launch(L, batch, M, radices, nstages, passes, npasses, ls, threads, smem, grid, &plan, &run,
+                             &shape);
   if (err || !run) return err;
-  auto kernel = threads <= kColNarrowThreads ? column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColNarrowThreads>
-                                             : column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColMaxThreads>;
+  auto kernel = shape == kColNarrow ? column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColNarrow>
+                : shape == kColWide ? column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColWide>
+                                    : column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColInPlace>;
   err = set_smem(kernel, smem);
   if (err) return err;
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -301,11 +319,11 @@ int hopper_composite_col_tile(int points) {
 }
 
 // Blocks of a column-engine kernel resident on one SM at a launch
-// geometry's threads and shared bytes (role 0-3: K6 l1, l2, l2_rev,
-// l1_rev; 4: K7b); 0 if the query fails.
-int hopper_composite_blocks_per_sm(int role, int threads, int smem) {
-  const void* kernel = threads <= kColNarrowThreads ? col_kernel<kColNarrowThreads>(role)
-                                                    : col_kernel<kColMaxThreads>(role);
+// geometry's shape (0 narrow, 1 wide, 2 in place), threads and shared
+// bytes (role 0-3: K6 l1, l2, l2_rev, l1_rev; 4: K7b); 0 if the query
+// fails.
+int hopper_composite_blocks_per_sm(int role, int shape, int threads, int smem) {
+  const void* kernel = shape < kColNarrow || shape > kColInPlace ? nullptr : col_kernel(role, shape);
   int per_sm = 0;
   if (kernel == nullptr || threads < 1 || threads > kColMaxThreads ||
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) ||
@@ -385,10 +403,12 @@ int k7b_irfft_cols(const float* yre, const float* yim, float* x, int batch, int 
   if (A < 4 || A > kMaxCol || A % 2 || C < 0 || batch < 0) return static_cast<int>(cudaErrorInvalidValue);
   ColPlan plan;
   bool run;
-  int err = check_col_launch(A / 2, batch, C, radices, nstages, passes, npasses, ls, threads, smem, grid, &plan, &run);
+  int shape;
+  int err = check_col_launch(A / 2, batch, C, radices, nstages, passes, npasses, ls, threads, smem, grid, &plan, &run,
+                             &shape);
   if (err || !run) return err;
-  auto kernel = threads <= kColNarrowThreads ? irfft_col_passes_kernel<kColNarrowThreads>
-                                             : irfft_col_passes_kernel<kColMaxThreads>;
+  auto kernel = shape == kColNarrow ? irfft_col_passes_kernel<kColNarrow>
+                : shape == kColWide ? irfft_col_passes_kernel<kColWide> : irfft_col_passes_kernel<kColInPlace>;
   err = set_smem(kernel, smem);
   if (err) return err;
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -35,8 +35,8 @@ MAX_CN = 13824
 # below 512.
 MAX_SMALL_N = 511
 # Longest column of the composite's column kernels (K6, K7): K6 and K7b
-# hold a tile of at most col_passes.TILE_POINTS points (one padded buffer,
-# 8.25 bytes a point); K7a's tile of TC columns holds two padded
+# hold tiles of at most 8192 points (ops/col_passes: two padded buffers of
+# a wide tile take 135 KB); K7a's tile of TC columns holds two padded
 # L*TC-point buffers, 16.5*L*TC bytes, and the library picks the largest
 # TC up to 16 that fits, so L = 2048 takes TC = 4 (135 KB). Every
 # composite split up to 2^20 has a balanced pair within it (the largest
@@ -90,8 +90,8 @@ _SIGNATURES = {
     "hopper_composite_max_col": [],
     "hopper_composite_col_tile": [_I],
     # Column-engine blocks resident per SM: role (K6 l1, l2, l2_rev,
-    # l1_rev, K7b), threads, shared bytes.
-    "hopper_composite_blocks_per_sm": [_I, _I, _I],
+    # l1_rev, K7b), shape (narrow, wide, in place), threads, shared bytes.
+    "hopper_composite_blocks_per_sm": [_I, _I, _I, _I],
     # K6 roles: x re/im, y re/im, element stride, batch, L, M, radices,
     # nstages, pass plan, npasses, pass twiddles, four-step twiddles (NULL
     # at level 1), launch geometry (lanes' shift, threads, shared bytes,

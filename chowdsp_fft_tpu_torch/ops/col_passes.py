@@ -5,11 +5,13 @@ and K7b (the real composite's column-blocked inverse) run the plan's
 mixed-radix stages on a tile of ``2^ls`` adjacent columns of L points,
 ``POINTS_PER_THREAD`` points of one column a thread. A pass fuses one or
 two consecutive stages of the plan; the kernels load each thread's points
-from device memory straight into registers and store them from registers,
-and the passes between exchange through two padded tile buffers.
+from device memory straight into registers and store them from registers.
+The passes between exchange through two padded tile buffers (narrow tiles,
+three blocks an SM, or wide ones, one block an SM), or in place through
+one where the plan's middle passes are all (4,4) (two blocks an SM).
 
 This module computes what a launch needs: the pass plan, the tile
-(columns and threads), the shared bytes and the grid. The C entries
+(columns, threads, buffers), the shared bytes and the grid. The C entries
 check it again and refuse one that does not cover the columns or fit.
 """
 
@@ -23,8 +25,8 @@ import torch
 from ..plans import FFTPlan
 from .row_passes import POINTS_PER_THREAD, SMEM_LIMIT, pass_twiddles
 
-__all__ = ["POINTS_PER_THREAD", "TILE_POINTS", "WIDE_TILE_POINTS", "SECTOR_BYTES", "NARROW_THREADS", "MAX_LANES", "MAX_THREADS", "BUFFERS", "MAX_RADIX", "PASS_KINDS", "ColGeometry",
-           "pass_plan", "launch_geometry", "device_twiddles", "blocks_by_shared", "blocks_by_threads"]
+__all__ = ["POINTS_PER_THREAD", "TILE_POINTS", "WIDE_TILE_POINTS", "SECTOR_BYTES", "IN_PLACE_TILE_POINTS", "NARROW_THREADS", "MAX_LANES", "MAX_THREADS", "BUFFERS", "MAX_RADIX", "PASS_KINDS", "ColGeometry",
+           "pass_plan", "in_place_plan", "launch_geometry", "device_twiddles"]
 
 # A narrow tile holds at most this many complex points: its two padded
 # buffers take 67.6 KB and its 256 threads 80 registers each, so three
@@ -35,6 +37,11 @@ TILE_POINTS = 4096
 # plane: planes at L = 1024, complex64 at L = 2048.
 WIDE_TILE_POINTS = 8192
 SECTOR_BYTES = 32
+# Plans whose passes between the first and the last are all (4,4) and whose
+# last pass has P | 16 may run in place in one tile buffer (in_place_plan):
+# up to this many points, 512 threads and 64 registers a thread, two blocks
+# an SM.
+IN_PLACE_TILE_POINTS = 8192
 # At most 16 columns a tile: 128 B a row of interleaved complex64 on the
 # column side, 64 B a row of each plane.
 MAX_LANES = 16
@@ -74,6 +81,14 @@ def _padded(points: int) -> int:
     return points + (points >> 5)
 
 
+def in_place_plan(length: int, passes: tuple[tuple[int, int], ...]) -> bool:
+    """Whether the plan runs in place: 16 | L (so the first pass is (4,4)),
+    at least two passes, (4,4) between the first and the last, and a last
+    pass of P | 16."""
+    return (length % POINTS_PER_THREAD == 0 and len(passes) >= 2 and all(p == (4, 4) for p in passes[1:-1])
+            and passes[-1] in ((4, 4), (4, 2), (4, 1), (2, 1)))
+
+
 @dataclasses.dataclass(frozen=True)
 class ColGeometry:
     """A K6/K7b launch: ``passes`` ((r0, r1) pairs), a tile of
@@ -88,10 +103,16 @@ class ColGeometry:
     threads: int
     smem_bytes: int
     grid: int
+    buffers: int = BUFFERS
 
     @property
     def lanes(self) -> int:
         return 1 << self.lanes_shift
+
+    @property
+    def shape(self) -> int:
+        """The kernel shape the C entries pick: 0 narrow, 1 wide, 2 in place."""
+        return 2 if self.buffers == 1 else 0 if self.threads <= NARROW_THREADS else 1
 
     @property
     def flat_passes(self) -> tuple[int, ...]:
@@ -104,48 +125,44 @@ class ColGeometry:
         return self.lanes_shift, self.threads, self.smem_bytes, self.grid
 
 
-def launch_geometry(plan: FFTPlan, batch: int, cols: int, segment_bytes: int = 8) -> ColGeometry:
+def launch_geometry(plan: FFTPlan, batch: int, cols: int, segment_bytes: int, in_place: bool) -> ColGeometry:
     """The launch of the column engine over ``batch`` rows of ``cols``
     columns of L points, L the plan's complex length (N for a complex
     plan: K6; N/2 for a real one: K7b), a column taking ``segment_bytes``
     a row and plane on its column side (8 complex64, 4 planes or K7b's real
-    samples): the widest narrow tile up to MAX_LANES columns, widened up to
-    WIDE_TILE_POINTS where its columns would move less than SECTOR_BYTES a
-    row and plane."""
+    samples): with ``in_place`` and a plan that allows it, the widest
+    in-place tile up to MAX_LANES columns and IN_PLACE_TILE_POINTS; else
+    the widest narrow tile, widened up to WIDE_TILE_POINTS where its
+    columns would move less than SECTOR_BYTES a row and plane."""
     length = plan.n if plan.kind == "complex" else plan.n // 2
-    passes, ls, tpc, smem = _tile(length, plan.radices, segment_bytes)
-    return ColGeometry(passes, ls, tpc, tpc << ls, smem, batch * -(-cols // (1 << ls)))
+    passes, ls, tpc, smem, buffers = _tile(length, plan.radices, segment_bytes, in_place)
+    return ColGeometry(passes, ls, tpc, tpc << ls, smem, batch * -(-cols // (1 << ls)), buffers)
 
 
 @functools.lru_cache(maxsize=256)
-def _tile(length: int, radices: tuple[int, ...], segment_bytes: int) -> tuple[tuple[tuple[int, int], ...], int, int, int]:
+def _tile(length: int, radices: tuple[int, ...], segment_bytes: int, in_place: bool):
     """What a launch takes from the length alone (cached: a wrapper asks at
-    every call): the pass plan, the lanes' shift, threads a column and
-    shared bytes."""
+    every call): the pass plan, the lanes' shift, threads a column, shared
+    bytes and tile buffers."""
     if length < 2 or length > WIDE_TILE_POINTS:
         raise ValueError(f"column engine: columns of {length} points are outside [2, {WIDE_TILE_POINTS}]")
-    ls = 0
-    while (2 << ls) <= MAX_LANES and (length << (ls + 1)) <= TILE_POINTS:
-        ls += 1
-    while ((1 << ls) * segment_bytes < SECTOR_BYTES and (2 << ls) <= MAX_LANES
-           and (length << (ls + 1)) <= WIDE_TILE_POINTS):
-        ls += 1
+    passes = pass_plan(radices)
+    ls, buffers = 0, BUFFERS
+    if in_place and in_place_plan(length, passes):
+        buffers = 1
+        while (2 << ls) <= MAX_LANES and (length << (ls + 1)) <= IN_PLACE_TILE_POINTS:
+            ls += 1
+    else:
+        while (2 << ls) <= MAX_LANES and (length << (ls + 1)) <= TILE_POINTS:
+            ls += 1
+        while ((1 << ls) * segment_bytes < SECTOR_BYTES and (2 << ls) <= MAX_LANES
+               and (length << (ls + 1)) <= WIDE_TILE_POINTS):
+            ls += 1
     tpc = -(-length // POINTS_PER_THREAD)
-    smem = BUFFERS * _padded(length << ls) * 8
+    smem = buffers * _padded(length << ls) * 8
     if smem > SMEM_LIMIT or (tpc << ls) > MAX_THREADS:
         raise ValueError(f"column engine: columns of {length} points do not fit a block")
-    return pass_plan(radices), ls, tpc, smem
-
-
-def blocks_by_shared(g: ColGeometry) -> int:
-    """Blocks of ``g`` that an SM's 228 KB of shared memory hold (each
-    block also takes 1 KB the runtime reserves)."""
-    return (233472) // (g.smem_bytes + 1024)
-
-
-def blocks_by_threads(g: ColGeometry) -> int:
-    """Blocks of ``g`` that an SM's 2048 threads hold."""
-    return 2048 // g.threads
+    return passes, ls, tpc, smem, buffers
 
 
 @functools.lru_cache(maxsize=128)

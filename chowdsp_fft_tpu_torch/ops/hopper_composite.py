@@ -91,6 +91,7 @@ __all__ = [
     "irfft_composite",
     "cfft_rows",
     "column_lengths",
+    "in_place_role",
 ]
 
 _SRC = "chowdsp_fft_tpu_torch/csrc/composite_fft.cu"
@@ -166,12 +167,13 @@ def _view(x, shape):
 
 
 def _launch_columns(kernel: Kernel, entry: str, dev, plan: FFTPlan, batch: int, cols: int, segment_bytes: int,
-                    args, table):
+                    in_place: bool, args, table):
     """Launch a column-engine entry (K6, K7b) with ``args``, then the
     plan's radices, the pass plan and its twiddles, ``table`` (the
     four-step or the split twiddles) and the launch geometry over ``batch``
-    rows of ``cols`` columns of ``segment_bytes`` a row and plane."""
-    g = col_passes.launch_geometry(plan, batch, cols, segment_bytes)
+    rows of ``cols`` columns of ``segment_bytes`` a row and plane, in place
+    where ``in_place`` and the plan allow (``col_passes.launch_geometry``)."""
+    g = col_passes.launch_geometry(plan, batch, cols, segment_bytes, in_place)
     pass_tw = col_passes.device_twiddles(plan.n, plan.kind, plan.radices, str(dev))
     launch(kernel, entry, dev, *args, ctypes.addressof(host_ints(plan.radices)), len(plan.radices),
            ctypes.addressof(host_ints(g.flat_passes)), len(g.passes), pass_tw.data_ptr(), table, *g.args)
@@ -180,6 +182,16 @@ def _launch_columns(kernel: Kernel, entry: str, dev, plan: FFTPlan, batch: int, 
 # ---------------------------------------------------------------------------
 # K6: the column FFT in its four roles
 # ---------------------------------------------------------------------------
+
+
+def in_place_role(kernel: Kernel, stride: int) -> bool:
+    """Whether a column-engine kernel takes in-place tiles where its plan
+    allows (one buffer, twice the columns, two blocks an SM) or narrow
+    two-buffer tiles (three blocks an SM). Measured on the H100 at
+    N = 2^20 (PERF.md, PR 7): in place is faster for K6 l1 and l2 in both
+    forms and for l2_rev on complex64; two buffers for l1_rev and K7b
+    (whose inputs are rows) and for l2_rev on planes."""
+    return kernel is K6_L1 or kernel is K6_L2 or (kernel is K6_L2_REV and stride == 2)
 
 
 def level1_plain(x, plan: FFTPlan, forward: bool = True):
@@ -227,7 +239,7 @@ def level1(x, plan: FFTPlan, forward: bool = True):
         raise ValueError(f"{kernel.name}: columns of length {d1 if forward else d2}, plan N={length}")
     if b and m:
         _launch_columns(kernel, "k6_l1" if forward else "k6_l1_rev", dev, plan, b, m, 4 * stride,
-                        (*src, *dst, stride, b, length, m), None)
+                        in_place_role(kernel, stride), (*src, *dst, stride, b, length, m), None)
     return out
 
 
@@ -246,7 +258,7 @@ def level2(x, tw: torch.Tensor, plan: FFTPlan, forward: bool = True):
     check(f"{kernel.name} twiddle", tw, (c, m), dev, torch.complex64)
     if b and m:
         _launch_columns(kernel, "k6_l2" if forward else "k6_l2_rev", dev, plan, b, m, 4 * stride,
-                        (*src, *dst, stride, b, length, m), tw.data_ptr())
+                        in_place_role(kernel, stride), (*src, *dst, stride, b, length, m), tw.data_ptr())
     return out
 
 
@@ -307,7 +319,7 @@ def irfft_cols(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
     check("yim", yim, (b, c, plan.n // 2), yre.device)
     x = torch.empty((b, 2 * h, c), dtype=torch.float32, device=yre.device)
     if b and c:
-        _launch_columns(K7B, "k7b_irfft_cols", yre.device, plan, b, c, 4,
+        _launch_columns(K7B, "k7b_irfft_cols", yre.device, plan, b, c, 4, in_place_role(K7B, 1),
                         (yre.data_ptr(), yim.data_ptr(), x.data_ptr(), b, 2 * h, c),
                         plan.device_tables(yre.device).split_tw.data_ptr())
     return x

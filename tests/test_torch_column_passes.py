@@ -8,6 +8,7 @@ Pallas in interpret mode) level by level, and against its K7b
 (``_irfft_packed_cols_impl``). The kernels themselves run on the card
 only (tests/test_torch_cuda.py, chip_smoke.py)."""
 
+import itertools
 import pathlib
 import re
 
@@ -29,6 +30,17 @@ CASES = [(L, ct.FFT_COMPLEX) for L in COMPLEX_LENGTHS] + [(A, ct.FFT_REAL) for A
 
 def length_of(plan) -> int:
     return plan.n if plan.kind == ct.FFT_COMPLEX else plan.n // 2
+
+
+def blocks_by_shared(g) -> int:
+    """Blocks of ``g`` an SM's 228 KB of shared memory hold (each block
+    also takes the 1 KB the runtime reserves)."""
+    return 233472 // (g.smem_bytes + 1024)
+
+
+def blocks_by_threads(g) -> int:
+    """Blocks of ``g`` an SM's 2048 threads hold."""
+    return 2048 // g.threads
 
 
 def test_column_lengths_cover_the_splits():
@@ -64,42 +76,60 @@ def test_geometry_at_every_length(n, kind):
     """The pass plan is the plan's stages in order, fused in pairs of the
     kernels' kinds of at most MAX_RADIX points a butterfly, and multiplies
     out to L; ceil(L/16) threads a column cover every butterfly of every
-    pass; a tile is as wide as TILE_POINTS allows (up to MAX_LANES
-    columns), or wider up to WIDE_TILE_POINTS where its columns would move
-    less than a 32-byte sector a row and plane; a narrow tile's block
-    (at most 256 threads, 67.6 KB) leaves room for three an SM, a wide one
-    for one; the grid covers every column of every row."""
+    pass. Tiles: in place (one buffer) where asked and the plan allows, as
+    wide as IN_PLACE_TILE_POINTS allows (up to MAX_LANES columns); else
+    two buffers, as wide as TILE_POINTS allows or wider up to
+    WIDE_TILE_POINTS where the columns would move less than a 32-byte
+    sector a row and plane. An in-place or narrow block leaves room for at
+    least two (three) an SM in shared memory and threads, a wide one for
+    one; the grid covers every column of every row."""
     plan = ct.cached_plan(n, kind)
     L = length_of(plan)
     forms = (8, 4) if kind == ct.FFT_COMPLEX else (4,)  # complex64 and planes; K7b's real samples
-    for segment in forms:
-        for batch, cols in ((1, 1), (7, 37), (64, 1024)):
-            g = col_passes.launch_geometry(plan, batch, cols, segment)
-            assert tuple(r for pair in g.passes for r in pair if r != 1) == plan.radices
-            assert all(pair in col_passes.PASS_KINDS for pair in g.passes)
-            assert all(r0 * r1 <= col_passes.MAX_RADIX for r0, r1 in g.passes)
-            assert int(np.prod([r0 * r1 for r0, r1 in g.passes])) == L
-            # Fused where it can be: no two neighbouring single stages form a kind.
-            assert not any(a[1] == 1 and b[1] == 1 and (a[0], b[0]) in col_passes.PASS_KINDS
-                           for a, b in zip(g.passes, g.passes[1:]))
-            assert g.threads_per_col == -(-L // col_passes.POINTS_PER_THREAD)
-            for r0, r1 in g.passes:
-                p = r0 * r1
-                assert g.threads_per_col * -(-col_passes.POINTS_PER_THREAD // p) >= L // p
-            assert g.threads == g.threads_per_col * g.lanes <= col_passes.MAX_THREADS
+    for segment, in_place, (batch, cols) in itertools.product(forms, (False, True), ((1, 1), (7, 37), (64, 1024))):
+        g = col_passes.launch_geometry(plan, batch, cols, segment, in_place)
+        assert tuple(r for pair in g.passes for r in pair if r != 1) == plan.radices
+        assert all(pair in col_passes.PASS_KINDS for pair in g.passes)
+        assert all(r0 * r1 <= col_passes.MAX_RADIX for r0, r1 in g.passes)
+        assert int(np.prod([r0 * r1 for r0, r1 in g.passes])) == L
+        # Fused where it can be: no two neighbouring single stages form a kind.
+        assert not any(a[1] == 1 and b[1] == 1 and (a[0], b[0]) in col_passes.PASS_KINDS
+                       for a, b in zip(g.passes, g.passes[1:]))
+        assert g.threads_per_col == -(-L // col_passes.POINTS_PER_THREAD)
+        for r0, r1 in g.passes:
+            p = r0 * r1
+            assert g.threads_per_col * -(-col_passes.POINTS_PER_THREAD // p) >= L // p
+        assert g.threads == g.threads_per_col * g.lanes <= col_passes.MAX_THREADS
+        buffer = (L * g.lanes + L * g.lanes // 32) * 8
+        if in_place and col_passes.in_place_plan(L, g.passes):
+            assert g.buffers == 1 and g.shape == 2 and g.smem_bytes == buffer
+            assert g.passes[0] == (4, 4) and all(p == (4, 4) for p in g.passes[1:-1])
+            assert g.lanes == min(col_passes.MAX_LANES, 1 << int(np.log2(col_passes.IN_PLACE_TILE_POINTS // L)))
+            assert blocks_by_shared(g) >= 2 and blocks_by_threads(g) >= 2
+        else:
+            assert g.buffers == 2 and g.smem_bytes == 2 * buffer <= row_passes.SMEM_LIMIT
             narrow = min(col_passes.MAX_LANES, 1 << int(np.log2(col_passes.TILE_POINTS // L)))
             wide = min(col_passes.MAX_LANES, 1 << int(np.log2(col_passes.WIDE_TILE_POINTS // L)))
             want = narrow if narrow * segment >= col_passes.SECTOR_BYTES else min(wide, col_passes.SECTOR_BYTES // segment)
             assert g.lanes == want
             assert g.lanes * segment >= col_passes.SECTOR_BYTES or g.lanes == wide
-            assert g.smem_bytes == 2 * (L * g.lanes + L * g.lanes // 32) * 8 <= row_passes.SMEM_LIMIT
             if L * g.lanes <= col_passes.TILE_POINTS:
-                assert g.threads <= col_passes.NARROW_THREADS
-                assert col_passes.blocks_by_shared(g) >= 3 and col_passes.blocks_by_threads(g) >= 3
+                assert g.shape == 0 and g.threads <= col_passes.NARROW_THREADS
+                assert blocks_by_shared(g) >= 3 and blocks_by_threads(g) >= 3
             else:
-                assert col_passes.blocks_by_shared(g) >= 1
-            assert g.grid == batch * -(-cols // g.lanes)
-            assert len(g.flat_passes) == 2 * len(g.passes)
+                assert g.shape == 1 and blocks_by_shared(g) >= 1
+        assert g.grid == batch * -(-cols // g.lanes)
+        assert len(g.flat_passes) == 2 * len(g.passes)
+
+
+def test_in_place_roles():
+    """The wrappers' choice of tile per kernel (PERF.md, PR 7)."""
+    assert hc.in_place_role(hc.K6_L1, 2) and hc.in_place_role(hc.K6_L2, 1) and hc.in_place_role(hc.K6_L2_REV, 2)
+    assert not hc.in_place_role(hc.K6_L2_REV, 1) and not hc.in_place_role(hc.K6_L1_REV, 2)
+    assert not hc.in_place_role(hc.K7B, 1)
+    assert col_passes.in_place_plan(1024, col_passes.pass_plan(ct.cached_plan(1024).radices))
+    assert not col_passes.in_place_plan(48, col_passes.pass_plan(ct.cached_plan(48).radices))  # last pass (3,1)
+    assert not col_passes.in_place_plan(1000, col_passes.pass_plan(ct.cached_plan(1000).radices))  # 16 does not divide
 
 
 @pytest.mark.parametrize("radices,passes", [
@@ -137,9 +167,9 @@ def test_pass_twiddles_are_float64_roots(n, kind):
 
 def test_geometry_refuses_what_does_not_fit():
     with pytest.raises(ValueError):
-        col_passes.launch_geometry(ct.cached_plan(16384, ct.FFT_COMPLEX), 1, 1)
+        col_passes.launch_geometry(ct.cached_plan(16384, ct.FFT_COMPLEX), 1, 1, 8, False)
     with pytest.raises(ValueError):
-        col_passes.launch_geometry(ct.cached_plan(2, ct.FFT_REAL), 1, 1)  # one point
+        col_passes.launch_geometry(ct.cached_plan(2, ct.FFT_REAL), 1, 1, 4, False)  # one point
 
 
 # ---------------------------------------------------------------------------

@@ -45,13 +45,10 @@ def main():
     log(card)
     DEV.mkdir(parents=True, exist_ok=True)
     p_old, old_path = build("old", DEV / "old" / "composite_fft.cu", ())
-    p_big, big_path = build("bfast1", ROOT / "chowdsp_fft_tpu_torch" / "csrc" / "composite_fft.cu",
-                            ("-DCHOWDSP_COL_BFAST=1",))
-    p_b2, b2_path = build("bfast2", ROOT / "chowdsp_fft_tpu_torch" / "csrc" / "composite_fft.cu",
-                          ("-DCHOWDSP_COL_BFAST=2",))
+
     lib_path = _cuda.build()
     lib = _cuda.library()
-    for p in (p_old, p_big, p_b2):
+    for p in (p_old,):
         _, err = p.communicate()
         assert p.returncode == 0, err[-3000:]
     for name in ("column_passes_kernel", "irfft_col_passes_kernel"):
@@ -61,13 +58,6 @@ def main():
     for name in ("k6_l1", "k6_l2", "k6_l2_rev", "k6_l1_rev"):
         getattr(old, name).argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P]
     old.k7b_irfft_cols.argtypes = [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P]
-    big = ctypes.CDLL(str(big_path))
-    b2 = ctypes.CDLL(str(b2_path))
-    for v in (big, b2):
-        for fn, argtypes in _cuda._SIGNATURES.items():
-            if hasattr(v, fn):
-                getattr(v, fn).argtypes = argtypes
-                getattr(v, fn).restype = ctypes.c_int
 
     dev = torch.device("cuda", 0)
     torch.manual_seed(5)
@@ -133,24 +123,30 @@ def main():
     real_library = _cuda.library
 
     def use(variant):
-        _cuda.library = {"bfast1": lambda: big, "bfast2": lambda: b2}.get(variant, real_library)
+        col_passes.IN_PLACE = variant == "inplace"
+        col_passes._tile.cache_clear()
 
     for key, (new, old_fn) in cases.items():
         t = {}
         t["old1"] = cs.graph_time_ms(old_fn, args)
         use("new")
         t["new1"] = cs.graph_time_ms(new, args)
-        use("bfast1")
-        t["bf1"] = cs.graph_time_ms(new, args)
-        use("bfast2")
-        t["bf2"] = cs.graph_time_ms(new, args)
+        use("inplace")
+        t["ip1"] = cs.graph_time_ms(new, args)
+        t["ip2"] = cs.graph_time_ms(new, args)
         use("new")
         t["new2"] = cs.graph_time_ms(new, args)
         t["old2"] = cs.graph_time_ms(old_fn, args)
         log(f"A/B {key}: old {t['old1']:.4f} / {t['old2']:.4f}, new {t['new1']:.4f} / {t['new2']:.4f}, "
-            f"batch-fastest tiles (twiddle roles) {t['bf1']:.4f}, (all) {t['bf2']:.4f} [{card}]")
+            f"in place {t['ip1']:.4f} / {t['ip2']:.4f} [{card}]")
 
-    use("new")
+    for variant in ("inplace", "new"):
+        use(variant)
+        sweep_all(dev, log, variant)
+    log("done")
+
+
+def sweep_all(dev, log, variant):
     worst = {}
     cl, ra = hc.column_lengths()
     for L in cl:
@@ -182,8 +178,7 @@ def main():
         if err > bound:
             log(f"FAIL k7b A={A}: {err:.3e} > {bound:.3e}")
     torch.cuda.synchronize()
-    log("all lengths: worst err/bound " + ", ".join(f"{k} {v:.4f}" for k, v in worst.items()))
-    log("done")
+    log(f"{variant} all lengths: worst err/bound " + ", ".join(f"{k} {v:.4f}" for k, v in worst.items()))
 
 
 if __name__ == "__main__":
