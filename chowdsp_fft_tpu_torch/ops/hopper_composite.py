@@ -288,8 +288,6 @@ def _require_real_cols(kernel: Kernel, plan: FFTPlan):
     require_domain(kernel, plan.kind == FFT_REAL and _col_ok(plan.n), plan.n, plan.kind)
 
 
-
-
 def rfft_cols(x: torch.Tensor, plan: FFTPlan):
     """K7a on (B, A, C) f32, A = plan.n -> ((B, C, A/2), (B, C, A/2))."""
     _require_real_cols(K7A, plan)
