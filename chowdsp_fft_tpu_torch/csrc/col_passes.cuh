@@ -67,20 +67,16 @@ constexpr int kColMaxLanes = 16;  // ops/col_passes.MAX_LANES
 // 256 and keep three blocks an SM (80 registers a thread); wide tiles
 // (WIDE_TILE_POINTS) at most 512, one block an SM (ops/col_passes.MAX_THREADS).
 constexpr int kColNarrowThreads = 256;
-#ifndef CHOWDSP_COL_INPLACE_THREADS
-#define CHOWDSP_COL_INPLACE_THREADS 512
-#endif
-constexpr int kColInPlaceThreads = CHOWDSP_COL_INPLACE_THREADS;
-constexpr int kColMaxThreads = kColInPlaceThreads > 512 ? kColInPlaceThreads : 512;
+constexpr int kColMaxThreads = 512;
 // The kernels' three shapes: narrow and wide tiles between two buffers,
 // and in-place tiles (one buffer, 512 threads, two blocks an SM at 64
 // registers) for plans whose passes between the first and the last are
 // all (4,4) (ops/col_passes.in_place_plan).
 enum { kColNarrow = 0, kColWide = 1, kColInPlace = 2 };
 template <int SHAPE>
-constexpr int col_threads() { return SHAPE == kColNarrow ? kColNarrowThreads : SHAPE == kColWide ? 512 : kColInPlaceThreads; }
+constexpr int col_threads() { return SHAPE == kColNarrow ? kColNarrowThreads : kColMaxThreads; }
 template <int SHAPE>
-constexpr int col_min_blocks() { return SHAPE == kColNarrow ? 3 : SHAPE == kColWide ? 1 : 1024 / kColInPlaceThreads; }
+constexpr int col_min_blocks() { return SHAPE == kColNarrow ? 3 : SHAPE == kColWide ? 1 : 2; }
 
 // A tile buffer in shared memory: point i of column j at slot((i << ls) + j).
 struct TileBuf {
