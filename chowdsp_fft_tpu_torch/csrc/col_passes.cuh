@@ -38,7 +38,7 @@
 //     (135 KB, one block an SM) where a narrow tile's columns would move
 //     less than a 32-byte sector a row and plane. In place, for plans whose
 //     passes between the first and the last are all (4,4) (every power of
-//     two): one buffer, each thread's one butterfly held in registers across
+//     two from 32): one buffer, each thread's one butterfly held in registers across
 //     the barrier between the pass's reads and writes; 8192 points, 512
 //     threads and 64 registers, two blocks an SM, twice the columns of a
 //     narrow tile. The wrappers pick the shape by role
@@ -48,8 +48,10 @@
 //     once) multiplied: R0 + R1 - 2 loads a butterfly instead of P - 1.
 // Tried on the H100 and left out (development runs, PERF.md): every pass
 // kind in place (a thread's ceil(16/P) butterflies held across the
-// barrier): with the 12 kinds in one kernel ptxas spilled 5-10 KB at 64 or
-// 128 registers and the kernels ran 2-5x slower than the stage engine. An
+// barrier): with the 12 kinds in one kernel ptxas emitted 8-24 KB of spill
+// code at 64 or 128 registers and the kernels ran 2-5x slower than the
+// stage engine. In-place tiles of 16384 points (1024 threads) were no
+// faster than 8192. An
 // L2 prefetch of the next tile (cp.async.bulk.prefetch) and tiles ordered
 // batch row fastest did not help overall.
 // The launch geometry (pass plan, tile, threads, shared bytes, grid) is
@@ -64,8 +66,9 @@ namespace {
 
 constexpr int kColMaxLanes = 16;  // ops/col_passes.MAX_LANES
 // Threads a block: narrow tiles (ops/col_passes.TILE_POINTS) take at most
-// 256 and keep three blocks an SM (80 registers a thread); wide tiles
-// (WIDE_TILE_POINTS) at most 512, one block an SM (ops/col_passes.MAX_THREADS).
+// 256 and keep three blocks an SM (80 registers a thread); wide and
+// in-place tiles (WIDE_TILE_POINTS, IN_PLACE_TILE_POINTS) at most 512
+// (ops/col_passes.MAX_THREADS), one or two blocks an SM.
 constexpr int kColNarrowThreads = 256;
 constexpr int kColMaxThreads = 512;
 // The kernels' three shapes: narrow and wide tiles between two buffers,
