@@ -293,6 +293,81 @@ def k1_domain(ct, hf, tables, dev, rng) -> tuple[float, dict[str, float]]:
     return worst, caught
 
 
+def k2_k3_domain(ct, hf, tables, dev, rng) -> tuple[dict[str, float], dict[str, float]]:
+    """K2 and K3 at every size of their domain, at 1, DOMAIN_ROWS[1] and
+    DOMAIN_ROWS[2] rows, both orders: K2 on the float64 packed spectra of
+    unit-scale rows (out / N against the rows), K3 on the same spectra
+    with a shared and a batched B (scale 1/N: against the float64 circular
+    convolution), each within 2e-7*N of its plain version and of float64,
+    and bit-equal on 8-byte aligned views. A zeroed output and an input
+    without its Nyquist bins must fail the same check. Returns each
+    kernel's worst error against its plain version and how far each
+    broken output fails (error / bound)."""
+    worst = {hf.K2.name: 0.0, hf.K3.name: 0.0}
+    caught: dict[str, float] = {}
+    sizes = [n for n in range(257, hf.MAX_N + 1) if hf._in_domain(n)]
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    for n in sizes:
+        plan = ct.cached_plan(n, ct.FFT_REAL)
+        bound = TOL * n
+        for rows in (1, *DOMAIN_ROWS[1:]):
+            x64 = rng.standard_normal((rows, n)).astype(np.float32).astype(np.float64)
+            h64 = (rng.standard_normal((rows, n)) / np.sqrt(n)).astype(np.float32).astype(np.float64)
+            ref_re, ref_im = packed_ref(x64)
+            h_re, h_im = packed_ref(h64)
+            xt = on_dev(x64)
+            x_spec = np.fft.rfft(x64)
+            wants = {b_rows: torch.from_numpy(np.fft.irfft(x_spec * np.fft.rfft(h64[:b_rows]), n=n)).to(dev)
+                     for b_rows in (1, rows)}
+            for ordered in (True, False):
+                sel = slice(None) if ordered else tables.unordered_perm(n)
+                tag = f"N={n} rows={rows} ordered={ordered}"
+                re, im = on_dev(ref_re[:, sel]), on_dev(ref_im[:, sel])
+                back = hf.irfft_packed_kernel(re, im, plan, ordered)
+                e_plain = max_err(back / n, hf.irfft_packed_plain(re, im, plan, ordered) / n)
+                e64 = max_err(back / n, xt)
+                worst[hf.K2.name] = max(worst[hf.K2.name], e_plain)
+                require(max(e_plain, e64) <= bound, f"K2 {tag}: {e_plain:.3e} vs plain, {e64:.3e} vs float64 > "
+                        f"{bound:.3e}")
+                require(torch.equal(hf.irfft_packed_kernel(view8(re), view8(im), plan, ordered), back),
+                        f"K2 {tag}: the 8-byte aligned view differs")
+                if rows == DOMAIN_ROWS[-1]:
+                    no_nyq = im.clone()
+                    no_nyq[:, 0] = 0  # im[0]: the Nyquist bin, position 0 in both layouts
+                    for key, out in (("zeroed K2", torch.zeros_like(back)),
+                                     ("K2 without its Nyquist bins", hf.irfft_packed_kernel(re, no_nyq, plan, ordered))):
+                        err = max_err(out / n, xt)
+                        require(err > bound, f"{key} {tag}: the check passes a broken output ({err:.3e})")
+                        caught[key] = min(caught.get(key, np.inf), err / bound)
+                hre, him = on_dev(h_re[:, sel]), on_dev(h_im[:, sel])
+                for b_rows in (1, rows):
+                    b = (hre[:b_rows].contiguous(), him[:b_rows].contiguous())
+                    want = wants[b_rows]
+                    y = hf.convolve_irfft_packed_kernel(re, im, *b, 1.0 / n, plan, ordered)
+                    e_plain = max_err(y, hf.convolve_irfft_packed_plain(re, im, *b, 1.0 / n, plan, ordered))
+                    e64 = max_err(y, want)
+                    worst[hf.K3.name] = max(worst[hf.K3.name], e_plain)
+                    require(max(e_plain, e64) <= bound, f"K3 {tag} B rows={b_rows}: {e_plain:.3e} vs plain, "
+                            f"{e64:.3e} vs float64 > {bound:.3e}")
+                    require(torch.equal(hf.convolve_irfft_packed_kernel(view8(re), view8(im), *map(view8, b),
+                                                                        1.0 / n, plan, ordered), y),
+                            f"K3 {tag} B rows={b_rows}: the 8-byte aligned views differ")
+                    if rows == DOMAIN_ROWS[-1] and b_rows == 1:
+                        err = max_err(torch.zeros_like(y), want)
+                        require(err > bound, f"zeroed K3 {tag}: the check passes a broken output ({err:.3e})")
+                        caught["zeroed K3"] = min(caught.get("zeroed K3", np.inf), err / bound)
+    torch.cuda.synchronize()
+    log(f"phase 2 K2, K3: all {len(sizes)} sizes N={sizes[0]}..{sizes[-1]} at 1, {DOMAIN_ROWS[1]} and "
+        f"{DOMAIN_ROWS[2]} rows, both orders, K3 with a shared and a batched B, 8-byte aligned views: within "
+        f"2e-7*N of the plain versions and float64 (worst vs plain "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + "); a broken output fails by at least "
+        + ", ".join(f"{r:.0f}x its bound ({tag})" for tag, r in caught.items()))
+    return worst, caught
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: BASELINE config 3
 # ---------------------------------------------------------------------------
@@ -1335,6 +1410,17 @@ def phase18(ct, hf, hc4, lib, dev, rng, model_calls: dict) -> tuple[dict[str, fl
         x = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(dev)
         for ordered in (True, False):
             real_case(x, n, ordered, f"real N={n} rows={rows} {'ord' if ordered else 'unord'}")
+    # K2-db against K2 at every size of phase 2's sweep, at its rows.
+    sweep = [n for n in range(257, hf.MAX_N + 1) if hf._in_domain(n)]
+    for n in sweep:
+        plan = ct.cached_plan(n, ct.FFT_REAL)
+        for rows in (1, *DOMAIN_ROWS[1:]):
+            x = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(dev)
+            for ordered in (True, False):
+                re, im = hf.rfft_packed_kernel(x, plan, ordered)
+                require(torch.equal(hf.irfft_packed_db_kernel(re, im, plan, ordered),
+                                    hf.irfft_packed_kernel(re, im, plan, ordered)),
+                        f"K2-db differs from K2 at N={n} rows={rows} ordered={ordered}")
     (frames, plan8k, ordered), (yre, yim) = model_calls["k1"]
     n8k, m8k = plan8k.n, plan8k.n // 2
     for order in (True, False):
@@ -1380,7 +1466,8 @@ def phase18(ct, hf, hc4, lib, dev, rng, model_calls: dict) -> tuple[dict[str, fl
     launches = {k.name: k.launches for k in db}
     require(all(v > 0 for v in launches.values()), f"pipelined run launches {launches}")
     log(f"phase 18 ok: K1-db, K2-db, K4-db torch.equal to K1, K2, K4 at every shape (config 4's frames and "
-        f"spectra: the model's own outputs); worst vs plain " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        f"spectra: the model's own outputs; K2-db also at all {len(sweep)} sizes of phase 2's sweep, both orders, "
+        f"{', '.join(map(str, (1, *DOMAIN_ROWS[1:])))} rows); worst vs plain " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + "; a zeroed output fails by at least " + ", ".join(f"{r:.0f}x ({k})" for k, r in caught.items())
         + f"; blocks per SM {blocks_per_sm}; pipelined run launches {launches}")
     return worst, launches
@@ -1450,36 +1537,65 @@ def phase19(ct, hf, hc4, roof, row_passes, lib, models, stream, dev, card, audio
                                            lambda v: hc4.cfft_plain(v, plan, True, True), zs, d)
         del zs
 
-    # K1 and K4 at the shapes their paths give them, each beside its
-    # torch.fft call: config 4's frames, the STFT's frames (n_fft 1024 on
-    # the same audio), the C=1024 channelizer's backward transform.
+    # K1-K4 at the shapes their paths give them, each beside its
+    # torch.fft call (K3 beside the inverse alone: no single call computes
+    # it): config 4's frames and accumulated spectra, the STFT's frames
+    # (n_fft 1024 on the same audio), config 3's fir_filter_ols (block
+    # 8192: K3 at N=16384 on 512 rows, a shared filter) and its
+    # partitioned_fir_apply at block 1024 (K2 at N=2048), the C=1024
+    # channelizer's backward transform.
+    def irfft_lib(n):
+        return lambda c: torch.fft.irfft(c, n=n, norm="forward")
+
+    def spectra(plan, rows):
+        """Unordered packed planes of unit-scale rows, and their complex
+        spectra for the library call."""
+        v = torch.randn(rows, plan.n, device=dev)
+        return [hf.rfft_packed_kernel(v, plan, False)], [(torch.fft.rfft(v),)]
+
     rplan4k = ct.cached_plan(STFT[0], ct.FFT_REAL)
     stft_rows = audio.shape[0] * -(-(audio.shape[1] + STFT[0] - STFT[1]) // STFT[1])  # 64 x 939 frames
+    ols_plan = ct.cached_plan(2 * 8192, ct.FFT_REAL)
+    ols_rows = CONFIG3["streams"] * CONFIG3["samples"] // 8192
+    ols_args, ols_lib = spectra(ols_plan, ols_rows)
+    ols_filt = tuple(t[:1].contiguous() for t in spectra(ols_plan, 1)[0][0])
+    pfir_plan = ct.cached_plan(2 * 1024, ct.FFT_REAL)
+    pfir_args, pfir_lib = spectra(pfir_plan, CONFIG3["streams"] * CONFIG3["samples"] // 1024)
+    acc_lib = [(torch.fft.rfft(torch.randn(are.shape[0], plan8k.n, device=dev)),)]
+    c_plan = ct.cached_plan(K4_PATH[0], ct.FFT_COMPLEX)
     paths = (
         ("K1 config 4 frames", plan8k, [(frames,)], lambda v: hf.rfft_packed_kernel(v, plan8k, ordered),
-         lambda v: hf.rfft_packed_plain(v, plan8k, ordered), lambda v: torch.fft.rfft(v)),
+         lambda v: hf.rfft_packed_plain(v, plan8k, ordered), lambda v: torch.fft.rfft(v), None),
+        ("K2 config 4 accumulated spectra", plan8k, [(are, aim)],
+         lambda r, i: hf.irfft_packed_kernel(r, i, plan8k, k2_ordered),
+         lambda r, i: hf.irfft_packed_plain(r, i, plan8k, k2_ordered), irfft_lib(plan8k.n), acc_lib),
         ("K1 STFT frames", rplan4k, [(torch.randn(stft_rows, STFT[0], device=dev),)],
          lambda v: hf.rfft_packed_kernel(v, rplan4k), lambda v: hf.rfft_packed_plain(v, rplan4k),
-         lambda v: torch.fft.rfft(v)),
-        ("K4 channelizer backward", ct.cached_plan(K4_PATH[0], ct.FFT_COMPLEX),
-         [(torch.randn(K4_PATH[1], K4_PATH[0], dtype=torch.complex64, device=dev),)],
-         lambda v: hc4.cfft_kernel(v, ct.cached_plan(K4_PATH[0], ct.FFT_COMPLEX), False, True),
-         lambda v: hc4.cfft_plain(v, ct.cached_plan(K4_PATH[0], ct.FFT_COMPLEX), False, True),
-         lambda v: torch.fft.ifft(v, norm="forward")),
+         lambda v: torch.fft.rfft(v), None),
+        ("K3 config 3 fir_filter_ols", ols_plan, ols_args,
+         lambda r, i: hf.convolve_irfft_packed_kernel(r, i, *ols_filt, 1.0 / ols_plan.n, ols_plan, False),
+         lambda r, i: hf.convolve_irfft_packed_plain(r, i, *ols_filt, 1.0 / ols_plan.n, ols_plan, False),
+         irfft_lib(ols_plan.n), ols_lib),
+        ("K2 config 3 block 1024", pfir_plan, pfir_args, lambda r, i: hf.irfft_packed_kernel(r, i, pfir_plan, False),
+         lambda r, i: hf.irfft_packed_plain(r, i, pfir_plan, False), irfft_lib(pfir_plan.n), pfir_lib),
+        ("K4 channelizer backward", c_plan, [(torch.randn(K4_PATH[1], K4_PATH[0], dtype=torch.complex64, device=dev),)],
+         lambda v: hc4.cfft_kernel(v, c_plan, False, True), lambda v: hc4.cfft_plain(v, c_plan, False, True),
+         lambda v: torch.fft.ifft(v, norm="forward"), None),
     )
-    for name, plan, args, fn, plain, library in paths:
+    for name, plan, args, fn, plain, library, library_args in paths:
         rows = args[0][0].shape[0]
-        tm = kernel_times(fn, plain, args, library)
+        tm = kernel_times(fn, plain, args, library, library_args)
         out[name] = tm
         g = row_passes.launch_geometry(plan, rows)
-        blocks = (lib.hopper_real_fft_blocks_per_sm if plan.kind == ct.FFT_REAL
-                  else lib.hopper_complex_fft_blocks_per_sm)(g.threads, g.smem_bytes)
+        which = 2 if name.startswith("K2") else 3 if name.startswith("K3") else 1
+        blocks = (lib.hopper_real_fft_blocks_per_sm(which, g.threads, g.smem_bytes) if plan.kind == ct.FFT_REAL
+                  else lib.hopper_complex_fft_blocks_per_sm(g.threads, g.smem_bytes))
         bound = roof.fft_roofline(plan.n, rows, plan.kind)
         log_times(19, name, f"N={plan.n} B={rows}", tm, card)
         log(f"phase 19 {name}: device/bound {tm['device_ms'] / bound.ms:.2f}, device/library "
             f"{tm['device_ms'] / tm['library_device_ms']:.2f}; geometry {g.passes}, {g.rows_per_block} rows and "
             f"{g.threads} threads a block, {g.smem_bytes} B; {blocks} resident blocks per SM")
-    del paths
+    del paths, ols_args, ols_lib, pfir_args, pfir_lib, acc_lib
 
     channels, t = audio.shape
     conv = models.MultichannelConvolver(ir, models.ConvolverConfig(channels=channels, block=CONFIG4_BLOCK))
@@ -1531,11 +1647,11 @@ def main() -> int:
                        hopper_small.POINTS_PER_THREAD, row_passes.POINTS_PER_THREAD),
             f"kernel limits (MAX_N, MAX_CN, MAX_SMALL_N, MAX_COL, K5 POINTS_PER_THREAD, K1/K4 POINTS_PER_THREAD) "
             f"{limits} differ from Python's")
-    # ptxas's registers and spills of the row engine's kernels (K1, K4 and
+    # ptxas's registers and spills of the row engine's kernels (K1-K4 and
     # their pipelined forms) and the column engine's (K6's four roles, K7b),
     # as the build recorded them.
-    for mangled in ("18rfft_packed_kernel", "11cfft_kernel", "14rfft_db_kernel", "14cfft_db_kernel",
-                    "20column_passes_kernel", "23irfft_col_passes_kernel"):
+    for mangled in ("18rfft_packed_kernel", "19irfft_packed_kernel", "11cfft_kernel", "14rfft_db_kernel",
+                    "15irfft_db_kernel", "14cfft_db_kernel", "20column_passes_kernel", "23irfft_col_passes_kernel"):
         for line in _cuda.kernel_resources(lib_path, mangled):
             log(f"phase 1 ptxas {mangled[2:]}: {line}")
     tiles = {pts: lib.hopper_composite_col_tile(pts) for pts in (256, 512, 1024, 2048)}
@@ -1556,6 +1672,7 @@ def main() -> int:
             for k, v in sorted(errs.items()):
                 log(f"  {k}: {v:.3e}")
     k1_worst, _ = k1_domain(ct, hf, tables, dev, rng)
+    k23_worst, _ = k2_k3_domain(ct, hf, tables, dev, rng)
     log("phase 2 ok")
 
     # -- phase 3 ------------------------------------------------------------
@@ -1622,13 +1739,17 @@ def main() -> int:
     for name, t in times.items():
         log_times(5, name, f"N={n} B={rows} unordered", t, card)
     g = row_passes.launch_geometry(plan, rows)
-    log(f"phase 5 {hf.K1.name} geometry: {g.passes}, {g.rows_per_block} rows and {g.threads} threads a block, "
-        f"{g.smem_bytes} B; {lib.hopper_real_fft_blocks_per_sm(g.threads, g.smem_bytes)} resident blocks per SM")
+    for which, k in enumerate((hf.K1, hf.K2, hf.K3), start=1):
+        log(f"phase 5 {k.name} geometry: {g.passes}, {g.rows_per_block} rows and {g.threads} threads a block, "
+            f"{g.smem_bytes} B; {lib.hopper_real_fft_blocks_per_sm(which, g.threads, g.smem_bytes)} resident "
+            f"blocks per SM")
 
     errs = {k.name: max(v for key, v in headline_err.items()
                         if key.startswith(prefix) and key.endswith("twin"))
             for k, prefix in ((hf.K1, "k1"), (hf.K2, "k2"), (hf.K3, "k3"))}
     errs[hf.K1.name] = max(errs[hf.K1.name], k1_worst)
+    for name, worst in k23_worst.items():
+        errs[name] = max(errs[name], worst)
 
     # -- phase 6 ------------------------------------------------------------
     errs.update(phase6(ct, hopper_cfft, hopper_small, tables, dev, rng))

@@ -23,12 +23,13 @@
 //   * the load of row r+G is issued while row r computes: 16-byte
 //     cp.async.cg copies into an unpadded landing buffer (4N B for K1 and
 //     K2, 8N B for K4), waited for (cp.async.wait_group 0, then a barrier)
-//     only when row r+G starts. K1 and K4 (row_passes.cuh) issue it as soon
-//     as their first pass has read the landing buffer into registers (or,
-//     for K4's backward unordered rows, scattered it into the work buffer);
-//     K2 after its permuted scatter into the padded work buffers (a 16-byte
-//     copy cannot land in the padded layout: slot(i) = i + i/32 misaligns
-//     every odd group of 32 float2);
+//     only when row r+G starts. All three run the row engine
+//     (row_passes.cuh) and issue it as soon as the landing buffer has been
+//     read: K1 and K4 after their first pass has read it into registers
+//     (K4's backward unordered rows after their scatter into the work
+//     buffer), K2 after its first exchange has scattered the planes into
+//     the padded work buffer (a 16-byte copy cannot land in the padded
+//     layout: slot(i) = i + i/32 misaligns every odd group of 32 float2);
 //   * outputs are the grid forms' stores.
 //   * K4 above 9216 points: two padded buffers and a landing buffer
 //     (24.5N B) exceed the 227 KB a block may use, so the next row is
@@ -53,12 +54,12 @@ constexpr int kMaxCN = CHOWDSP_MAX_CN;
 
 // K1-db, K2-db: two padded N/2-point buffers and an N-float landing buffer.
 constexpr int rfft_db_smem(int n) { return row_smem_bytes(n / 2, 1) + 4 * n; }
-constexpr int irfft_db_smem(int n) { return two_buffers_bytes(n / 2) + 4 * n; }
+constexpr int irfft_db_smem(int n) { return row_smem_bytes(n / 2, 1) + 4 * n; }
 // K4-db lands rows in shared memory where the 8N B landing buffer fits
 // beside the two padded buffers, else prefetches them into registers.
 constexpr bool cfft_lands(int n) { return row_smem_bytes(n, 1) + 8 * n <= kMaxSmemBytes; }
 constexpr int cfft_db_smem(int n) { return row_smem_bytes(n, 1) + (cfft_lands(n) ? 8 * n : 0); }
-constexpr int kMaxK1DbThreads = 512;  // M/16 at MAX_N: 128 registers a thread
+constexpr int kMaxK1DbThreads = 512;  // K1-db, K2-db: M/16 at MAX_N, 128 registers a thread
 static_assert(rfft_db_smem(kMaxN) <= kMaxSmemBytes, "K1-db at MAX_N exceeds shared memory");
 static_assert(kMaxN / 2 / kRowPoints <= kMaxK1DbThreads, "K1-db at MAX_N exceeds its threads a block");
 static_assert(irfft_db_smem(kMaxN) <= kMaxSmemBytes, "K2-db at MAX_N exceeds shared memory");
@@ -115,13 +116,11 @@ __device__ __forceinline__ void fetch_planes(float* land, const float* yre, cons
   copy_async(land + M, yim + static_cast<size_t>(row) * M, 4 * M);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-irfft_db_kernel(const float* __restrict__ yre, const float* __restrict__ yim,
-                float* __restrict__ x, int rows, int n, Radices rad,
-                const float2* __restrict__ stage_tw, const float2* __restrict__ split_tw,
+__global__ void __launch_bounds__(kMaxK1DbThreads)
+irfft_db_kernel(const float* __restrict__ yre, const float* __restrict__ yim, float* __restrict__ x, int rows,
+                int n, Passes ps, const float2* __restrict__ tw, const float2* __restrict__ split_tw,
                 const int* __restrict__ perm) {
   extern __shared__ __align__(16) float2 smem[];
-  __shared__ float nyq;
   const int M = n / 2;
   float* land = reinterpret_cast<float*>(smem);
   float2* a = smem + M;
@@ -132,11 +131,13 @@ irfft_db_kernel(const float* __restrict__ yre, const float* __restrict__ yim,
   cp_async_commit();
   for (; row < rows; row += G) {
     cp_async_wait_all();
-    __syncthreads();
-    irfft_row_load<false>(land, land + M, nullptr, nullptr, 1.0f, perm, a, &nyq, M);
-    if (row + G < rows) fetch_planes(land, yre, yim, row + G, M);
-    cp_async_commit();
-    irfft_row_finish(a, b, M, &nyq, rad, stage_tw, split_tw, x + static_cast<size_t>(row) * n);
+    __syncthreads();  // the row has landed; the previous row's passes are done with a and b
+    const int next = row + G;
+    irfft_row<false>(land, land + M, nullptr, nullptr, 1.0f, perm, a, b, M, ps, tw, split_tw,
+                     x + static_cast<size_t>(row) * n, true, threadIdx.x, blockDim.x, [&] {
+                       if (next < rows) fetch_planes(land, yre, yim, next, M);
+                       cp_async_commit();
+                     });
   }
 }
 
@@ -221,10 +222,13 @@ int persistent_grid(K kernel, int threads, int smem, int rows, int* grid) {
   return 0;
 }
 
-int real_setup(int n, const int* radices, int nstages, Radices* rad) {
-  // Rows of N floats and of N/2 floats are whole 16-byte copies.
+// K1-db, K2-db: N of the domain's form (rows of N floats and of N/2
+// floats are whole 16-byte copies), the radices and the pass plan.
+int real_setup(int n, const int* radices, int nstages, const int* passes, int npasses, Passes* ps) {
   if (n < 16 || n > kMaxN || n % 8) return static_cast<int>(cudaErrorInvalidValue);
-  return make_radices(radices, nstages, rad);
+  Radices rad;
+  const int err = make_radices(radices, nstages, &rad);
+  return err ? err : check_passes(passes, npasses, rad, n / 2, ps);
 }
 
 template <int SIGN, int MAXT, bool LAND>
@@ -268,7 +272,7 @@ int hopper_pipelined_blocks_per_sm(int which, int n) {
   int err = static_cast<int>(cudaErrorInvalidValue);
   if ((which == 1 || which == 2) && n >= 16 && n <= kMaxN && n % (2 * kRowPoints) == 0) {
     err = which == 1 ? blocks_at(rfft_db_kernel, n / 2 / kRowPoints, rfft_db_smem(n), &per_sm)
-                     : blocks_at(irfft_db_kernel, threads_for(n / 2), irfft_db_smem(n), &per_sm);
+                     : blocks_at(irfft_db_kernel, n / 2 / kRowPoints, irfft_db_smem(n), &per_sm);
   } else if (which == 4 && n >= 16 && n <= kMaxCN && n % kRowPoints == 0) {
     const int threads = n / kRowPoints;
     if (threads <= 512)
@@ -286,11 +290,8 @@ int hopper_pipelined_blocks_per_sm(int which, int n) {
 int k1db_rfft_packed(const float* x, float* yre, float* yim, int ystride, int rows, int n,
                      const int* radices, int nstages, const int* passes, int npasses, const void* tw,
                      const void* split_tw, const int* perm, void* stream) {
-  Radices rad;
-  int err = real_setup(n, radices, nstages, &rad);
-  if (err) return err;
   Passes ps;
-  err = check_passes(passes, npasses, rad, n / 2, &ps);
+  int err = real_setup(n, radices, nstages, passes, npasses, &ps);
   if (err) return err;
   if (ystride < n / 2 || !aligned16(x)) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
@@ -306,24 +307,26 @@ int k1db_rfft_packed(const float* x, float* yre, float* yim, int ystride, int ro
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2-db. yre and yim must be 16-byte aligned.
-int k2db_irfft_packed(const float* yre, const float* yim, float* x, int rows, int n,
-                      const int* radices, int nstages, const void* stage_tw,
-                      const void* split_tw, const int* perm, void* stream) {
-  Radices rad;
-  int err = real_setup(n, radices, nstages, &rad);
+// K2-db; k2_irfft_packed's arguments without the launch geometry (one
+// row a block, M/16 threads, a persistent grid). yre and yim must be
+// 16-byte aligned.
+int k2db_irfft_packed(const float* yre, const float* yim, float* x, int rows, int n, const int* radices,
+                      int nstages, const int* passes, int npasses, const void* tw, const void* split_tw,
+                      const int* perm, void* stream) {
+  Passes ps;
+  int err = real_setup(n, radices, nstages, passes, npasses, &ps);
   if (err) return err;
-  if (!aligned16(yre) || !aligned16(yim)) return static_cast<int>(cudaErrorInvalidValue);
+  if (ps.count < 2 || !aligned16(yre) || !aligned16(yim) || (perm && !aligned16(perm)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
-  err = set_smem(irfft_db_kernel, irfft_db_smem(kMaxN));
+  err = set_smem(irfft_db_kernel, irfft_db_smem(n));
   if (err) return err;
-  const int threads = threads_for(n / 2);
+  const int threads = n / 2 / kRowPoints;
   int grid = 0;
   err = persistent_grid(irfft_db_kernel, threads, irfft_db_smem(n), rows, &grid);
   if (err) return err;
   irfft_db_kernel<<<grid, threads, irfft_db_smem(n), static_cast<cudaStream_t>(stream)>>>(
-      yre, yim, x, rows, n, rad, static_cast<const float2*>(stage_tw),
-      static_cast<const float2*>(split_tw), perm);
+      yre, yim, x, rows, n, ps, static_cast<const float2*>(tw), static_cast<const float2*>(split_tw), perm);
   return static_cast<int>(cudaGetLastError());
 }
 

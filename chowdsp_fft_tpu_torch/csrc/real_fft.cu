@@ -20,22 +20,26 @@
 // L2-resident) and writes 4N B. The arithmetic is O(N log N) flops per row,
 // far below the H100's flop/byte balance.
 //
-// Design. K1 runs the register-resident pass engine (row_passes.cuh): the
-// row is read once from device memory as N/2 complex points (x[2m] +
-// i x[2m+1]) straight into the first pass's registers, the half-length
-// FFT runs as the plan's stages fused in pairs, each pass exchanging
-// through two padded shared buffers (8.25N bytes per row), and the last
-// exchange's reads do the half-complex split and the unordered gather and
-// store both planes with float4 stores. Several rows share a block where
-// a row is small (ops/row_passes.launch_geometry; the C entry checks the
-// geometry again). K2/K3 stage the packed planes in shared memory (the
-// unordered scatter inside shared memory, never in device memory), merge,
-// and run the plan's mixed-radix {4,2,3,5} Stockham stages (stockham.cuh)
-// between two padded shared buffers (8.25N bytes per block, so
-// N <= 16384 fits in 132 KB). Each element of a row is read from and
-// written to device memory exactly once, with neighbouring threads on
-// neighbouring addresses. Twiddles come from the plan's float32 tables
-// (built in float64 on the host), read through the read-only cache; no
+// Design. K1-K3 run the register-resident pass engine (row_passes.cuh)
+// with one launch geometry (ops/row_passes.launch_geometry, checked again
+// by the C entries): M/16 threads a row, 16 points a thread, two padded
+// shared buffers a row (8.25N bytes), several rows a block below 128
+// threads. The half-length FFT runs as the plan's stages fused in pairs,
+// one exchange and one barrier a pass. K1 reads the row once from device
+// memory as N/2 complex points (x[2m] + i x[2m+1]) straight into the
+// first pass's registers, and its last exchange's reads do the
+// half-complex split and the unordered gather, storing both planes with
+// float4 stores. K2/K3 mirror it: the first exchange reads four
+// consecutive positions of both planes a thread (float4 where aligned;
+// K3 forms scale * A (.) B and the bin-0 patch-up in registers) and
+// scatters them to their natural bins in shared memory; the merge rides
+// on the first pass's reads (MergeIn), the passes run backward, and the
+// last pass stores N * x = 2 z from registers, consecutive threads on
+// consecutive samples. The unordered layout is a gather or scatter
+// inside shared memory, never in device memory. Each element of a row is
+// read from and written to device memory exactly once. Twiddles come
+// from float32 tables built in float64 on the host (the passes' tables,
+// the plan's split table), read through the read-only cache; no
 // sinf/cosf in kernel. Rows are independent, so a ragged batch needs no
 // padding. The per-row bodies live in row_fft.cuh, shared with the
 // pipelined forms (pipelined_fft.cu).
@@ -48,13 +52,13 @@
 
 namespace {
 
-constexpr int kMaxN = CHOWDSP_MAX_N;  // K2/K3: 8.25N bytes of shared memory per block
+constexpr int kMaxN = CHOWDSP_MAX_N;  // 8.25N bytes of shared memory a row
 static_assert(two_buffers_bytes(kMaxN / 2) <= kMaxSmemBytes, "MAX_N exceeds shared memory");
-// K1's threads a block: M/16 a row, so 512 at MAX_N (the geometry puts
-// several small rows in a block only below 128 threads); the launch
+// K1-K3's threads a block: M/16 a row, so 512 at MAX_N (the geometry
+// puts several small rows in a block only below 128 threads); the launch
 // bound leaves the compiler 128 registers a thread.
 constexpr int kMaxK1Threads = 512;
-static_assert(kMaxN / 2 / kRowPoints <= kMaxK1Threads, "K1 at MAX_N exceeds its threads a block");
+static_assert(kMaxN / 2 / kRowPoints <= kMaxK1Threads, "K1-K3 at MAX_N exceed their threads a block");
 
 // K1: x (rows, N) -> packed planes, row r at yre/yim + r * ystride
 // (ystride N/2: two planes; N with yim = yre + N/2: the joint [re | im]
@@ -79,28 +83,60 @@ rfft_packed_kernel(const float* __restrict__ x, float* yre, float* yim, int ystr
 // K2 (CONV = false): packed planes (rows, N/2) -> x (rows, N), unscaled.
 // K3 (CONV = true): the same on scale * A (.) B, with the bin-0 patch-up
 // re[0] = Ar*Br (DC*DC), im[0] = Ai*Bi (Nyq*Nyq); B has b_rows rows,
-// 1 (a shared filter, broadcast) or rows.
+// 1 (a shared filter, broadcast) or rows. K1's geometry: a block takes
+// rows_per_block consecutive rows, M/16 threads each.
 template <bool CONV>
-__global__ void __launch_bounds__(kMaxThreads)
-irfft_packed_kernel(const float* __restrict__ are, const float* __restrict__ aim,
-                    const float* __restrict__ bre, const float* __restrict__ bim,
-                    int b_rows, float scale, float* __restrict__ x, int n,
-                    Radices rad, const float2* __restrict__ stage_tw,
-                    const float2* __restrict__ split_tw,
+__global__ void __launch_bounds__(kMaxK1Threads)
+irfft_packed_kernel(const float* are, const float* aim, const float* __restrict__ bre,
+                    const float* __restrict__ bim, int b_rows, float scale, float* x, int rows, int n, Passes ps,
+                    int rows_per_block, const float2* __restrict__ tw, const float2* __restrict__ split_tw,
                     const int* __restrict__ perm) {
   extern __shared__ float2 smem[];
-  __shared__ float nyq;
   const int M = n / 2;
-  const size_t row = blockIdx.x;
-  float2* a = smem;
-  float2* b = smem + padded(M);
+  const int tpr = M / kRowPoints;
+  const int g = threadIdx.x / tpr;
+  const int t = threadIdx.x - g * tpr;
+  const int r = blockIdx.x * rows_per_block + g;
+  const size_t row = r < rows ? r : rows - 1;
   const size_t brow = (CONV && b_rows > 1) ? row : 0;
-  irfft_row_load<CONV>(are + row * M, aim + row * M, CONV ? bre + brow * M : nullptr,
-                       CONV ? bim + brow * M : nullptr, scale, perm, a, &nyq, M);
-  irfft_row_finish(a, b, M, &nyq, rad, stage_tw, split_tw, x + row * n);
+  float2* a = smem + 2 * g * padded(M);
+  irfft_row<CONV>(are + row * M, aim + row * M, CONV ? bre + brow * M : nullptr, CONV ? bim + brow * M : nullptr,
+                  scale, perm, a, a + padded(M), M, ps, tw, split_tw, x + row * n, r < rows, t, tpr, NoHook{});
 }
 
-constexpr int smem_bytes(int n) { return two_buffers_bytes(n / 2); }
+// Host: what every grid entry of K1-K3 checks before it launches: N of
+// the domain's form, the plan's radices, the pass plan against them,
+// and, for rows > 0, the launch geometry (ops/row_passes.launch_geometry)
+// against the rows and the kernels' launch bound. Returns a cudaError_t
+// value.
+int real_row_setup(int n, int rows, const int* radices, int nstages, const int* passes, int npasses,
+                   int rows_per_block, int threads, int smem, int grid, Passes* ps) {
+  if (n < 4 || n > kMaxN || n % 2) return static_cast<int>(cudaErrorInvalidValue);
+  Radices rad;
+  int err = make_radices(radices, nstages, &rad);
+  if (err) return err;
+  err = check_passes(passes, npasses, rad, n / 2, ps);
+  if (err || rows == 0) return err;
+  err = check_row_geometry(n / 2, rows, rows_per_block, threads, smem, grid);
+  if (err) return err;
+  return threads > kMaxK1Threads ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
+// K2/K3's launch, after real_row_setup: the last pass stores from
+// registers, so the plan needs two passes; the unordered table is read
+// 16 bytes at a time.
+template <bool CONV>
+int launch_irfft(const float* are, const float* aim, const float* bre, const float* bim, int b_rows, float scale,
+                 float* x, int rows, int n, const Passes& ps, const void* tw, const void* split_tw, const int* perm,
+                 int rows_per_block, int threads, int smem, int grid, cudaStream_t stream) {
+  if (ps.count < 2 || (perm && !aligned16(perm))) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_smem(irfft_packed_kernel<CONV>, smem);
+  if (err) return err;
+  irfft_packed_kernel<CONV><<<grid, threads, smem, stream>>>(
+      are, aim, bre, bim, b_rows, scale, x, rows, n, ps, rows_per_block, static_cast<const float2*>(tw),
+      static_cast<const float2*>(split_tw), perm);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -108,15 +144,22 @@ extern "C" {
 
 int hopper_real_fft_max_n() { return kMaxN; }
 
-// Points a thread owns in K1 and K4's pass engine (row_passes.cuh).
+// Points a thread owns in the row engine (row_passes.cuh) of K1-K4.
 int hopper_row_points_per_thread() { return kRowPoints; }
 
-// K1 blocks resident on one SM at a launch geometry's threads and shared
-// bytes; 0 if the query fails.
-int hopper_real_fft_blocks_per_sm(int threads, int smem) {
+// Blocks resident on one SM at a launch geometry's threads and shared
+// bytes, of K1 (which = 1), K2 (2) or K3 (3); 0 if the query fails.
+int hopper_real_fft_blocks_per_sm(int which, int threads, int smem) {
   int per_sm = 0;
-  if (threads < 1 || threads > kMaxK1Threads || set_smem(rfft_packed_kernel, smem)) return 0;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rfft_packed_kernel, threads, smem) ? 0 : per_sm;
+  if (threads < 1 || threads > kMaxK1Threads) return 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (which == 1 && !set_smem(rfft_packed_kernel, smem))
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rfft_packed_kernel, threads, smem);
+  else if (which == 2 && !set_smem(irfft_packed_kernel<false>, smem))
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, irfft_packed_kernel<false>, threads, smem);
+  else if (which == 3 && !set_smem(irfft_packed_kernel<true>, smem))
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, irfft_packed_kernel<true>, threads, smem);
+  return err ? 0 : per_sm;
 }
 
 // K1; ystride is the output row stride in floats (N/2 for two planes, N
@@ -130,18 +173,10 @@ int k1_rfft_packed(const float* x, float* yre, float* yim, int ystride, int rows
                    const int* radices, int nstages, const int* passes, int npasses, const void* tw,
                    const void* split_tw, const int* perm, int rows_per_block, int threads, int smem,
                    int grid, void* stream) {
-  if (n < 4 || n > kMaxN || n % 2 || ystride < n / 2) return static_cast<int>(cudaErrorInvalidValue);
-  Radices rad;
-  int err = make_radices(radices, nstages, &rad);
-  if (err) return err;
+  if (ystride < n / 2) return static_cast<int>(cudaErrorInvalidValue);
   Passes ps;
-  const int M = n / 2;
-  err = check_passes(passes, npasses, rad, M, &ps);
-  if (err) return err;
-  if (rows == 0) return 0;
-  err = check_row_geometry(M, rows, rows_per_block, threads, smem, grid);
-  if (err) return err;
-  if (threads > kMaxK1Threads) return static_cast<int>(cudaErrorInvalidValue);
+  int err = real_row_setup(n, rows, radices, nstages, passes, npasses, rows_per_block, threads, smem, grid, &ps);
+  if (err || rows == 0) return err;
   err = set_smem(rfft_packed_kernel, smem);
   if (err) return err;
   rfft_packed_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -150,45 +185,32 @@ int k1_rfft_packed(const float* x, float* yre, float* yim, int ystride, int rows
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2.
-int k2_irfft_packed(const float* yre, const float* yim, float* x, int rows, int n,
-                    const int* radices, int nstages, const void* stage_tw,
-                    const void* split_tw, const int* perm, void* stream) {
-  if (n < 4 || n > kMaxN || n % 2) return static_cast<int>(cudaErrorInvalidValue);
-  Radices rad;
-  int err = make_radices(radices, nstages, &rad);
-  if (err) return err;
-  if (rows == 0) return 0;
-  err = set_smem(irfft_packed_kernel<false>, smem_bytes(kMaxN));
-  if (err) return err;
-  const int M = n / 2;
-  irfft_packed_kernel<false><<<rows, threads_for(M), smem_bytes(n),
-                               static_cast<cudaStream_t>(stream)>>>(
-      yre, yim, nullptr, nullptr, 0, 1.0f, x, n, rad,
-      static_cast<const float2*>(stage_tw), static_cast<const float2*>(split_tw), perm);
-  return static_cast<int>(cudaGetLastError());
+// K2: packed planes yre/yim -> x; K1's arguments from the radices on,
+// except that split_tw is the plan's split table in bin order.
+int k2_irfft_packed(const float* yre, const float* yim, float* x, int rows, int n, const int* radices,
+                    int nstages, const int* passes, int npasses, const void* tw, const void* split_tw,
+                    const int* perm, int rows_per_block, int threads, int smem, int grid, void* stream) {
+  Passes ps;
+  const int err =
+      real_row_setup(n, rows, radices, nstages, passes, npasses, rows_per_block, threads, smem, grid, &ps);
+  if (err || rows == 0) return err;
+  return launch_irfft<false>(yre, yim, nullptr, nullptr, 0, 1.0f, x, rows, n, ps, tw, split_tw, perm,
+                             rows_per_block, threads, smem, grid, static_cast<cudaStream_t>(stream));
 }
 
-// K3.
-int k3_convolve_irfft_packed(const float* are, const float* aim, const float* bre,
-                             const float* bim, int b_rows, float scale, float* x,
-                             int rows, int n, const int* radices, int nstages,
-                             const void* stage_tw, const void* split_tw,
-                             const int* perm, void* stream) {
-  if (n < 4 || n > kMaxN || n % 2) return static_cast<int>(cudaErrorInvalidValue);
+// K3: A (rows rows), B (b_rows = 1 or rows), scale -> x; then K2's
+// arguments.
+int k3_convolve_irfft_packed(const float* are, const float* aim, const float* bre, const float* bim, int b_rows,
+                             float scale, float* x, int rows, int n, const int* radices, int nstages,
+                             const int* passes, int npasses, const void* tw, const void* split_tw, const int* perm,
+                             int rows_per_block, int threads, int smem, int grid, void* stream) {
   if (b_rows != 1 && b_rows != rows) return static_cast<int>(cudaErrorInvalidValue);
-  Radices rad;
-  int err = make_radices(radices, nstages, &rad);
-  if (err) return err;
-  if (rows == 0) return 0;
-  err = set_smem(irfft_packed_kernel<true>, smem_bytes(kMaxN));
-  if (err) return err;
-  const int M = n / 2;
-  irfft_packed_kernel<true><<<rows, threads_for(M), smem_bytes(n),
-                              static_cast<cudaStream_t>(stream)>>>(
-      are, aim, bre, bim, b_rows, scale, x, n, rad,
-      static_cast<const float2*>(stage_tw), static_cast<const float2*>(split_tw), perm);
-  return static_cast<int>(cudaGetLastError());
+  Passes ps;
+  const int err =
+      real_row_setup(n, rows, radices, nstages, passes, npasses, rows_per_block, threads, smem, grid, &ps);
+  if (err || rows == 0) return err;
+  return launch_irfft<true>(are, aim, bre, bim, b_rows, scale, x, rows, n, ps, tw, split_tw, perm,
+                            rows_per_block, threads, smem, grid, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -6,17 +6,21 @@
 // their outputs are bit-identical, as the JAX package's grid and
 // double-buffered kernels share _rfft_tile, _irfft_core and _cfft_tile.
 //
-// K1 and K4 run the register-resident pass engine (row_passes.cuh) on two
-// padded buffers per row; rfft_row/cfft_row read the row from a generic
-// pointer (device memory, or a pipelined form's landing buffer) and call
-// `hook` once that input is no longer read. K2/K3 run stockham.cuh's
-// stages on two buffers, split where a pipelined block may reuse its
-// input: *_load reads the row into the padded work buffer `a` and ends
-// with a barrier; *_finish runs the stages and stores the row.
+// All of them run the register-resident pass engine (row_passes.cuh) on
+// two padded buffers per row; rfft_row, irfft_row and cfft_row read the
+// row from a generic pointer (device memory, or a pipelined form's
+// landing buffer) and call `hook` once that input is no longer read.
 
 #pragma once
 
 #include "row_passes.cuh"
+
+// Which store K2/K3 run (a development switch, measured on the card):
+// 1, from the last pass's registers; 0, float4 stores from the last
+// exchange.
+#ifndef CHOWDSP_IRFFT_REG_STORE
+#define CHOWDSP_IRFFT_REG_STORE 1
+#endif
 
 namespace {
 
@@ -66,57 +70,131 @@ __device__ __forceinline__ void rfft_row(const float* x, float2* a, float2* b, i
   }
 }
 
-// K2/K3, load: packed planes (K3: scale * A (.) B with the bin-0 patch-up
-// re[0] = Ar*Br, im[0] = Ai*Bi) scattered to natural bin order in `a`;
-// the Nyquist bin is set aside in *nyq (shared).
-template <bool CONV>
-__device__ __forceinline__ void irfft_row_load(const float* pre, const float* pim,
-                                               const float* __restrict__ bre,
-                                               const float* __restrict__ bim, float scale,
-                                               const int* __restrict__ perm, float2* a, float* nyq,
-                                               int M) {
-  for (int pos = threadIdx.x; pos < M; pos += blockDim.x) {
-    float re = pre[pos], im = pim[pos];
-    if (CONV) {
-      const float br = bre[pos], bi = bim[pos];
-      if (pos == 0) {
-        re = re * br;
-        im = im * bi;
-      } else {
-        const float pr = re * br - im * bi;
-        im = re * bi + im * br;
-        re = pr;
-      }
-      re *= scale;
-      im *= scale;
-    }
-    if (pos == 0) {  // position 0 is bin 0 in every layout
-      *nyq = im;
-      im = 0.0f;
-    }
-    a[slot(perm ? __ldg(perm + pos) : pos)] = make_float2(re, im);
+// Four consecutive floats at p: one float4 where p is 16-byte aligned
+// (`vec`), else four scalar loads. p may be a generic pointer into shared
+// memory (a pipelined form's landing buffer).
+__device__ __forceinline__ void load4(const float* p, bool vec, float (&v)[4]) {
+  if (vec) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = p[e];
   }
-  __syncthreads();
 }
 
-// K2/K3, finish: the merge (stockham.cuh merge_bin, X[M] the Nyquist
-// bin), the half-length inverse FFT, and the store of N * x.
-__device__ __forceinline__ void irfft_row_finish(float2* a, float2* b, int M, const float* nyq,
-                                                 const Radices& rad,
-                                                 const float2* __restrict__ stage_tw,
-                                                 const float2* __restrict__ split_tw, float* x) {
-  for (int k = threadIdx.x; k < M; k += blockDim.x) {
-    const float2 xr = k == 0 ? make_float2(*nyq, 0.0f) : cconj(a[slot(M - k)]);
-    b[slot(k)] = merge_bin(a[slot(k)], xr, __ldg(split_tw + k));
+// The same from device memory through the read-only cache.
+__device__ __forceinline__ void ldg4(const float* __restrict__ p, bool vec, float (&v)[4]) {
+  if (vec) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = __ldg(p + e);
   }
+}
+
+// K2/K3's first exchange: thread t of the row's tpr = M/16 reads four
+// consecutive positions of both packed planes at a time (as K1's store
+// writes them; float4 where both planes are 16-byte aligned), K3 forms
+// scale * A (.) B with the bin-0 patch-up re[0] = Ar*Br (DC*DC),
+// im[0] = Ai*Bi (Nyq*Nyq) in registers (B through the read-only cache),
+// and each point goes to `buf` at its natural bin (perm[pos] in the
+// unordered layout; a 16-byte aligned table). Position 0 is bin 0 in
+// every layout: its slot keeps DC in re and the Nyquist bin in im, which
+// MergeIn reads. No barrier.
+template <bool CONV>
+__device__ __forceinline__ void irfft_row_scatter(const float* pre, const float* pim, const float* __restrict__ bre,
+                                                  const float* __restrict__ bim, float scale,
+                                                  const int* __restrict__ perm, float2* buf, int t, int tpr) {
+  const bool vec = aligned16(pre) && aligned16(pim);
+  const bool bvec = CONV && aligned16(bre) && aligned16(bim);
+#pragma unroll
+  for (int c = 0; c < kRowPoints / 4; ++c) {
+    const int pos0 = 4 * (t + c * tpr);
+    float re[4], im[4];
+    load4(pre + pos0, vec, re);
+    load4(pim + pos0, vec, im);
+    if (CONV) {
+      float br[4], bi[4];
+      ldg4(bre + pos0, bvec, br);
+      ldg4(bim + pos0, bvec, bi);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool bin0 = pos0 + e == 0;
+        const float pr = bin0 ? re[e] * br[e] : re[e] * br[e] - im[e] * bi[e];
+        const float pi = bin0 ? im[e] * bi[e] : re[e] * bi[e] + im[e] * br[e];
+        re[e] = pr * scale;
+        im[e] = pi * scale;
+      }
+    }
+    int k[4] = {pos0, pos0 + 1, pos0 + 2, pos0 + 3};
+    if (perm) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(perm + pos0));
+      k[0] = q.x;
+      k[1] = q.y;
+      k[2] = q.z;
+      k[3] = q.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) buf[slot(k[e])] = make_float2(re[e], im[e]);
+  }
+}
+
+// K2/K3's last pass writes N * x = 2 * z (z = M * (x_even + i x_odd), the
+// half-length inverse) straight to device memory: point i as the real
+// samples x[2i], x[2i+1]. Consecutive threads hold consecutive points.
+struct RealOut {
+  float2* x;
+  bool store;
+  __device__ __forceinline__ void operator()(int i, float2 v) const {
+    if (store) x[i] = make_float2(2.0f * v.x, 2.0f * v.y);
+  }
+};
+
+// K2 (CONV false) and K3 (true): one row of packed planes (K3: A, and B's
+// row) to the row's N real samples x, unscaled (irfft(rfft(x)) == N x).
+// The first exchange (irfft_row_scatter) fills b with the packed bins in
+// natural order; `hook` runs once it is done (a pipelined form issues the
+// next row's copy into its landing buffer there); the passes (SIGN = +1)
+// read the merged bins from b (MergeIn) and ping-pong between a and b;
+// the last pass stores 2 z. Thread t of the row's tpr = M/16; `store`
+// false stores nothing (a block's ragged row).
+template <bool CONV, class Hook>
+__device__ __forceinline__ void irfft_row(const float* pre, const float* pim, const float* __restrict__ bre,
+                                          const float* __restrict__ bim, float scale, const int* __restrict__ perm,
+                                          float2* a, float2* b, int M, const Passes& ps,
+                                          const float2* __restrict__ tw, const float2* __restrict__ split,
+                                          float* x, bool store, int t, int tpr, Hook hook) {
+  irfft_row_scatter<CONV>(pre, pim, bre, bim, scale, perm, b, t, tpr);
   __syncthreads();
-  const float2* zt = run_stages<1>(b, a, M, rad, stage_tw);
-  // zt == M * (x_even + i x_odd); N * x = 2 * M * x.
-  float2* out = reinterpret_cast<float2*>(x);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const float2 z = zt[slot(i)];
-    out[i] = make_float2(2.0f * z.x, 2.0f * z.y);
+  hook();
+#if CHOWDSP_IRFFT_REG_STORE
+  run_passes_to<1>(ps, MergeIn{b, split, M}, a, b, M, tw, t, tpr, RealOut{reinterpret_cast<float2*>(x), store});
+#else
+  const float2* buf = run_passes<1>(ps, MergeIn{b, split, M}, a, b, M, tw, t, tpr, NoHook{});
+  if (!store) return;
+  const bool vec = aligned16(x);
+  float2* y = reinterpret_cast<float2*>(x);
+#pragma unroll
+  for (int c = 0; c < kRowPoints / 2; ++c) {
+    const int i = 2 * (t + c * tpr);
+    const float2 z0 = buf[slot(i)], z1 = buf[slot(i + 1)];
+    const float2 v0 = make_float2(2.0f * z0.x, 2.0f * z0.y), v1 = make_float2(2.0f * z1.x, 2.0f * z1.y);
+    if (vec) {
+      *reinterpret_cast<float4*>(y + i) = make_float4(v0.x, v0.y, v1.x, v1.y);
+    } else {
+      y[i] = v0;
+      y[i + 1] = v1;
+    }
   }
+#endif
 }
 
 // K4, the last exchange's reads: the natural-order row in `buf` stored

@@ -1,13 +1,16 @@
 // Register-resident complex row engine for Hopper (sm_90a): the
 // mixed-radix FFT of one row of L complex points, shared by K1 (L = N/2,
-// then the real split) and K4 (L = N), in their grid forms (real_fft.cu,
-// complex_fft.cu) and their pipelined forms (pipelined_fft.cu).
+// then the real split), K2/K3 (L = N/2 backward, the real merge before
+// it) and K4 (L = N), in their grid forms (real_fft.cu, complex_fft.cu)
+// and their pipelined forms (pipelined_fft.cu).
 //
 // Replaces, for those kernels, the TPU row engine of
 // chowdsp_fft_tpu/ops/pallas_fft.py: _rfft_kernel :1078 (K1, and K1-db's
-// _rfft_db_kernel :1628) and _fft_kernel :620 via _stockham_rows (K4, and
-// K4-db's _cfft_db_kernel :739). K2/K3, K5, K6 and K7 keep stockham.cuh's
-// stage/run_stages.
+// _rfft_db_kernel :1628), _irfft_kernel :1111 via _irfft_core :1155 (K2,
+// and K2-db's _irfft_db_kernel :1756), _irfft_conv_kernel :1989 (K3) and
+// _fft_kernel :620 via _stockham_rows (K4, and K4-db's _cfft_db_kernel
+// :739). K5 and K7a keep stockham.cuh's stage/run_stages; K6 and K7b run
+// the column engine (col_passes.cuh).
 //
 // What bounds it on the card: bytes. A complex row moves 16 B per point
 // (8 in, 8 out), a real row 8 B per sample; 5 L log2 L flops per row are
@@ -36,12 +39,19 @@
 //   * the first pass reads the row straight from device memory (or from a
 //     pipelined form's landing buffer), 256 contiguous bytes per warp
 //     instruction (interleaved complex64 as float2, planes as floats);
+//     K2/K3's first pass reads the packed bins their first exchange left
+//     in natural order, merged on the way (MergeIn: bins k and M-k and
+//     the split twiddle, Nyquist in slot 0's im), so the merge costs no
+//     exchange and no barrier of its own;
 //   * the last pass leaves the natural-order row in shared memory, and the
 //     epilogue's reads of that exchange do each kernel's own work: K1's
 //     split (needs Z[k] and Z[M-k]) and unordered gather with float4
 //     stores of both planes, K4's gather (forward unordered) and float4
 //     stores of complex64 pairs. K4's backward unordered scatter is the
-//     first exchange (coalesced loads, scattered shared stores);
+//     first exchange (coalesced loads, scattered shared stores), as is
+//     K2/K3's unordered scatter. K2/K3's last pass writes the real samples
+//     from registers (run_passes_to: there p = 0, so consecutive threads
+//     write consecutive points);
 //   * 16 points a thread let small rows share a block: rows_per_block
 //     rows (at least 128 threads), each in its own two buffers; a block's
 //     ragged rows recompute its last row and store nothing;
@@ -183,17 +193,44 @@ struct ComplexIn {
   }
 };
 
+// K2/K3's first pass reads: bin k of the half-length spectrum Z, merged
+// (stockham.cuh merge_bin) from the packed bins X held in natural order
+// in `buf`, Z[k] = merge(X[k], conj X[M-k], w_k) with w_k = split[k] (the
+// plan's split table in bin order). Slot 0 holds DC in re and the Nyquist
+// bin X[M] in im, so bin 0 merges (DC, 0) with (Nyq, 0); bin M/2 is its
+// own partner.
+struct MergeIn {
+  const float2* buf;
+  const float2* __restrict__ split;
+  int M;
+  __device__ __forceinline__ float2 operator()(int k) const {
+    float2 xk = buf[slot(k)];
+    float2 xr = cconj(buf[slot(k == 0 ? 0 : M - k)]);
+    if (k == 0) {
+      xr = make_float2(xk.y, 0.0f);
+      xk.y = 0.0f;
+    }
+    return merge_bin(xk, xr, __ldg(split + k));
+  }
+};
+
+// Where a pass writes its row: a padded shared buffer.
+struct SharedOut {
+  float2* __restrict__ buf;
+  __device__ __forceinline__ void operator()(int i, float2 v) const { buf[slot(i)] = v; }
+};
+
 struct NoHook {
   __device__ __forceinline__ void operator()() const {}
 };
 
 // One pass of radix P = R0*R1 at stride s over a row of L points, from
-// `in` to `dst`: thread t of the row's tpr threads takes butterflies
+// `in` to `out`: thread t of the row's tpr threads takes butterflies
 // u = t + c*tpr < L/P one at a time (read, DFT, twiddle, write: P points
-// live), then a barrier.
-template <int R0, int R1, int SIGN, class In>
-__device__ __forceinline__ void row_pass(In in, float2* __restrict__ dst, int L, int s,
-                                         const float2* __restrict__ tw, int t, int tpr) {
+// live). No barrier: the caller places it.
+template <int R0, int R1, int SIGN, class In, class Out>
+__device__ __forceinline__ void row_pass(In in, Out out, int L, int s, const float2* __restrict__ tw, int t,
+                                         int tpr) {
   constexpr int P = R0 * R1;
   constexpr int C = (kRowPoints + P - 1) / P;
   const int nb = L / P;
@@ -220,46 +257,47 @@ __device__ __forceinline__ void row_pass(In in, float2* __restrict__ dst, int L,
       }
       const int base = p * P * s + q;
 #pragma unroll
-      for (int i = 0; i < P; ++i) dst[slot(base + natural_bin<R0, R1>(i) * s)] = v[i];
+      for (int i = 0; i < P; ++i) out(base + natural_bin<R0, R1>(i) * s, v[i]);
     }
   }
-  __syncthreads();
 }
 
-template <int SIGN, class In>
-__device__ __forceinline__ void dispatch_pass(int r0, int r1, In in, float2* dst, int L, int s,
+template <int SIGN, class In, class Out>
+__device__ __forceinline__ void dispatch_pass(int r0, int r1, In in, Out out, int L, int s,
                                               const float2* __restrict__ tw, int t, int tpr) {
   switch (r0 * 10 + r1) {
-    case 44: row_pass<4, 4, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 42: row_pass<4, 2, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 43: row_pass<4, 3, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 45: row_pass<4, 5, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 23: row_pass<2, 3, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 25: row_pass<2, 5, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 33: row_pass<3, 3, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 35: row_pass<3, 5, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 55: row_pass<5, 5, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 41: row_pass<4, 1, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 21: row_pass<2, 1, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    case 31: row_pass<3, 1, SIGN>(in, dst, L, s, tw, t, tpr); break;
-    default: row_pass<5, 1, SIGN>(in, dst, L, s, tw, t, tpr); break;
+    case 44: row_pass<4, 4, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 42: row_pass<4, 2, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 43: row_pass<4, 3, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 45: row_pass<4, 5, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 23: row_pass<2, 3, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 25: row_pass<2, 5, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 33: row_pass<3, 3, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 35: row_pass<3, 5, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 55: row_pass<5, 5, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 41: row_pass<4, 1, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 21: row_pass<2, 1, SIGN>(in, out, L, s, tw, t, tpr); break;
+    case 31: row_pass<3, 1, SIGN>(in, out, L, s, tw, t, tpr); break;
+    default: row_pass<5, 1, SIGN>(in, out, L, s, tw, t, tpr); break;
   }
 }
 
-// All passes, ping-ponging between the padded buffers a and b: the first
-// reads `in` and writes a; after it, `hook()` runs once all threads are
-// done reading `in` (a pipelined form issues the next row's copy into its
-// landing buffer there). Returns the buffer that holds the natural-order
-// row (after a barrier). `in` may be b itself.
+// All passes, ping-ponging between the padded buffers a and b, a barrier
+// after each: the first reads `in` and writes a; after it, `hook()` runs
+// once all threads are done reading `in` (a pipelined form issues the
+// next row's copy into its landing buffer there). Returns the buffer that
+// holds the natural-order row. `in` may be b itself.
 template <int SIGN, class In, class Hook>
 __device__ __forceinline__ float2* run_passes(const Passes& ps, In in, float2* a, float2* b, int L,
                                               const float2* __restrict__ tw, int t, int tpr, Hook hook) {
-  dispatch_pass<SIGN>(ps.r0[0], ps.r1[0], in, a, L, 1, tw, t, tpr);
+  dispatch_pass<SIGN>(ps.r0[0], ps.r1[0], in, SharedOut{a}, L, 1, tw, t, tpr);
+  __syncthreads();
   hook();
   tw += L;  // pass i's table holds P*m = L/s entries
   int s = ps.r0[0] * ps.r1[0];
   for (int i = 1; i < ps.count; ++i) {
-    dispatch_pass<SIGN>(ps.r0[i], ps.r1[i], SharedIn{a}, b, L, s, tw, t, tpr);
+    dispatch_pass<SIGN>(ps.r0[i], ps.r1[i], SharedIn{a}, SharedOut{b}, L, s, tw, t, tpr);
+    __syncthreads();
     tw += L / s;
     s *= ps.r0[i] * ps.r1[i];
     float2* tmp = a;
@@ -267,6 +305,29 @@ __device__ __forceinline__ float2* run_passes(const Passes& ps, In in, float2* a
     b = tmp;
   }
   return a;
+}
+
+// As run_passes for a plan of at least two passes, but the last pass
+// writes its outputs to `last` (in natural order: there p = 0, so output
+// j of butterfly u is point j*s + u) and no barrier follows it.
+template <int SIGN, class In, class Out>
+__device__ __forceinline__ void run_passes_to(const Passes& ps, In in, float2* a, float2* b, int L,
+                                              const float2* __restrict__ tw, int t, int tpr, Out last) {
+  dispatch_pass<SIGN>(ps.r0[0], ps.r1[0], in, SharedOut{a}, L, 1, tw, t, tpr);
+  __syncthreads();
+  tw += L;
+  int s = ps.r0[0] * ps.r1[0];
+  for (int i = 1; i < ps.count - 1; ++i) {
+    dispatch_pass<SIGN>(ps.r0[i], ps.r1[i], SharedIn{a}, SharedOut{b}, L, s, tw, t, tpr);
+    __syncthreads();
+    tw += L / s;
+    s *= ps.r0[i] * ps.r1[i];
+    float2* tmp = a;
+    a = b;
+    b = tmp;
+  }
+  const int i = ps.count - 1;
+  dispatch_pass<SIGN>(ps.r0[i], ps.r1[i], SharedIn{a}, last, L, s, tw, t, tpr);
 }
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

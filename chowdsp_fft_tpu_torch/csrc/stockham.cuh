@@ -1,6 +1,9 @@
-// Shared-memory mixed-radix Stockham stages, shared by the real kernels
-// (real_fft.cu: K1-K3), the complex kernel (complex_fft.cu: K4) and the
-// composite's column kernels (composite_fft.cu: K6, K7).
+// Shared-memory mixed-radix Stockham stages (stage/run_stages), run by
+// the small-N kernels (small_fft.cu: K5) and the real composite's level 1
+// (composite_fft.cu: K7a); and what every kernel family shares: the
+// padded slot layout, complex arithmetic, the radix butterflies, and the
+// real split and merge (also run by the row engine, row_passes.cuh, and
+// the column engine, col_passes.cuh).
 //
 // A block holds one row of M complex points in two padded shared buffers
 // and runs the plan's {4,2,3,5} stages between them, FP32 FMA only, with

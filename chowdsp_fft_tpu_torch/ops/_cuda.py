@@ -63,8 +63,9 @@ _SIGNATURES = {
     "hopper_small_fft_points_per_thread": [],
     "hopper_small_fft_blocks_per_sm": [_I, _I, _I],
     "hopper_row_points_per_thread": [],
-    # K1 / K4 blocks resident per SM at (threads, shared bytes).
-    "hopper_real_fft_blocks_per_sm": [_I, _I],
+    # Blocks resident per SM at (threads, shared bytes): K1, K2 or K3
+    # (which = 1, 2, 3), and K4.
+    "hopper_real_fft_blocks_per_sm": [_I, _I, _I],
     "hopper_complex_fft_blocks_per_sm": [_I, _I],
     # K1: x, y re/im, output row stride, rows, N, radices, nstages, pass
     # plan (r0, r1 pairs), npasses, pass twiddles, split twiddles (in
@@ -72,9 +73,12 @@ _SIGNATURES = {
     # permutation, launch geometry (rows per block, threads, shared bytes,
     # grid), stream.
     "k1_rfft_packed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "k2_irfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
+    # K2: y re/im, x, rows, N, then K1's arguments from the radices on
+    # (the split twiddles in bin order); K3: A re/im, B re/im, B rows,
+    # scale, then K2's.
+    "k2_irfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "k3_convolve_irfft_packed": [
-        _P, _P, _P, _P, _I, ctypes.c_float, _P, _I, _I, _P, _I, _P, _P, _P, _P,
+        _P, _P, _P, _P, _I, ctypes.c_float, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
     ],
     # K4: x re/im, y re/im, element stride, rows, N, sign, radices,
     # nstages, pass plan, npasses, pass twiddles, permutation, geometry,
@@ -108,7 +112,7 @@ _SIGNATURES = {
     # K4-db without the launch geometry: they pick a persistent grid).
     "hopper_pipelined_blocks_per_sm": [_I, _I],
     "k1db_rfft_packed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
-    "k2db_irfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
+    "k2db_irfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "k4db_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
 }
 

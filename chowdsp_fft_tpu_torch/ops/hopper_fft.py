@@ -31,10 +31,10 @@ package's: packed planes with DC in re[0] and Nyquist in im[0]; the real
 unordered layout (position k1*64 + k2 holds bin k1 + N1*k2) on K1-K3, the
 complex one (k1*128 + k2) on K4, natural order on K5 and the composite.
 
-Shared memory bounds the single-row Stockham kernels: one thread block
-holds a row's two padded buffers, 8.25N bytes for a real row (132 KB at
-MAX_N = 16384) and 16.5N bytes for a complex one (223 KB at
-MAX_CN = 13824), of the 227 KB a block may use. Above those sizes the
+Shared memory bounds the single-row kernels (K1-K4 on the row engine,
+``row_passes``): a row's two padded buffers take 8.25N bytes for a real
+row (132 KB at MAX_N = 16384) and 16.5N bytes for a complex one (223 KB
+at MAX_CN = 13824), of the 227 KB a block may use. Above those sizes the
 composite runs its columns in tiles that fit.
 """
 
@@ -196,31 +196,23 @@ def rfft_packed_joint_plain(x: torch.Tensor, plan: FFTPlan, ordered: bool = True
 # ---------------------------------------------------------------------------
 
 
-def _launch_real(kernel: Kernel, entry: str, plan: FFTPlan, device: torch.device, ordered: bool, *args):
-    """Launch a K2/K3 entry with ``args`` followed by the plan's tables:
-    radices (host int array), stage and split twiddles (complex64 on the
-    device, i.e. float2), and the unordered permutation (int32 on the
-    device, NULL for ordered bins)."""
-    tabs = plan.device_tables(device)
-    radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
-    perm = None if ordered else device_perm(unordered_perm, plan.n, str(device)).data_ptr()
-    launch(kernel, entry, device, *args, ctypes.addressof(radices), len(plan.radices),
-           tabs.stage_flat.data_ptr(), tabs.split_tw.data_ptr(), perm)
-
-
-def _launch_k1(kernel: Kernel, entry: str, plan: FFTPlan, device: torch.device, ordered: bool, rows: int,
-               *args):
-    """Launch K1 or K1-db with ``args`` (x, outputs, output row stride,
-    rows, N) followed by the plan's radices and pass plan (host int
-    arrays), the pass twiddles and the split twiddles in position order
-    (complex64 on the device, i.e. float2; ``row_passes.device_tables``),
-    the unordered permutation (NULL for ordered bins) and, for the grid
-    form, the launch geometry (``row_passes.launch_geometry``)."""
+def _launch_rows(kernel: Kernel, entry: str, plan: FFTPlan, device: torch.device, ordered: bool, rows: int,
+                *args):
+    """Launch a row-engine entry of K1-K3 or their db forms with ``args``
+    (the kernel's tensors and scalars, ending in rows and N) followed by
+    the plan's radices and pass plan (host int arrays), the pass twiddles
+    and the split twiddles (complex64 on the device, i.e. float2;
+    ``row_passes.device_tables``), the unordered permutation (NULL for
+    ordered bins) and, for a grid form, the launch geometry
+    (``row_passes.launch_geometry``). K1's epilogue reads the split
+    twiddles in position order (gathered to the unordered layout), the
+    inverse's merge in bin order."""
     tw, split_unordered = row_passes.device_tables(plan.n, plan.kind, str(device))
-    split = plan.device_tables(device).split_tw if ordered else split_unordered
+    forward = kernel in (K1, K1_DB)
+    split = split_unordered if forward and not ordered else plan.device_tables(device).split_tw
     geo = row_passes.launch_geometry(plan, rows)
     perm = None if ordered else device_perm(unordered_perm, plan.n, str(device)).data_ptr()
-    tail = geo.args if kernel is K1 else ()
+    tail = geo.args if kernel in (K1, K2, K3) else ()
     launch(kernel, entry, device, *args, ctypes.addressof(host_ints(plan.radices)), len(plan.radices),
            ctypes.addressof(host_ints(geo.flat_passes)), len(geo.passes), tw.data_ptr(), split.data_ptr(), perm,
            *tail)
@@ -241,7 +233,7 @@ def rfft_packed_kernel(x: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     yre = torch.empty((rows, plan.n // 2), dtype=torch.float32, device=x.device)
     yim = torch.empty_like(yre)
     if rows:
-        _launch_k1(K1, "k1_rfft_packed", plan, x.device, ordered, rows,
+        _launch_rows(K1, "k1_rfft_packed", plan, x.device, ordered, rows,
                    x.data_ptr(), yre.data_ptr(), yim.data_ptr(), plan.n // 2, rows, plan.n)
     return yre, yim
 
@@ -257,7 +249,7 @@ def _rfft_joint(kernel: Kernel, entry: str, x: torch.Tensor, plan: FFTPlan, orde
     _check("x", x, (rows, n), x.device, align=align)
     y = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     if rows:
-        _launch_k1(kernel, entry, plan, x.device, ordered, rows,
+        _launch_rows(kernel, entry, plan, x.device, ordered, rows,
                    x.data_ptr(), y.data_ptr(), y.data_ptr() + 4 * (n // 2), n, rows, n)
     return y
 
@@ -287,7 +279,7 @@ def _irfft(kernel: Kernel, entry: str, yre: torch.Tensor, yim: torch.Tensor, pla
     _check("yim", yim, (rows, plan.n // 2), yre.device, align=align)
     x = torch.empty((rows, plan.n), dtype=torch.float32, device=yre.device)
     if rows:
-        _launch_real(kernel, entry, plan, yre.device, ordered,
+        _launch_rows(kernel, entry, plan, yre.device, ordered, rows,
                      yre.data_ptr(), yim.data_ptr(), x.data_ptr(), rows, plan.n)
     return x
 
@@ -319,7 +311,7 @@ def convolve_irfft_packed_kernel(are, aim, bre, bim, scale: float, plan: FFTPlan
     _check("bim", bim, (b_rows, m), are.device)
     x = torch.empty((rows, plan.n), dtype=torch.float32, device=are.device)
     if rows:
-        _launch_real(K3, "k3_convolve_irfft_packed", plan, are.device, ordered,
+        _launch_rows(K3, "k3_convolve_irfft_packed", plan, are.device, ordered, rows,
                      are.data_ptr(), aim.data_ptr(), bre.data_ptr(), bim.data_ptr(),
                      b_rows, float(scale), x.data_ptr(), rows, plan.n)
     return x

@@ -1,6 +1,7 @@
-"""Launch geometry of K1 and K4's row engine (``csrc/row_passes.cuh``).
+"""Launch geometry of the row engine (``csrc/row_passes.cuh``) of K1-K4.
 
-K1 (an M = N/2-point complex FFT per real row, then the split) and K4 (an
+K1 (an M = N/2-point complex FFT per real row, then the split), K2/K3
+(the merge, then an M-point backward FFT per real row) and K4 (an
 N-point complex FFT per row) run the plan's mixed-radix stages fused in
 consecutive pairs, a pass each, on rows of L points held in registers,
 ``POINTS_PER_THREAD`` points a thread, with two padded shared buffers per
@@ -52,7 +53,7 @@ def _padded(points: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """A K1/K4 launch: ``passes`` ((r0, r1) pairs), ``threads_per_row``
+    """A K1-K4 launch: ``passes`` ((r0, r1) pairs), ``threads_per_row``
     (L / POINTS_PER_THREAD), ``rows_per_block`` rows in a block, each with
     its own two padded buffers, ``threads`` and ``smem_bytes`` per block,
     ``grid`` blocks (the last one ragged)."""
@@ -76,7 +77,7 @@ class Geometry:
 
 
 def launch_geometry(plan: FFTPlan, rows: int) -> Geometry:
-    """The launch of K1 (real plan) or K4 (complex plan) on ``rows`` rows:
+    """The launch of K1-K3 (real plan) or K4 (complex plan) on ``rows`` rows:
     the pass plan of the plan's radices, L / POINTS_PER_THREAD threads a
     row, and as many rows a block as it takes to reach MIN_BLOCK_THREADS."""
     passes, tpr, rpb, smem = _block(plan.n, plan.kind, plan.radices)
@@ -119,7 +120,7 @@ def pass_twiddles(radices: tuple[int, ...], L: int, passes: tuple[tuple[int, int
 
 @functools.lru_cache(maxsize=128)
 def device_tables(n: int, kind: str, device: str) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The tables a K1/K4 launch reads beyond the plan's own, on
+    """The tables a K1-K4 launch reads beyond the plan's own, on
     ``device``: the pass twiddles of the plan's L-point transform and, for
     a real plan, its split twiddles gathered into the unordered layout
     (position p: W_N^perm[p]), which the unordered epilogue reads in

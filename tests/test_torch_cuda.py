@@ -144,6 +144,38 @@ def test_k1_at_every_size(dev, n):
             assert torch.equal(hf.rfft_packed_joint_kernel(view8(x), plan, ordered), y)
 
 
+@pytest.mark.parametrize("n", K1_SIZES)
+def test_k2_k3_at_every_size(dev, n):
+    """K2 and K3 on the row engine at every size of their domain, 1, 7 and
+    300 rows, both orders: within 2e-7*N of their plain versions and of
+    float64 (K3 with a shared and a batched B), bit-equal on 8-byte
+    aligned views; 300 rows without their Nyquist bins fail."""
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    for rows in (1, 7, 300):
+        x = rand((rows, n), dev, n + rows)
+        h = rand((rows, n), dev, n - rows) / n**0.5
+        x64, h64 = x.double().cpu().numpy(), h.double().cpu().numpy()
+        for ordered in (True, False):
+            re, im = hf.rfft_packed_plain(x, plan, ordered)
+            back = hf.irfft_packed_kernel(re, im, plan, ordered)
+            assert maxerr(back / n, hf.irfft_packed_plain(re, im, plan, ordered) / n) <= 2e-7 * n
+            assert float(np.abs(back.double().cpu().numpy() / n - x64).max()) <= 2e-7 * n
+            assert torch.equal(hf.irfft_packed_kernel(view8(re), view8(im), plan, ordered), back)
+            if rows == 300:  # a row's Nyquist bin may be small: many rows make the check certain
+                no_nyq = im.clone()
+                no_nyq[:, 0] = 0
+                assert maxerr(hf.irfft_packed_kernel(re, no_nyq, plan, ordered) / n, x) > 2e-7 * n
+            hre, him = hf.rfft_packed_plain(h, plan, ordered)
+            for b_rows in (1, rows):
+                b = (hre[:b_rows].contiguous(), him[:b_rows].contiguous())
+                y = hf.convolve_irfft_packed_kernel(re, im, *b, 1.0 / n, plan, ordered)
+                assert maxerr(y, hf.convolve_irfft_packed_plain(re, im, *b, 1.0 / n, plan, ordered)) <= 2e-7 * n
+                want = np.fft.irfft(np.fft.rfft(x64) * np.fft.rfft(h64[:b_rows]), n=n)
+                assert float(np.abs(y.double().cpu().numpy() - want).max()) <= 2e-7 * n
+                assert torch.equal(hf.convolve_irfft_packed_kernel(view8(re), view8(im), *map(view8, b), 1.0 / n,
+                                                                   plan, ordered), y)
+
+
 @pytest.mark.parametrize("n", K4_SIZES)
 def test_k4_at_every_size(dev, n):
     """K4's pass engine at every size of its domain, 1, 7 and 130 rows,

@@ -1,11 +1,16 @@
-"""K1 and K4's row engine (``csrc/row_passes.cuh``) on the CPU: the launch
-geometry (``ops/row_passes.launch_geometry``) at every size of both
+"""The row engine (``csrc/row_passes.cuh``) of K1-K4 on the CPU: the
+launch geometry (``ops/row_passes.launch_geometry``) at every size of both
 domains, and a numpy model of the engine's passes (the same pass plan,
 Stockham indexing, float32 inner roots and root table as the kernels)
-against float64 at every size, ordered and unordered, with K1's split.
-The kernels themselves run on the card only (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+against float64 at every size, ordered and unordered, with K1's split;
+and the packed real inverse of K2/K3/K2-db on it (the first exchange
+with K3's product, the merge in the first pass's reads, the backward
+passes, the store of 2 z) against float64 and against the JAX package's
+K2/K3 in interpret mode, with the wrappers' launch arguments at every
+size. The kernels themselves run on the card only
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 
+import ctypes
 import pathlib
 import re
 
@@ -56,37 +61,42 @@ def test_geometry_at_every_size(n, kind):
         assert len(g.flat_passes) == 2 * len(g.passes)
 
 
-def _inner(q: int) -> np.ndarray:
-    """The kernels' inner roots: exp(-2i*pi*e/q) in float32."""
+def _inner(q: int, sign: int = -1) -> np.ndarray:
+    """The kernels' inner roots: exp(sign*2i*pi*e/q) in float32 (the
+    backward roots are the forward ones with the sine negated)."""
     e = np.arange(q)
-    return np.exp(-2j * np.pi * e / q).astype(np.complex64)
+    w = np.exp(-2j * np.pi * e / q).astype(np.complex64)
+    return w if sign < 0 else np.conj(w)
 
 
-def _dft(v: np.ndarray, r: int) -> np.ndarray:
+def _dft(v: np.ndarray, r: int, sign: int = -1) -> np.ndarray:
     """Radix-r butterflies along axis 1 (float32 roots, as stockham.cuh's)."""
-    w = _inner(r)[(np.arange(r)[:, None] * np.arange(r)[None, :]) % r]
+    w = _inner(r, sign)[(np.arange(r)[:, None] * np.arange(r)[None, :]) % r]
     return np.einsum("jk,bk...->bj...", w, v).astype(np.complex64)
 
 
-def engine_model(x: np.ndarray, plan) -> np.ndarray:
-    """The row engine's forward transform of (rows, L) complex64 rows, pass
-    by pass as row_passes.cuh computes it: a pass of radix P = R0*R1 at
-    stride s reads x[k*(L/P) + u] (u = p*s + q), runs the R0-point stage
-    with inner twiddles W_P^(j*p'), then the R1-point stage, multiplies
-    output j by the pass table's W_L^(j*p*s) (at [j*m + p]) and writes
+def engine_model(x: np.ndarray, plan, sign: int = -1) -> np.ndarray:
+    """The row engine's transform of (rows, L) complex64 rows, forward
+    (sign -1) or backward (+1), pass by pass as row_passes.cuh computes
+    it: a pass of radix P = R0*R1 at stride s reads x[k*(L/P) + u]
+    (u = p*s + q), runs the R0-point stage with inner twiddles W_P^(j*p'),
+    then the R1-point stage, multiplies output j by the pass table's
+    W_L^(j*p*s) (at [j*m + p]; conjugated backward) and writes
     x[p*P*s + j*s + q]."""
     L = x.shape[-1]
     rows = x.shape[0]
     table = row_passes.pass_twiddles(plan.radices, L)
+    if sign > 0:
+        table = np.conj(table)
     s = 1
     for r0, r1 in row_passes.pass_plan(plan.radices):
         P = r0 * r1
         m = L // (P * s)
         v = x.reshape(rows, r0, r1, m, s)  # k = k0*R1 + p', then (p, q)
-        v = _dft(v, r0)  # over k0: (rows, j0, p', m, s)
+        v = _dft(v, r0, sign)  # over k0: (rows, j0, p', m, s)
         if r1 > 1:
-            v = v * _inner(P)[(np.arange(r0)[:, None] * np.arange(r1)[None, :])][None, :, :, None, None]
-            v = _dft(np.swapaxes(v, 1, 2), r1)  # over p': (rows, j1, j0, m, s); output j = j1*R0 + j0
+            v = v * _inner(P, sign)[(np.arange(r0)[:, None] * np.arange(r1)[None, :])][None, :, :, None, None]
+            v = _dft(np.swapaxes(v, 1, 2), r1, sign)  # over p': (rows, j1, j0, m, s); output j = j1*R0 + j0
         v = v.reshape(rows, P, m, s)
         tw, table = table[: P * m].reshape(P, m), table[P * m :]
         v = (v * tw[None, :, :, None]).astype(np.complex64)
@@ -163,3 +173,165 @@ def test_geometry_refuses_what_does_not_fit():
         row_passes.launch_geometry(ct.cached_plan(1 << 15, ct.FFT_COMPLEX), 1)  # 1 MB of shared memory
     with pytest.raises(ValueError):
         row_passes.launch_geometry(ct.cached_plan(200, ct.FFT_COMPLEX), 1)  # 200 % 16
+
+
+# ---------------------------------------------------------------------------
+# K2/K3 (and K2-db): the packed real inverse on the same engine
+# ---------------------------------------------------------------------------
+
+
+def irfft_model(pre, pim, plan, ordered: bool = True, b=None, scale: float = 1.0) -> np.ndarray:
+    """K2 (``b`` None) or K3 (``b`` = (bre, bim), 1 or rows rows) on packed
+    planes (rows, M) in position order, as row_fft.cuh computes it: the
+    first exchange (K3: scale * A (.) B with the bin-0 patch-up
+    re[0] = Ar*Br, im[0] = Ai*Bi, in float32) scatters position p to its
+    bin (perm[p] unordered), slot 0 keeping DC in re and Nyquist in im;
+    the first pass reads bin k merged from X[k] and conj X[M-k] with the
+    plan's split twiddle w_k (stockham.cuh merge_bin; X[M] = Nyq at k=0);
+    the SIGN = +1 passes; the store of 2 z as N real samples."""
+    re, im = np.asarray(pre, np.float32), np.asarray(pim, np.float32)
+    rows, M = re.shape
+    if b is not None:
+        br, bi = (np.asarray(t, np.float32) for t in b)
+        pr, pi = re * br - im * bi, re * bi + im * br
+        pr[:, 0], pi[:, 0] = re[:, 0] * br[:, 0], im[:, 0] * bi[:, 0]
+        re, im = (pr * np.float32(scale)).astype(np.float32), (pi * np.float32(scale)).astype(np.float32)
+    X = np.empty((rows, M), np.complex64)
+    X[:, np.arange(M) if ordered else tables.unordered_perm(plan.n)] = re + 1j * im
+    k = np.arange(M)
+    xk = X.copy()
+    xr = np.conj(X[:, (M - k) % M])
+    xk[:, 0], xr[:, 0] = X[:, 0].real, X[:, 0].imag
+    w = (plan.rfft_tw_re + 1j * plan.rfft_tw_im).astype(np.complex64)[None, :M]
+    e = ((xk + xr) * np.float32(0.5)).astype(np.complex64)
+    o = (np.conj(w) * ((xk - xr) * np.float32(0.5))).astype(np.complex64)
+    z = (e + 1j * o).astype(np.complex64)
+    zz = engine_model(z, plan, sign=1)
+    out = np.empty((rows, 2 * M), np.float32)
+    out[:, 0::2], out[:, 1::2] = 2 * zz.real, 2 * zz.imag
+    return out
+
+
+def _packed(x64: np.ndarray, ordered: bool, n: int):
+    """float64 packed planes of real rows (Nyquist in im[0]), in position
+    order, rounded to float32 as a kernel's input."""
+    spec = np.fft.rfft(x64, axis=-1)
+    m = n // 2
+    re, im = spec[:, :m].real.copy(), spec[:, :m].imag.copy()
+    im[:, 0] = spec[:, m].real
+    sel = slice(None) if ordered else tables.unordered_perm(n)
+    return re[:, sel].astype(np.float32), im[:, sel].astype(np.float32)
+
+
+@pytest.mark.parametrize("n", REAL_SIZES)
+def test_inverse_model_matches_float64(n):
+    """At every size of K2/K3's domain, both orders: the inverse model
+    within 2e-7*N of float64 (out / N against the rows whose spectra it
+    was given), and K3's within 2e-7*N of the float64 circular
+    convolution, with a 1-row (shared) B and a rows-row B."""
+    rng = np.random.default_rng(n)
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    rows = 3
+    x = rng.standard_normal((rows, n)).astype(np.float32).astype(np.float64)
+    h = (rng.standard_normal((rows, n)) / np.sqrt(n)).astype(np.float32).astype(np.float64)
+    for ordered in (True, False):
+        a = _packed(x, ordered, n)
+        assert np.abs(irfft_model(*a, plan, ordered) / n - x).max() <= 2e-7 * n, (n, ordered)
+        hb = _packed(h, ordered, n)
+        for b_rows in (1, rows):
+            b = (hb[0][:b_rows], hb[1][:b_rows])
+            want = np.fft.irfft(np.fft.rfft(x) * np.fft.rfft(h[:b_rows]), n=n)
+            got = irfft_model(*a, plan, ordered, b=b, scale=1.0 / n)
+            assert np.abs(got - want).max() <= 2e-7 * n, (n, ordered, b_rows)
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("n", [384, 4096])
+@pytest.mark.parametrize("bin_", ["dc", "nyquist"])
+def test_inverse_model_ends_of_the_merge(bin_, n, ordered):
+    """One nonzero bin at each end of the merge, at an odd n1 (384 =
+    3*128) and a power of two: DC alone gives the constant row, the
+    Nyquist bin alone (im[0]) the alternating one, unscaled; the model
+    within 2e-7*N of both, and the other bin's row fails."""
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    re = np.zeros((1, n // 2), np.float32)
+    im = np.zeros_like(re)
+    (re if bin_ == "dc" else im)[0, 0] = 0.75  # position 0 is bin 0 in both layouts
+    got = irfft_model(re, im, plan, ordered)
+    alt = 0.75 * (-1.0) ** np.arange(n)
+    want, other = (np.full(n, 0.75), alt) if bin_ == "dc" else (alt, np.full(n, 0.75))
+    assert np.abs(got[0] - want).max() <= 2e-7 * n
+    assert np.abs(got[0] - other).max() > 2e-7 * n
+
+
+@pytest.mark.parametrize("n", [384, 4096, 16384])
+def test_inverse_model_matches_jax(n):
+    """The JAX package's K2 and K3 (``_pallas_irfft_packed``,
+    ``_pallas_irfft_conv``, interpret mode, as its own tests run them)
+    against the inverse model on the same packed planes, both orders,
+    a shared and a batched B: within 2e-7*N (K2 per sample, out / N;
+    K3's scale 1/N leaves unit-scale rows)."""
+    import jax.numpy as jnp
+
+    from chowdsp_fft_tpu.ops import pallas_fft
+
+    rng = np.random.default_rng(n + 1)
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    rows = 3
+    x = rng.standard_normal((rows, n))
+    h = rng.standard_normal((rows, n)) / np.sqrt(n)
+    for ordered in (True, False):
+        a = _packed(x, ordered, n)
+        want = np.asarray(pallas_fft._pallas_irfft_packed(*map(jnp.asarray, a), n, ordered))
+        # Unscaled (N x): compare per sample, as test_torch_real_fft.py does.
+        assert np.abs(irfft_model(*a, plan, ordered) / n - want / n).max() <= 2e-7 * n, (n, ordered)
+        hb = _packed(h, ordered, n)
+        for b_rows in (1, rows):
+            b = (hb[0][:b_rows], hb[1][:b_rows])
+            want = np.asarray(pallas_fft._pallas_irfft_conv(*map(jnp.asarray, (*a, *b)), n, ordered, 1.0 / n))
+            got = irfft_model(*a, plan, ordered, b=b, scale=1.0 / n)
+            assert np.abs(got - want).max() <= 2e-7 * n, (n, ordered, b_rows)
+
+
+@pytest.mark.parametrize("n", REAL_SIZES)
+def test_inverse_launches_take_the_row_geometry(n, monkeypatch):
+    """K2, K3 and K2-db launch with launch_geometry's pass plan (the plan's
+    stages fused in pairs), the pass twiddles and the plan's split table
+    in bin order; the grid forms also with its rows per block, threads,
+    shared bytes and grid, at every size, for 1, 7 and 1001 rows."""
+    calls = []
+    monkeypatch.setattr(hopper_fft, "launch", lambda kernel, entry, device, *args: calls.append((kernel, args)))
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    cpu = torch.device("cpu")
+    tw, _ = row_passes.device_tables(n, ct.FFT_REAL, "cpu")
+    split = plan.device_tables(cpu).split_tw
+    cases = ((hopper_fft.K2, "k2_irfft_packed", 5), (hopper_fft.K3, "k3_convolve_irfft_packed", 9),
+             (hopper_fft.K2_DB, "k2db_irfft_packed", 5))
+    for rows in (1, 7, 1001):
+        g = row_passes.launch_geometry(plan, rows)
+        for ordered in (True, False):
+            for kernel, entry, lead in cases:
+                calls.clear()
+                hopper_fft._launch_rows(kernel, entry, plan, cpu, ordered, rows, *range(lead))
+                (got_kernel, args), = calls
+                assert got_kernel is kernel and args[:lead] == tuple(range(lead))
+                passes_at, npasses, tw_ptr, split_ptr, perm = args[lead + 2 : lead + 7]
+                assert npasses == len(g.passes)
+                assert tuple((ctypes.c_int * (2 * npasses)).from_address(passes_at)) == g.flat_passes
+                assert tuple((ctypes.c_int * len(plan.radices)).from_address(args[lead])) == plan.radices
+                assert (tw_ptr, split_ptr) == (tw.data_ptr(), split.data_ptr())
+                assert (perm is None) == ordered
+                assert args[lead + 7 :] == (() if kernel is hopper_fft.K2_DB else g.args)
+
+
+def test_inverse_runs_the_row_engine():
+    """K2, K3 and K2-db run row_fft.cuh's irfft_row (the row engine's
+    passes, the merge in the first pass's reads); only K5 and K7a still
+    reach stockham.cuh's run_stages."""
+    for name in ("real_fft.cu", "pipelined_fft.cu"):
+        src = (CSRC / name).read_text()
+        assert "irfft_row<" in src and "run_stages" not in src
+    row = (CSRC / "row_fft.cuh").read_text()
+    assert "MergeIn{" in row and "run_stages" not in row
+    callers = sorted(p.name for p in CSRC.glob("*.cu") if "run_stages<" in p.read_text())
+    assert callers == ["composite_fft.cu", "small_fft.cu"]
