@@ -8,15 +8,18 @@ Phases, each of which asserts:
 
 1. identify the card (name and power limit), build the kernels (one nvcc
    per source, in parallel), check the size limits (MAX_N, MAX_CN,
-   MAX_SMALL_N, MAX_COL) and K5's and the K1/K4 row engine's points per
+   MAX_SMALL_N, MAX_COL) and K5's and the K1-K4 row engine's points per
    thread against Python's, report ptxas's registers and spills of the
-   K1/K4 kernels and of the column engine's (K6's four roles, K7b), and
-   K7a's column tile;
+   row engine's kernels (K1-K4, K1-db, K2-db, K4-db) and of the column
+   engine's (K6's four roles, K7b), and K7a's column tile;
 2. run K1-K3 against their plain PyTorch versions on the card and against
    float64 numpy on the host, bound 2e-7*N (max abs error); K1 at every
    size of its domain (36 N) at 1, 7 and 1001 rows, both orders, planes,
    joint rows and 8-byte aligned views; a zeroed K1 output and one
-   without its Nyquist slot must fail the check;
+   without its Nyquist slot must fail the check; K2 and K3 likewise at
+   every size (36 N) at 1, 7 and 1001 rows, both orders, K3 with a shared
+   and a batched B, 8-byte aligned views bit-equal; a zeroed output and an
+   input without its Nyquist bins must fail;
 3. BASELINE config 3 end to end: a 4096-tap FIR on 4 x 2^20-sample
    streams through ``stream.fir_filter_ols(block=8192)`` and
    ``stream.partitioned_fir_apply(block=1024)``, against a float64 FFT
@@ -25,7 +28,7 @@ Phases, each of which asserts:
 4. K1-K3 carried config 3: every launch count from phase 3 > 0, and
    ``engine_for`` picks the Hopper engine at the path's sizes;
 5. timing at N=4096, B=1024 (kernel, plain version, cuFFT), informational,
-   with K1's launch geometry and resident blocks per SM;
+   with K1-K3's launch geometry and resident blocks per SM;
 6. K4 and K5 against their plain versions and float64, bound 2e-7*N:
    K4 forward/backward x ordered/unordered, planes and complex64, at
    every size of its domain (33 N) at 1, 7 and 1001 rows (8-byte aligned
@@ -95,15 +98,19 @@ Phases, each of which asserts:
     (joint), K2, K4 at the headline shape, N = 16384, 9216 and MAX_CN,
     the C = 1024 channelizer's batch, ragged batches, a single row and
     config 4's own frames and accumulated spectra (recorded on phase 16's
-    path; K1-db and K2-db reproduce the model's outputs), and within
-    2e-7*N of their plain versions; a zeroed output must fail. Then their
+    path; K1-db and K2-db reproduce the model's outputs), K2-db also at
+    every size of phase 2's sweep, and within 2e-7*N of their plain
+    versions; a zeroed output must fail. Then their
     own run, counted: config 4's frames and spectra through K1-db and
     K2-db, the channelizer's transform through K4-db;
 19. timing (informational): each db kernel beside its grid kernel
     (grid/db/db/grid in turn) at every shape of phase 18, plain versions
     at the headline shape; K1 at config 4's 7552 x 8192 frames and the
-    STFT's 60,096 x 1024, K4 backward at the channelizer's 16384 x 1024,
-    each beside its ``torch.fft`` call and bound, with the launch geometry
+    STFT's 60,096 x 1024, K2 on config 4's accumulated spectra and at
+    config 3's block 1024 (4096 x 2048), K3 at config 3's fir_filter_ols
+    (512 x 16384, a shared filter), K4 backward at the channelizer's
+    16384 x 1024, each beside its ``torch.fft`` call (K3 beside the
+    inverse alone) and bound, with the launch geometry
     and resident blocks per SM; config 4's ``apply`` (wall, device time by
     kernel, idle share) and one ``step``, and ``spectrogram``.
 
@@ -873,6 +880,18 @@ def phase11(ct, hopper_cfft, hopper_small, row_passes, models, stream, lib, dev,
           for k in (hopper_small.K5_REAL, hopper_small.K5_REAL_INVERSE)}
     log(f"phase 11 block-128 FIR: K5 device time " + ", ".join(f"{name} {ms:.4f} ms" for name, ms in k5.items())
         + f" of {sum(by_kernel.values()):.3f} ms [{card}]")
+
+    # Config 3's main path as phase 3 runs it: fir_filter_ols at block 8192
+    # (K1, K3 at N = 16384) and partitioned_fir_apply at block 1024 (K1,
+    # the packed convolve-accumulate, K2 at N = 2048).
+    symbols = {"K1": "::rfft_packed_kernel(", "K2": "irfft_packed_kernel<false>", "K3": "irfft_packed_kernel<true>"}
+    for name, fn in (("fir_filter_ols(block=8192) on config 3", lambda: stream.fir_filter_ols(x, h, block=8192)),
+                     ("partitioned_fir_apply(block=1024) on config 3",
+                      lambda: stream.partitioned_fir_apply(x, h, block=1024))):
+        by_kernel = breakdown(11, name, fn, wall_ms(fn, 7), card, top=8)
+        rows = {k: sum(ms for kname, ms in by_kernel.items() if sym in kname) for k, sym in symbols.items()}
+        log(f"phase 11 {name}: K1-K3 device time " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in rows.items())
+            + f" of {sum(by_kernel.values()):.3f} ms [{card}]")
     return times
 
 
@@ -1478,8 +1497,8 @@ def phase19(ct, hf, hc4, roof, row_passes, lib, models, stream, dev, card, audio
     """Timing (informational). Each db kernel beside its grid kernel,
     grid/db/db/grid in turn, at every shape of phase 18 (K1 and K1-db
     joint unordered, K2 unordered, K4 complex64 forward ordered); at the
-    headline shape the db kernels' device times and plain versions;
-    config 4's apply (wall, device time by kernel, idle share) and one
+    headline shape the db kernels' device times and plain versions; K1-K4
+    at their paths' shapes; config 4's apply (wall, device time by kernel, idle share) and one
     step (wall); spectrogram (wall, device). Returns each db kernel's row
     at the headline shape (ms, device_ms, plain_ms)."""
 
@@ -1613,6 +1632,10 @@ def phase19(ct, hf, hc4, roof, row_passes, lib, models, stream, dev, card, audio
     spec_wall = wall_ms(lambda: stream.spectrogram(x, n_fft=n_fft, hop=hop), 5)
     breakdown(19, f"spectrogram (n_fft {n_fft}, hop {hop}, {channels} x {t})",
               lambda: stream.spectrogram(x, n_fft=n_fft, hop=hop), spec_wall, card)
+    spec = stream.stft(x, n_fft=n_fft, hop=hop)
+    istft_wall = wall_ms(lambda: stream.istft(spec, hop=hop, length=t), 5)
+    breakdown(19, f"istft (n_fft {n_fft}, hop {hop}, {channels} x {spec.shape[-2]} frames)",
+              lambda: stream.istft(spec, hop=hop, length=t), istft_wall, card)
     return out
 
 

@@ -255,12 +255,6 @@ int cfft_db(const float* xre, const float* xim, float* yre, float* yim, int stri
              : launch_cfft_db<SIGN, 1024, false>(xre, xim, yre, yim, stride, rows, n, ps, tw, perm, stream);
 }
 
-template <typename K>
-int blocks_at(K kernel, int threads, int smem, int* per_sm) {
-  const int err = set_smem(kernel, smem);
-  return err ? err : resident_blocks(kernel, threads, smem, per_sm);
-}
-
 }  // namespace
 
 extern "C" {
@@ -316,7 +310,7 @@ int k2db_irfft_packed(const float* yre, const float* yim, float* x, int rows, in
   Passes ps;
   int err = real_setup(n, radices, nstages, passes, npasses, &ps);
   if (err) return err;
-  if (ps.count < 2 || !aligned16(yre) || !aligned16(yim) || (perm && !aligned16(perm)))
+  if (!aligned16(yre) || !aligned16(yim) || (perm && !aligned16(perm)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   err = set_smem(irfft_db_kernel, irfft_db_smem(n));

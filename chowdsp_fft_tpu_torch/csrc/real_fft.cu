@@ -122,14 +122,13 @@ int real_row_setup(int n, int rows, const int* radices, int nstages, const int* 
   return threads > kMaxK1Threads ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }
 
-// K2/K3's launch, after real_row_setup: the last pass stores from
-// registers, so the plan needs two passes; the unordered table is read
-// 16 bytes at a time.
+// K2/K3's launch, after real_row_setup; the unordered table is read 16
+// bytes at a time.
 template <bool CONV>
 int launch_irfft(const float* are, const float* aim, const float* bre, const float* bim, int b_rows, float scale,
                  float* x, int rows, int n, const Passes& ps, const void* tw, const void* split_tw, const int* perm,
                  int rows_per_block, int threads, int smem, int grid, cudaStream_t stream) {
-  if (ps.count < 2 || (perm && !aligned16(perm))) return static_cast<int>(cudaErrorInvalidValue);
+  if (perm && !aligned16(perm)) return static_cast<int>(cudaErrorInvalidValue);
   const int err = set_smem(irfft_packed_kernel<CONV>, smem);
   if (err) return err;
   irfft_packed_kernel<CONV><<<grid, threads, smem, stream>>>(
@@ -151,14 +150,12 @@ int hopper_row_points_per_thread() { return kRowPoints; }
 // bytes, of K1 (which = 1), K2 (2) or K3 (3); 0 if the query fails.
 int hopper_real_fft_blocks_per_sm(int which, int threads, int smem) {
   int per_sm = 0;
-  if (threads < 1 || threads > kMaxK1Threads) return 0;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (which == 1 && !set_smem(rfft_packed_kernel, smem))
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rfft_packed_kernel, threads, smem);
-  else if (which == 2 && !set_smem(irfft_packed_kernel<false>, smem))
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, irfft_packed_kernel<false>, threads, smem);
-  else if (which == 3 && !set_smem(irfft_packed_kernel<true>, smem))
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, irfft_packed_kernel<true>, threads, smem);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (threads >= 1 && threads <= kMaxK1Threads) {
+    if (which == 1) err = blocks_at(rfft_packed_kernel, threads, smem, &per_sm);
+    if (which == 2) err = blocks_at(irfft_packed_kernel<false>, threads, smem, &per_sm);
+    if (which == 3) err = blocks_at(irfft_packed_kernel<true>, threads, smem, &per_sm);
+  }
   return err ? 0 : per_sm;
 }
 

@@ -15,13 +15,6 @@
 
 #include "row_passes.cuh"
 
-// Which store K2/K3 run (a development switch, measured on the card):
-// 1, from the last pass's registers; 0, float4 stores from the last
-// exchange.
-#ifndef CHOWDSP_IRFFT_REG_STORE
-#define CHOWDSP_IRFFT_REG_STORE 1
-#endif
-
 namespace {
 
 // K1: the row's N real samples (8-byte aligned) as M = N/2 complex points
@@ -149,7 +142,9 @@ __device__ __forceinline__ void irfft_row_scatter(const float* pre, const float*
 
 // K2/K3's last pass writes N * x = 2 * z (z = M * (x_even + i x_odd), the
 // half-length inverse) straight to device memory: point i as the real
-// samples x[2i], x[2i+1]. Consecutive threads hold consecutive points.
+// samples x[2i], x[2i+1]. Consecutive threads hold consecutive points, so
+// a warp writes 256 contiguous bytes an instruction. (float4 stores from
+// one more exchange ran 3-8% slower on the H100: PERF.md, PR 8.)
 struct RealOut {
   float2* x;
   bool store;
@@ -175,26 +170,7 @@ __device__ __forceinline__ void irfft_row(const float* pre, const float* pim, co
   irfft_row_scatter<CONV>(pre, pim, bre, bim, scale, perm, b, t, tpr);
   __syncthreads();
   hook();
-#if CHOWDSP_IRFFT_REG_STORE
   run_passes_to<1>(ps, MergeIn{b, split, M}, a, b, M, tw, t, tpr, RealOut{reinterpret_cast<float2*>(x), store});
-#else
-  const float2* buf = run_passes<1>(ps, MergeIn{b, split, M}, a, b, M, tw, t, tpr, NoHook{});
-  if (!store) return;
-  const bool vec = aligned16(x);
-  float2* y = reinterpret_cast<float2*>(x);
-#pragma unroll
-  for (int c = 0; c < kRowPoints / 2; ++c) {
-    const int i = 2 * (t + c * tpr);
-    const float2 z0 = buf[slot(i)], z1 = buf[slot(i + 1)];
-    const float2 v0 = make_float2(2.0f * z0.x, 2.0f * z0.y), v1 = make_float2(2.0f * z1.x, 2.0f * z1.y);
-    if (vec) {
-      *reinterpret_cast<float4*>(y + i) = make_float4(v0.x, v0.y, v1.x, v1.y);
-    } else {
-      y[i] = v0;
-      y[i + 1] = v1;
-    }
-  }
-#endif
 }
 
 // K4, the last exchange's reads: the natural-order row in `buf` stored

@@ -307,9 +307,11 @@ __device__ __forceinline__ float2* run_passes(const Passes& ps, In in, float2* a
   return a;
 }
 
-// As run_passes for a plan of at least two passes, but the last pass
-// writes its outputs to `last` (in natural order: there p = 0, so output
-// j of butterfly u is point j*s + u) and no barrier follows it.
+// As run_passes (a plan of at least two passes: check_passes), but the
+// last pass writes its outputs to `last` (in natural order: there p = 0,
+// so output j of butterfly u is point j*s + u) and no barrier follows it.
+// Kept beside run_passes rather than under it, so that K1 and K4 compile
+// as they were measured.
 template <int SIGN, class In, class Out>
 __device__ __forceinline__ void run_passes_to(const Passes& ps, In in, float2* a, float2* b, int L,
                                               const float2* __restrict__ tw, int t, int tpr, Out last) {
@@ -333,10 +335,12 @@ __device__ __forceinline__ void run_passes_to(const Passes& ps, In in, float2* a
 __host__ __device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // Host: refuse a pass plan that is not the plan's stages fused in order
-// (pairs of the kinds dispatch_pass knows, or single stages), or a row
-// that the threads do not cover. Returns a cudaError_t value.
+// (pairs of the kinds dispatch_pass knows, or single stages), one of
+// fewer than two passes (run_passes_to's first and last pass are two;
+// every size of the domains has at least two), or a row that the threads
+// do not cover. Returns a cudaError_t value.
 int check_passes(const int* passes, int npasses, const Radices& rad, int L, Passes* out) {
-  if (npasses < 1 || npasses > kMaxPasses || L % kRowPoints) return static_cast<int>(cudaErrorInvalidValue);
+  if (npasses < 2 || npasses > kMaxPasses || L % kRowPoints) return static_cast<int>(cudaErrorInvalidValue);
   int stage = 0, prod = 1;
   out->count = npasses;
   for (int i = 0; i < npasses; ++i) {

@@ -210,4 +210,13 @@ int set_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
+// Blocks of `kernel` resident on one SM at `threads` and `smem` bytes
+// (allowed first) into *per_sm; returns a cudaError_t value.
+template <typename K>
+int blocks_at(K kernel, int threads, int smem, int* per_sm) {
+  const int err = set_smem(kernel, smem);
+  return err ? err
+             : static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem));
+}
+
 }  // namespace
