@@ -64,32 +64,26 @@ __device__ __forceinline__ void rfft_row(const float* x, float2* a, float2* b, i
 }
 
 // Four consecutive floats at p: one float4 where p is 16-byte aligned
-// (`vec`), else four scalar loads. p may be a generic pointer into shared
-// memory (a pipelined form's landing buffer).
+// (`vec`), else four scalar loads. LDG reads device memory through the
+// read-only cache; else p may be a generic pointer into shared memory (a
+// pipelined form's landing buffer).
+template <bool LDG = false>
 __device__ __forceinline__ void load4(const float* p, bool vec, float (&v)[4]) {
   if (vec) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
+    const float4* q4 = reinterpret_cast<const float4*>(p);
+    float4 q;
+    if constexpr (LDG) q = __ldg(q4);
+    else q = *q4;
     v[0] = q.x;
     v[1] = q.y;
     v[2] = q.z;
     v[3] = q.w;
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = p[e];
-  }
-}
-
-// The same from device memory through the read-only cache.
-__device__ __forceinline__ void ldg4(const float* __restrict__ p, bool vec, float (&v)[4]) {
-  if (vec) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = __ldg(p + e);
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (LDG) v[e] = __ldg(p + e);
+      else v[e] = p[e];
+    }
   }
 }
 
@@ -116,8 +110,8 @@ __device__ __forceinline__ void irfft_row_scatter(const float* pre, const float*
     load4(pim + pos0, vec, im);
     if (CONV) {
       float br[4], bi[4];
-      ldg4(bre + pos0, bvec, br);
-      ldg4(bim + pos0, bvec, bi);
+      load4<true>(bre + pos0, bvec, br);
+      load4<true>(bim + pos0, bvec, bi);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool bin0 = pos0 + e == 0;
@@ -170,7 +164,8 @@ __device__ __forceinline__ void irfft_row(const float* pre, const float* pim, co
   irfft_row_scatter<CONV>(pre, pim, bre, bim, scale, perm, b, t, tpr);
   __syncthreads();
   hook();
-  run_passes_to<1>(ps, MergeIn{b, split, M}, a, b, M, tw, t, tpr, RealOut{reinterpret_cast<float2*>(x), store});
+  run_passes_to<1>(ps, MergeIn{b, split, M}, a, b, M, tw, t, tpr, NoHook{},
+                   RealOut{reinterpret_cast<float2*>(x), store});
 }
 
 // K4, the last exchange's reads: the natural-order row in `buf` stored

@@ -283,41 +283,19 @@ __device__ __forceinline__ void dispatch_pass(int r0, int r1, In in, Out out, in
 }
 
 // All passes, ping-ponging between the padded buffers a and b, a barrier
-// after each: the first reads `in` and writes a; after it, `hook()` runs
-// once all threads are done reading `in` (a pipelined form issues the
-// next row's copy into its landing buffer there). Returns the buffer that
-// holds the natural-order row. `in` may be b itself.
-template <int SIGN, class In, class Hook>
-__device__ __forceinline__ float2* run_passes(const Passes& ps, In in, float2* a, float2* b, int L,
-                                              const float2* __restrict__ tw, int t, int tpr, Hook hook) {
+// after each but the last: the first reads `in` and writes a; after it,
+// `hook()` runs once all threads are done reading `in` (a pipelined form
+// issues the next row's copy into its landing buffer there). `in` may be
+// b itself. The last pass writes its outputs to `last`, in natural order
+// (there p = 0, so output j of butterfly u is point j*s + u), and no
+// barrier follows it. A plan has at least two passes (check_passes).
+template <int SIGN, class In, class Hook, class Out>
+__device__ __forceinline__ void run_passes_to(const Passes& ps, In in, float2* a, float2* b, int L,
+                                              const float2* __restrict__ tw, int t, int tpr, Hook hook, Out last) {
   dispatch_pass<SIGN>(ps.r0[0], ps.r1[0], in, SharedOut{a}, L, 1, tw, t, tpr);
   __syncthreads();
   hook();
   tw += L;  // pass i's table holds P*m = L/s entries
-  int s = ps.r0[0] * ps.r1[0];
-  for (int i = 1; i < ps.count; ++i) {
-    dispatch_pass<SIGN>(ps.r0[i], ps.r1[i], SharedIn{a}, SharedOut{b}, L, s, tw, t, tpr);
-    __syncthreads();
-    tw += L / s;
-    s *= ps.r0[i] * ps.r1[i];
-    float2* tmp = a;
-    a = b;
-    b = tmp;
-  }
-  return a;
-}
-
-// As run_passes (a plan of at least two passes: check_passes), but the
-// last pass writes its outputs to `last` (in natural order: there p = 0,
-// so output j of butterfly u is point j*s + u) and no barrier follows it.
-// Kept beside run_passes rather than under it, so that K1 and K4 compile
-// as they were measured.
-template <int SIGN, class In, class Out>
-__device__ __forceinline__ void run_passes_to(const Passes& ps, In in, float2* a, float2* b, int L,
-                                              const float2* __restrict__ tw, int t, int tpr, Out last) {
-  dispatch_pass<SIGN>(ps.r0[0], ps.r1[0], in, SharedOut{a}, L, 1, tw, t, tpr);
-  __syncthreads();
-  tw += L;
   int s = ps.r0[0] * ps.r1[0];
   for (int i = 1; i < ps.count - 1; ++i) {
     dispatch_pass<SIGN>(ps.r0[i], ps.r1[i], SharedIn{a}, SharedOut{b}, L, s, tw, t, tpr);
@@ -330,6 +308,18 @@ __device__ __forceinline__ void run_passes_to(const Passes& ps, In in, float2* a
   }
   const int i = ps.count - 1;
   dispatch_pass<SIGN>(ps.r0[i], ps.r1[i], SharedIn{a}, last, L, s, tw, t, tpr);
+}
+
+// run_passes_to into shared memory, then a barrier: returns the buffer
+// that holds the natural-order row (pass i writes a for even i, b for odd
+// i, so the last pass writes a when the plan has an odd count).
+template <int SIGN, class In, class Hook>
+__device__ __forceinline__ float2* run_passes(const Passes& ps, In in, float2* a, float2* b, int L,
+                                              const float2* __restrict__ tw, int t, int tpr, Hook hook) {
+  float2* dst = ps.count % 2 ? a : b;
+  run_passes_to<SIGN>(ps, in, a, b, L, tw, t, tpr, hook, SharedOut{dst});
+  __syncthreads();
+  return dst;
 }
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

@@ -197,25 +197,24 @@ def rfft_packed_joint_plain(x: torch.Tensor, plan: FFTPlan, ordered: bool = True
 
 
 def _launch_rows(kernel: Kernel, entry: str, plan: FFTPlan, device: torch.device, ordered: bool, rows: int,
-                *args):
+                 *args, position_split: bool, grid: bool):
     """Launch a row-engine entry of K1-K3 or their db forms with ``args``
     (the kernel's tensors and scalars, ending in rows and N) followed by
     the plan's radices and pass plan (host int arrays), the pass twiddles
     and the split twiddles (complex64 on the device, i.e. float2;
     ``row_passes.device_tables``), the unordered permutation (NULL for
-    ordered bins) and, for a grid form, the launch geometry
-    (``row_passes.launch_geometry``). K1's epilogue reads the split
-    twiddles in position order (gathered to the unordered layout), the
-    inverse's merge in bin order."""
+    ordered bins) and, for a grid form (``grid``), the launch geometry
+    (``row_passes.launch_geometry``; a pipelined form picks its persistent
+    grid). The split twiddles are in bin order (the inverse's merge), or
+    with ``position_split`` in position order (K1's epilogue: gathered to
+    the unordered layout)."""
     tw, split_unordered = row_passes.device_tables(plan.n, plan.kind, str(device))
-    forward = kernel in (K1, K1_DB)
-    split = split_unordered if forward and not ordered else plan.device_tables(device).split_tw
-    geo = row_passes.launch_geometry(plan, rows)
+    split = split_unordered if position_split and not ordered else plan.device_tables(device).split_tw
     perm = None if ordered else device_perm(unordered_perm, plan.n, str(device)).data_ptr()
-    tail = geo.args if kernel in (K1, K2, K3) else ()
+    geo = row_passes.launch_geometry(plan, rows)
     launch(kernel, entry, device, *args, ctypes.addressof(host_ints(plan.radices)), len(plan.radices),
            ctypes.addressof(host_ints(geo.flat_passes)), len(geo.passes), tw.data_ptr(), split.data_ptr(), perm,
-           *tail)
+           *(geo.args if grid else ()))
 
 
 def _require_real_domain(kernel: Kernel, plan: FFTPlan):
@@ -234,13 +233,15 @@ def rfft_packed_kernel(x: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     yim = torch.empty_like(yre)
     if rows:
         _launch_rows(K1, "k1_rfft_packed", plan, x.device, ordered, rows,
-                   x.data_ptr(), yre.data_ptr(), yim.data_ptr(), plan.n // 2, rows, plan.n)
+                     x.data_ptr(), yre.data_ptr(), yim.data_ptr(), plan.n // 2, rows, plan.n,
+                     position_split=True, grid=True)
     return yre, yim
 
 
-def _rfft_joint(kernel: Kernel, entry: str, x: torch.Tensor, plan: FFTPlan, ordered: bool, align: int):
-    """K1 or K1-db into joint rows: re at [0, N/2), im at [N/2, N), row
-    stride N."""
+def _rfft_joint(kernel: Kernel, entry: str, x: torch.Tensor, plan: FFTPlan, ordered: bool, align: int,
+                grid: bool):
+    """K1 (``grid``) or K1-db into joint rows: re at [0, N/2), im at
+    [N/2, N), row stride N."""
     _require_real_domain(kernel, plan)
     if x.device.type == "cpu":
         return rfft_packed_joint_plain(x, plan, ordered)
@@ -250,26 +251,27 @@ def _rfft_joint(kernel: Kernel, entry: str, x: torch.Tensor, plan: FFTPlan, orde
     y = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     if rows:
         _launch_rows(kernel, entry, plan, x.device, ordered, rows,
-                   x.data_ptr(), y.data_ptr(), y.data_ptr() + 4 * (n // 2), n, rows, n)
+                     x.data_ptr(), y.data_ptr(), y.data_ptr() + 4 * (n // 2), n, rows, n,
+                     position_split=True, grid=grid)
     return y
 
 
 def rfft_packed_joint_kernel(x: torch.Tensor, plan: FFTPlan, ordered: bool = True) -> torch.Tensor:
     """K1 with the joint output of JAX's ``_rfft_packed_joint``: (rows, N)
     f32 -> (rows, N) rows [re | im], Nyquist in im[0]."""
-    return _rfft_joint(K1, "k1_rfft_packed", x, plan, ordered, 8)
+    return _rfft_joint(K1, "k1_rfft_packed", x, plan, ordered, 8, grid=True)
 
 
 def rfft_packed_joint_db_kernel(x: torch.Tensor, plan: FFTPlan, ordered: bool = True) -> torch.Tensor:
     """K1-db, the pipelined K1 (JAX's ``_rfft_packed_joint_db``): the same
     joint rows, bit-identical to :func:`rfft_packed_joint_kernel`. The
     input must be 16-byte aligned."""
-    return _rfft_joint(K1_DB, "k1db_rfft_packed", x, plan, ordered, 16)
+    return _rfft_joint(K1_DB, "k1db_rfft_packed", x, plan, ordered, 16, grid=False)
 
 
 def _irfft(kernel: Kernel, entry: str, yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool,
-           align: int):
-    """K2 or K2-db: packed planes (rows, N/2) x2 -> (rows, N) f32."""
+           align: int, grid: bool):
+    """K2 (``grid``) or K2-db: packed planes (rows, N/2) x2 -> (rows, N) f32."""
     _require_real_domain(kernel, plan)
     if yre.device.type == "cpu" and yim.device.type == "cpu":
         return irfft_packed_plain(yre, yim, plan, ordered)
@@ -280,19 +282,19 @@ def _irfft(kernel: Kernel, entry: str, yre: torch.Tensor, yim: torch.Tensor, pla
     x = torch.empty((rows, plan.n), dtype=torch.float32, device=yre.device)
     if rows:
         _launch_rows(kernel, entry, plan, yre.device, ordered, rows,
-                     yre.data_ptr(), yim.data_ptr(), x.data_ptr(), rows, plan.n)
+                     yre.data_ptr(), yim.data_ptr(), x.data_ptr(), rows, plan.n, position_split=False, grid=grid)
     return x
 
 
 def irfft_packed_kernel(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     """K2 on packed planes (rows, N/2) x2 -> (rows, N) f32."""
-    return _irfft(K2, "k2_irfft_packed", yre, yim, plan, ordered, 8)
+    return _irfft(K2, "k2_irfft_packed", yre, yim, plan, ordered, 8, grid=True)
 
 
 def irfft_packed_db_kernel(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     """K2-db, the pipelined K2 (JAX's ``_irfft_packed_db``): bit-identical
     to :func:`irfft_packed_kernel`. The planes must be 16-byte aligned."""
-    return _irfft(K2_DB, "k2db_irfft_packed", yre, yim, plan, ordered, 16)
+    return _irfft(K2_DB, "k2db_irfft_packed", yre, yim, plan, ordered, 16, grid=False)
 
 
 def convolve_irfft_packed_kernel(are, aim, bre, bim, scale: float, plan: FFTPlan, ordered: bool = True):
@@ -313,7 +315,7 @@ def convolve_irfft_packed_kernel(are, aim, bre, bim, scale: float, plan: FFTPlan
     if rows:
         _launch_rows(K3, "k3_convolve_irfft_packed", plan, are.device, ordered, rows,
                      are.data_ptr(), aim.data_ptr(), bre.data_ptr(), bim.data_ptr(),
-                     b_rows, float(scale), x.data_ptr(), rows, plan.n)
+                     b_rows, float(scale), x.data_ptr(), rows, plan.n, position_split=False, grid=True)
     return x
 
 

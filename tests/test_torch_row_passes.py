@@ -305,14 +305,15 @@ def test_inverse_launches_take_the_row_geometry(n, monkeypatch):
     cpu = torch.device("cpu")
     tw, _ = row_passes.device_tables(n, ct.FFT_REAL, "cpu")
     split = plan.device_tables(cpu).split_tw
-    cases = ((hopper_fft.K2, "k2_irfft_packed", 5), (hopper_fft.K3, "k3_convolve_irfft_packed", 9),
-             (hopper_fft.K2_DB, "k2db_irfft_packed", 5))
+    cases = ((hopper_fft.K2, "k2_irfft_packed", 5, True), (hopper_fft.K3, "k3_convolve_irfft_packed", 9, True),
+             (hopper_fft.K2_DB, "k2db_irfft_packed", 5, False))
     for rows in (1, 7, 1001):
         g = row_passes.launch_geometry(plan, rows)
         for ordered in (True, False):
-            for kernel, entry, lead in cases:
+            for kernel, entry, lead, grid in cases:
                 calls.clear()
-                hopper_fft._launch_rows(kernel, entry, plan, cpu, ordered, rows, *range(lead))
+                hopper_fft._launch_rows(kernel, entry, plan, cpu, ordered, rows, *range(lead), position_split=False,
+                                        grid=grid)
                 (got_kernel, args), = calls
                 assert got_kernel is kernel and args[:lead] == tuple(range(lead))
                 passes_at, npasses, tw_ptr, split_ptr, perm = args[lead + 2 : lead + 7]
@@ -321,7 +322,41 @@ def test_inverse_launches_take_the_row_geometry(n, monkeypatch):
                 assert tuple((ctypes.c_int * len(plan.radices)).from_address(args[lead])) == plan.radices
                 assert (tw_ptr, split_ptr) == (tw.data_ptr(), split.data_ptr())
                 assert (perm is None) == ordered
-                assert args[lead + 7 :] == (() if kernel is hopper_fft.K2_DB else g.args)
+                assert args[lead + 7 :] == (g.args if grid else ())
+
+
+_ROW_WRAPPERS = (
+    ("rfft_packed_kernel", lambda re, im, b, plan: hopper_fft.rfft_packed_kernel(b, plan, False), True, True),
+    ("rfft_packed_joint_kernel", lambda re, im, b, plan: hopper_fft.rfft_packed_joint_kernel(b, plan, False),
+     True, True),
+    ("rfft_packed_joint_db_kernel",
+     lambda re, im, b, plan: hopper_fft.rfft_packed_joint_db_kernel(b, plan, False), True, False),
+    ("irfft_packed_kernel", lambda re, im, b, plan: hopper_fft.irfft_packed_kernel(re, im, plan, False),
+     False, True),
+    ("irfft_packed_db_kernel", lambda re, im, b, plan: hopper_fft.irfft_packed_db_kernel(re, im, plan, False),
+     False, False),
+    ("convolve_irfft_packed_kernel",
+     lambda re, im, b, plan: hopper_fft.convolve_irfft_packed_kernel(re, im, re[:1], im[:1], 0.5, plan, False),
+     False, True),
+)
+
+
+@pytest.mark.parametrize("name, call, position_split, grid", _ROW_WRAPPERS, ids=[w[0] for w in _ROW_WRAPPERS])
+def test_row_wrappers_pick_split_order_and_grid(name, call, position_split, grid, monkeypatch):
+    """Each wrapper of K1-K3 and their db forms tells the launcher which
+    split table its kernel reads (K1's epilogue in position order, the
+    inverse's merge in bin order) and whether to append the launch
+    geometry (grid forms only). Driven on meta tensors, so only the
+    wrapper's own logic runs."""
+    calls = []
+    monkeypatch.setattr(hopper_fft, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(hopper_fft, "_launch_rows", lambda *a, **kw: calls.append(kw))
+    n, rows = 4096, 7
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    meta = torch.device("meta")
+    re = torch.empty((rows, n // 2), device=meta)
+    call(re, torch.empty_like(re), torch.empty((rows, n), device=meta), plan)
+    assert calls == [{"position_split": position_split, "grid": grid}], name
 
 
 def test_inverse_runs_the_row_engine():
