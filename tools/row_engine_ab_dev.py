@@ -118,7 +118,8 @@ def main() -> int:
     shapes = [("headline", 4096, 1024, ("K1", "K1-db", "K2", "K2-db", "K3")),
               ("config 3 fir_filter_ols", 16384, 512, ("K1", "K3")),
               ("config 4", 8192, 7552, ("K1", "K2")),
-              ("config 3 block 1024", 2048, 4096, ("K1", "K2"))]
+              ("config 3 block 1024", 2048, 4096, ("K1", "K2")),
+              ("STFT", 1024, 60096, ("K1", "K2"))]
     for tag, n, rows, names in shapes:
         plan = ct.cached_plan(n, ct.FFT_REAL)
         xs = [torch.randn(rows, n, device=dev) for _ in range(2)]
@@ -135,7 +136,7 @@ def main() -> int:
                 flush=True)
         del xs, args
         torch.cuda.empty_cache()
-    for n, rows in ((4096, 1024), (1024, 16384)):
+    for n, rows in ((4096, 1024), (1024, 16384), (9216, 512), (13824, 256)):
         plan = ct.cached_plan(n, ct.FFT_COMPLEX)
         zs = [(torch.randn(rows, n, dtype=torch.complex64, device=dev),) for _ in range(2)]
         for k, fn in complex_kernels(plan).items():
