@@ -1010,13 +1010,13 @@ def phase12(ct, hc, dev, rng) -> dict[str, float]:
         # slot (im[..., 0]) dropped from its input.
         no_nyq = pim.clone()
         no_nyq[..., 0] = 0
-        for bad, out in (("zeroed", torch.zeros_like(xb)), ("no Nyquist", hc.irfft_cols(pre, no_nyq, pa))):
+        for bad, out in (("k7b zeroed", torch.zeros_like(xb)), ("k7b no Nyquist", hc.irfft_cols(pre, no_nyq, pa))):
             err, bound = held(out / a, want, n, a)
             require(err > bound, f"{tag} k7b check passes a {bad} output: {err:.3e} <= {bound:.3e}")
             caught[bad] = min(caught.get(bad, np.inf), err / bound)
     # Every column length the composite's splits produce: K6's four roles
-    # on 3 batch rows of a ragged M = 37 columns, complex64 and planes, and
-    # K7b on the packed spectrum of unit-scale columns, each held on the
+    # on 3 batch rows of a ragged M = 37 columns, complex64 and planes, K7a
+    # on unit-scale columns and K7b on their packed spectrum, each held on the
     # path of the largest composite (2^20), i.e. at its own length's bound.
     lengths, real_lengths = hc.column_lengths()
     cols = 37
@@ -1040,16 +1040,32 @@ def phase12(ct, hc, dev, rng) -> dict[str, float]:
     for a in real_lengths:
         plan = ct.cached_plan(a, ct.FFT_REAL)
         x = torch.from_numpy(rng.standard_normal((3, a, cols)).astype(np.float32)).to(dev)
+        # K7a on unit-scale columns, against its plain version and float64;
+        # the check fails a zeroed output and one whose Nyquist slot
+        # (im[..., 0]) is zeroed.
+        got = planes(hc.rfft_cols(x, plan))
+        want = planes(hc.rfft_cols_plain(x, plan))
+        note(hc.K7A, f"A={a} k7a", got, want, LEVEL_N, a)
+        spec = np.fft.rfft(x.double().cpu().numpy(), axis=1).transpose(0, 2, 1)
+        ref_im = spec.imag[..., : a // 2].copy()
+        ref_im[..., 0] = spec[..., a // 2].real
+        note(None, f"A={a} k7a vs float64", got, np.concatenate([spec.real[..., : a // 2], ref_im], -1), LEVEL_N, a)
+        no_nyq = got.clone()
+        no_nyq[..., a // 2] = 0
+        for bad, out in (("k7a zeroed", torch.zeros_like(got)), ("k7a no Nyquist", no_nyq)):
+            err, bound = held(out, want, LEVEL_N, a)
+            require(err > bound, f"A={a} k7a check passes a {bad} output: {err:.3e} <= {bound:.3e}")
+            caught[bad] = min(caught.get(bad, np.inf), err / bound)
         pre, pim = hc.rfft_cols_plain(x, plan)
         xb = hc.irfft_cols(pre, pim, plan)
         note(hc.K7B, f"A={a} k7b", xb / a, hc.irfft_cols_plain(pre, pim, plan) / a, LEVEL_N, a)
         note(None, f"A={a} k7b vs x", xb / a, x, LEVEL_N, a)
     log(f"phase 12: K6 (four roles, complex64 and planes) at all {len(lengths)} column lengths "
-        f"{lengths[0]}..{lengths[-1]} and K7b at all {len(real_lengths)} lengths A {real_lengths[0]}..{real_lengths[-1]}, "
+        f"{lengths[0]}..{lengths[-1]} and K7a, K7b at all {len(real_lengths)} lengths A {real_lengths[0]}..{real_lengths[-1]}, "
         f"3 rows of {cols} columns, within their bounds of their plain versions")
     torch.cuda.synchronize()
     log("phase 12 ok: K6 (four roles), K7a, K7b within their bounds of their plain versions, composites "
-        "of float64; " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + "; the K7b check fails "
+        "of float64; " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + "; the K7a and K7b checks fail "
         + ", ".join(f"a {bad} output by at least {r:.0f}x its bound" for bad, r in caught.items()))
     return worst
 

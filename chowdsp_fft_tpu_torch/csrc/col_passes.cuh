@@ -1,13 +1,14 @@
 // Register-resident column engine for Hopper (sm_90a): the mixed-radix FFT
 // of each column of a tile of 2^ls adjacent columns of L complex points,
-// shared by K6 (the two-level composite's column FFT in its four roles)
-// and K7b (the real composite's column-blocked inverse), composite_fft.cu.
+// shared by K6 (the two-level composite's column FFT in its four roles),
+// K7a and K7b (the real composite's column-blocked level 1 and its
+// inverse), composite_fft.cu.
 //
 // Replaces, for those kernels, the column stages of
 // chowdsp_fft_tpu/ops/pallas_fft.py: _cfft_v2_l1_kernel :2531,
 // _cfft_v2_l2_kernel :2556, _cfft_v2_l2_rev_kernel :2587,
-// _cfft_v2_l1_rev_kernel :2621 and _irfft_cols_kernel :1541. K7a keeps
-// stockham.cuh's stage engine.
+// _cfft_v2_l1_rev_kernel :2621, _rfft_cols_kernel :1398 and
+// _irfft_cols_kernel :1541.
 //
 // What bounds it on the card: bytes, 16 B a complex point per level (8 in,
 // 8 out), 8 B a real sample. What held the stage engine it replaces far
@@ -120,6 +121,18 @@ struct Global {
       re[e] = v.x;
       im[e] = v.y;
     }
+  }
+};
+
+// K7a's first loads: point h = x[2h] + i x[2h+1] of column j, from rows
+// 2h and 2h + 1 of the (A, C) real tile; columns j >= cols (a ragged last
+// tile) read as zero.
+struct RealColsIn {
+  const float* x;
+  int C, cols;
+  __device__ __forceinline__ float2 operator()(int h, int j) const {
+    if (j >= cols) return make_float2(0.0f, 0.0f);
+    return make_float2(__ldg(x + (2 * h) * C + j), __ldg(x + (2 * h + 1) * C + j));
   }
 };
 
@@ -281,12 +294,6 @@ __device__ __forceinline__ bool ends_in_registers(int kind) {
   return kind == 44 || kind == 42 || kind == 41 || kind == 21;
 }
 
-// The plan on the tile whose points q*tpc + t (q < 16) of column j thread
-// (t, j) holds in w, with the tile buffers a and the one after it: the
-// first pass from w (16 | L) or from a after w is written there, the
-// passes between from one buffer to the other, the last into w (16 | L and
-// P | 16) or into a buffer that w is read back from. `w` ends holding the
-// same points of the transform.
 template <int SIGN>
 __device__ __forceinline__ void last_pass_dispatch(int kind, float2* w, const TileBuf& tile, int L, int t, int tpc,
                                                    int j) {
@@ -299,8 +306,10 @@ __device__ __forceinline__ void last_pass_dispatch(int kind, float2* w, const Ti
 }
 
 // In place (one buffer; the plan checked by check_col_geometry): the first
-// pass from w, the (4,4) passes between in place, the last into w.
-template <int SIGN>
+// pass from w, the (4,4) passes between in place, the last into w. With
+// TO_TILE (K7a) w is then written back to the buffer between two barriers,
+// so the buffer ends holding the transform.
+template <int SIGN, bool TO_TILE = false>
 __device__ __forceinline__ void run_col_passes_in_place(const ColPlan& plan, float2* w, const TileBuf& a, int L,
                                                         const float2* __restrict__ tw, int t, int tpc, int j) {
   first_pass_from_registers<SIGN>(w, a, L, tw, t, j);
@@ -313,11 +322,28 @@ __device__ __forceinline__ void run_col_passes_in_place(const ColPlan& plan, flo
     s *= 16;
   }
   last_pass_dispatch<SIGN>(plan.kind(last), w, a, L, t, tpc, j);
+  if constexpr (TO_TILE) {
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kRowPoints; ++q) {
+      if (q * tpc + t < L) a.put(q * tpc + t, j, w[q]);
+    }
+    __syncthreads();
+  }
 }
 
-template <int SIGN>
-__device__ __forceinline__ void run_col_passes(const ColPlan& plan, float2* w, TileBuf a, int L,
-                                               const float2* __restrict__ tw, int t, int tpc, int j) {
+// The plan on the tile whose points q*tpc + t (q < 16) of column j thread
+// (t, j) holds in w, with the tile buffers a and the one after it: the
+// first pass from w (16 | L) or from a after w is written there, the
+// passes between from one buffer to the other, the last into w (16 | L and
+// P | 16) or into a buffer that w is read back from. `w` ends holding the
+// same points of the transform.
+// With TO_TILE (K7a) the last pass always writes a buffer and w is left
+// as it was: the returned buffer holds the transform, the block past the
+// last pass's barrier.
+template <int SIGN, bool TO_TILE = false>
+__device__ __forceinline__ TileBuf run_col_passes(const ColPlan& plan, float2* w, TileBuf a, int L,
+                                                  const float2* __restrict__ tw, int t, int tpc, int j) {
   TileBuf b{a.buf + padded(L << a.ls), a.ls};
   const int last = plan.count - 1;
   const bool direct = L % kRowPoints == 0 && last > 0;
@@ -339,9 +365,11 @@ __device__ __forceinline__ void run_col_passes(const ColPlan& plan, float2* w, T
     s = (k0 / 10) * (k0 % 10);
   }
   if (last == 0) {
+    if constexpr (!TO_TILE) {
 #pragma unroll
-    for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < L ? a(q * tpc + t, j) : make_float2(0.0f, 0.0f);
-    return;
+      for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < L ? a(q * tpc + t, j) : make_float2(0.0f, 0.0f);
+    }
+    return a;
   }
   tw += L;  // pass i's table holds P*m = L/s entries
   for (int i = 1; i < last; ++i) {
@@ -354,13 +382,16 @@ __device__ __forceinline__ void run_col_passes(const ColPlan& plan, float2* w, T
     s *= (k / 10) * (k % 10);
   }
   const int kl = plan.kind(last);
-  if (direct && ends_in_registers(kl)) {
+  if (!TO_TILE && direct && ends_in_registers(kl)) {
     last_pass_dispatch<SIGN>(kl, w, a, L, t, tpc, j);
-    return;
+    return a;
   }
   dispatch_shared<SIGN>(kl, a, b, L, s, tw, t, tpc, j);
+  if constexpr (!TO_TILE) {
 #pragma unroll
-  for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < L ? b(q * tpc + t, j) : make_float2(0.0f, 0.0f);
+    for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < L ? b(q * tpc + t, j) : make_float2(0.0f, 0.0f);
+  }
+  return b;
 }
 
 // Host: refuse a pass plan that is not the plan's stages in order, fused

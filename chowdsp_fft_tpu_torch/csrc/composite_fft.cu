@@ -29,32 +29,31 @@
 // N = 2^20). The arithmetic is O(log L) flops per point, far below the
 // H100's flop/byte balance.
 //
-// Design. K6 and K7b run the column engine (col_passes.cuh): a block takes
-// a tile of 2^ls adjacent columns of one batch row, 16 points of one column
-// a thread, and runs one of three shapes: narrow (at most 4096 points and
-// 256 threads, two buffers, three blocks an SM), wide (8192 points, 512
-// threads, two buffers, one block an SM, where a narrow tile's columns would
-// move less than a 32-byte sector a row and plane) or in place (8192
-// points, 512 threads, one buffer, two blocks an SM, for plans whose middle
-// passes are (4,4)). The thread loads its points from device memory
-// straight into registers, every load issued before the first is used
-// (complex64 as float2), consecutive threads on consecutive columns; the
-// plan's stages run fused in pairs, the first from those registers
-// (16 | L), the last back into registers, from which the points are
-// stored. K7b folds the merge into the reads after its load and stores the
-// even and odd samples from registers. The launch geometry comes from
+// Design. K6, K7a and K7b run the column engine (col_passes.cuh): a block
+// takes a tile of 2^ls adjacent columns of one batch row, 16 points of one
+// column a thread, and runs one of three shapes: narrow (at most 4096
+// points and 256 threads, two buffers, three blocks an SM), wide (8192
+// points, 512 threads, two buffers, one block an SM, where a narrow tile's
+// columns would move less than a 32-byte sector a row and plane) or in
+// place (8192 points, 512 threads, one buffer, two blocks an SM, for plans
+// whose middle passes are (4,4)). The thread loads its points from device
+// memory straight into registers, every load issued before the first is
+// used (complex64 as float2; K7a's point h as samples 2h and 2h + 1),
+// consecutive threads on consecutive columns; the plan's stages run fused
+// in pairs, the first from those registers (16 | L), the last back into
+// registers, from which the points are stored. K7b folds the merge into
+// the reads after its load and stores the even and odd samples from
+// registers. K7a's last pass ends in the tile instead: the split needs
+// bins k and L - k, which no thread holds together, and the tile's rows of
+// packed bins are contiguous in device memory, so consecutive threads
+// split and store consecutive bins. The launch geometry comes from
 // ops/col_passes.launch_geometry and is checked here; the shape follows
-// from its threads and shared bytes. K7a keeps the stage engine
-// (stockham.cuh): TC adjacent columns, TC the largest power of two up to
-// kMaxTile whose two padded A/2*TC-point buffers fit (tile_shift),
-// interleaved in shared memory (point l of column j at l*TC + j), scalar
-// loads and stores. Each element of the array is read from and written to
-// device memory once per kernel. Twiddles come from float32 tables (the
-// column passes', the plans' stage and split tables, the four-step table),
-// all built in float64 on the host and read through the read-only cache;
-// no sinf/cosf. A ragged last tile (M not a multiple of the tile) is masked.
-
-#include <climits>
+// from its threads and shared bytes. Each element of the array is read
+// from and written to device memory once per kernel. Twiddles come from
+// float32 tables (the column passes', the plans' split tables, the
+// four-step table), all built in float64 on the host and read through the
+// read-only cache; no sinf/cosf. A ragged last tile (M not a multiple of
+// the tile) is masked.
 
 #include "col_passes.cuh"
 
@@ -65,10 +64,8 @@
 namespace {
 
 constexpr int kMaxCol = CHOWDSP_MAX_COL;
-// K7a's two tile buffers may take all of a block's shared memory but 1 KB.
-constexpr int kTileBytes = kMaxSmemBytes - 1024;
-static_assert(two_buffers_bytes(kMaxCol) <= kTileBytes, "MAX_COL exceeds shared memory");
-constexpr int kMaxTile = 16;
+// One column of the longest length fits a block's two tile buffers.
+static_assert(two_buffers_bytes(kMaxCol) <= kMaxSmemBytes, "MAX_COL exceeds shared memory");
 
 
 enum { kNoTwiddle = 0, kTwiddleBefore = 1, kTwiddleAfter = 2 };
@@ -88,8 +85,6 @@ __device__ __forceinline__ Tile tile_of(int M, int ls) {
 }
 
 
-// K6. Input (B, L, M) (columns) or (B, M, L) (rows, ROWS_IN), output the
-// same way (ROWS_OUT); TW multiplies by tw[l*M + m] before or after.
 // K6. Input (B, L, M) (columns) or (B, M, L) (rows, ROWS_IN), output the
 // same way (ROWS_OUT); TW multiplies by tw[l*M + m] before or after.
 // Thread (t, j) loads points q*tpc + t (q < 16) of column j into
@@ -127,57 +122,57 @@ column_passes_kernel(const float* __restrict__ xre, const float* __restrict__ xi
   }
 }
 
-// K7a: x (B, A, C) -> packed planes (B, C, A/2). Column c of a batch row
-// is staged as H = A/2 complex points x[2h] + i x[2h+1], transformed, and
-// split into the real spectrum as K1 does (real_fft.cu).
-__global__ void __launch_bounds__(kMaxThreads)
-rfft_cols_kernel(const float* __restrict__ x, float* __restrict__ yre,
-                 float* __restrict__ yim, int A, int C, int ls, Radices rad,
-                 const float2* __restrict__ stage_tw, const float2* __restrict__ split_tw) {
+// K7a: x (B, A, C) -> packed planes (B, C, A/2). Thread (t, j) loads
+// points h = q*tpc + t (q < 16) of column j, z_h = x[2h] + i x[2h+1], into
+// registers, every load issued before the first is used; the forward
+// passes of the H = A/2-point plan end in the tile, and the split
+// (stockham.cuh split_bin, as K1's) reads bins k and H - k there. The
+// tile's rows of H packed bins are contiguous in device memory, so the
+// store mirrors K7b's load: consecutive threads on consecutive bins of
+// the tile's cols*H, both planes written coalesced. Bin 0 holds DC in re
+// and the Nyquist bin in im.
+template <int SHAPE>
+__global__ void __launch_bounds__(col_threads<SHAPE>(), col_min_blocks<SHAPE>())
+rfft_col_passes_kernel(const float* __restrict__ x, float* __restrict__ yre, float* __restrict__ yim, int A, int C,
+                       int ls, ColPlan plan, const float2* __restrict__ pass_tw,
+                       const float2* __restrict__ split_tw) {
   extern __shared__ float2 smem[];
   const int H = A / 2;
-  const int lanes = 1 << ls;
-  const int pts = H << ls;
-  float2* a = smem;
-  float2* b = smem + padded(pts);
-  const Tile t = tile_of(C, ls);
-  const float* xb = x + static_cast<size_t>(t.b) * A * C;
-
-  for (int u = threadIdx.x; u < pts; u += blockDim.x) {
-    const int h = u >> ls;
-    const int m = t.m0 + (u & (lanes - 1));
-    float2 v = make_float2(0.0f, 0.0f);
-    if (m < C) {
-      v = make_float2(xb[static_cast<size_t>(2 * h) * C + m],
-                      xb[static_cast<size_t>(2 * h + 1) * C + m]);
-    }
-    a[slot(u)] = v;
+  const Tile tl = tile_of(C, ls);
+  const int cols = min(C - tl.m0, 1 << ls);
+  const int j = threadIdx.x & ((1 << ls) - 1);
+  const int t = threadIdx.x >> ls;
+  const int tpc = blockDim.x >> ls;
+  const RealColsIn in{x + static_cast<size_t>(tl.b) * A * C + tl.m0, C, cols};
+  float2 w[kRowPoints];
+#pragma unroll
+  for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < H ? in(q * tpc + t, j) : make_float2(0.0f, 0.0f);
+  TileBuf z{smem, ls};
+  if constexpr (SHAPE == kColInPlace) {
+    run_col_passes_in_place<-1, true>(plan, w, z, H, pass_tw, t, tpc, j);
+  } else {
+    z = run_col_passes<-1, true>(plan, w, z, H, pass_tw, t, tpc, j);
   }
-  __syncthreads();
-  const float2* Z = run_stages<-1>(a, b, H, rad, stage_tw, ls);
-
-  // Split (stockham.cuh split_bin); the Nyquist bin goes to im[0]. Stored
-  // as rows of H bins.
-  const size_t obase = static_cast<size_t>(t.b) * C * H;
-  for (int u = threadIdx.x; u < pts; u += blockDim.x) {
-    const int j = u / H;
-    const int k = u - j * H;
-    const int m = t.m0 + j;
-    if (m >= C) continue;
-    float re, im;
-    if (k == 0) {
-      const float2 z0 = Z[slot(j)];
-      re = z0.x + z0.y;
-      im = z0.x - z0.y;
-    } else {
-      const float2 X = split_bin(Z[slot((k << ls) + j)], Z[slot(((H - k) << ls) + j)],
-                                 __ldg(split_tw + k));
-      re = X.x;
-      im = X.y;
+  const int pts = cols * H;
+  const size_t out_at = (static_cast<size_t>(tl.b) * C + tl.m0) * H;
+  // e / H == umulhi(e, magic) for e * H < 2^32 (e < 16 * H, H <= MAX_COL / 2).
+  const unsigned magic = 0xFFFFFFFFu / static_cast<unsigned>(H) + 1u;
+#pragma unroll
+  for (int c = 0; c < kRowPoints; ++c) {
+    const int e = threadIdx.x + c * blockDim.x;
+    if (e < pts) {
+      const int jj = static_cast<int>(__umulhi(static_cast<unsigned>(e), magic));
+      const int k = e - jj * H;
+      float2 X;
+      if (k == 0) {
+        const float2 z0 = z(0, jj);
+        X = make_float2(z0.x + z0.y, z0.x - z0.y);
+      } else {
+        X = split_bin(z(k, jj), z(H - k, jj), __ldg(split_tw + k));
+      }
+      yre[out_at + e] = X.x;
+      yim[out_at + e] = X.y;
     }
-    const size_t at = obase + static_cast<size_t>(m) * H + k;
-    yre[at] = re;
-    yim[at] = im;
   }
 }
 
@@ -241,16 +236,6 @@ irfft_col_passes_kernel(const float* __restrict__ yre, const float* __restrict__
   }
 }
 
-// K7a's column tile: log2 of the largest power of two up to kMaxTile
-// whose two buffers of `points` * tile entries fit kTileBytes, for columns
-// of 2 <= points <= kMaxCol complex points (one column always fits, by the
-// static_assert above).
-int tile_shift(int points) {
-  int ls = 0;
-  while ((2 << ls) <= kMaxTile && two_buffers_bytes(points << (ls + 1)) <= kTileBytes) ++ls;
-  return ls;
-}
-
 // The column engine's kernels by role (hopper_composite_blocks_per_sm).
 template <int SHAPE>
 const void* col_kernel_of(int role) {
@@ -260,6 +245,7 @@ const void* col_kernel_of(int role) {
     case 2: return reinterpret_cast<const void*>(column_passes_kernel<1, false, false, kTwiddleAfter, SHAPE>);
     case 3: return reinterpret_cast<const void*>(column_passes_kernel<1, true, false, kNoTwiddle, SHAPE>);
     case 4: return reinterpret_cast<const void*>(irfft_col_passes_kernel<SHAPE>);
+    case 5: return reinterpret_cast<const void*>(rfft_col_passes_kernel<SHAPE>);
     default: return nullptr;
   }
 }
@@ -312,16 +298,10 @@ extern "C" {
 
 int hopper_composite_max_col() { return kMaxCol; }
 
-// K7a's column tile for columns of `points` complex points (A/2), or -1
-// outside [2, MAX_COL].
-int hopper_composite_col_tile(int points) {
-  return points < 2 || points > kMaxCol ? -1 : 1 << tile_shift(points);
-}
-
 // Blocks of a column-engine kernel resident on one SM at a launch
 // geometry's shape (0 narrow, 1 wide, 2 in place), threads and shared
-// bytes (role 0-3: K6 l1, l2, l2_rev, l1_rev; 4: K7b); 0 if the query
-// fails.
+// bytes (role 0-3: K6 l1, l2, l2_rev, l1_rev; 4: K7b; 5: K7a); 0 if the
+// query fails.
 int hopper_composite_blocks_per_sm(int role, int shape, int threads, int smem) {
   const void* kernel = shape < kColNarrow || shape > kColInPlace ? nullptr : col_kernel(role, shape);
   int per_sm = 0;
@@ -372,25 +352,25 @@ int k6_l1_rev(const float* xre, const float* xim, float* yre, float* yim, int st
                                                    passes, npasses, pass_tw, tw, ls, threads, smem, grid, stream);
 }
 
-// K7a. radices, stage_tw and split_tw are the length-A real plan's.
-int k7a_rfft_cols(const float* x, float* yre, float* yim, int batch, int A, int C,
-                  const int* radices, int nstages, const void* stage_tw, const void* split_tw,
-                  void* stream) {
+// K7a. radices, the pass plan and its tables, and split_tw are the
+// length-A real plan's (its A/2-point complex transform); then the launch
+// geometry over the C columns, as K6's.
+int k7a_rfft_cols(const float* x, float* yre, float* yim, int batch, int A, int C, const int* radices, int nstages,
+                  const int* passes, int npasses, const void* pass_tw, const void* split_tw, int ls, int threads,
+                  int smem, int grid, void* stream) {
   if (A < 4 || A > kMaxCol || A % 2 || C < 0 || batch < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int ls = tile_shift(A / 2);
-  Radices rad;
-  int err = make_radices(radices, nstages, &rad);
+  ColPlan plan;
+  bool run;
+  int shape;
+  int err = check_col_launch(A / 2, batch, C, radices, nstages, passes, npasses, ls, threads, smem, grid, &plan, &run,
+                             &shape);
+  if (err || !run) return err;
+  auto kernel = shape == kColNarrow ? rfft_col_passes_kernel<kColNarrow>
+                : shape == kColWide ? rfft_col_passes_kernel<kColWide> : rfft_col_passes_kernel<kColInPlace>;
+  err = set_smem(kernel, smem);
   if (err) return err;
-  const long long blocks = static_cast<long long>(batch) * ((C + (1 << ls) - 1) >> ls);
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  if (blocks == 0) return 0;
-  const int pts = (A / 2) << ls;
-  err = set_smem(rfft_cols_kernel, two_buffers_bytes(pts));
-  if (err) return err;
-  rfft_cols_kernel<<<static_cast<int>(blocks), threads_for(pts), two_buffers_bytes(pts),
-                     static_cast<cudaStream_t>(stream)>>>(
-      x, yre, yim, A, C, ls, rad, static_cast<const float2*>(stage_tw),
-      static_cast<const float2*>(split_tw));
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, yre, yim, A, C, ls, plan, static_cast<const float2*>(pass_tw), static_cast<const float2*>(split_tw));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,7 @@
 // _rfft_db_kernel :1628), _irfft_kernel :1111 via _irfft_core :1155 (K2,
 // and K2-db's _irfft_db_kernel :1756), _irfft_conv_kernel :1989 (K3) and
 // _fft_kernel :620 via _stockham_rows (K4, and K4-db's _cfft_db_kernel
-// :739). K5 and K7a keep stockham.cuh's stage/run_stages; K6 and K7b run
+// :739). K5 keeps stockham.cuh's stage/run_stages; K6, K7a and K7b run
 // the column engine (col_passes.cuh).
 //
 // What bounds it on the card: bytes. A complex row moves 16 B per point

@@ -30,7 +30,7 @@
 // threads at 512 points).
 // In shared memory the tile's rows are interleaved, point i of row r at
 // slot((i << ls) + r), so the plan's Stockham stages (stockham.cuh
-// run_stages, the same code as K6/K7's column tiles, with 2^ls lanes) keep
+// run_stages, with 2^ls lanes) keep
 // neighbouring threads on neighbouring words, and a warp reads one twiddle
 // for its T lanes. The real bodies are K1's and K2's: the M-point
 // transform of x[2m] + i x[2m+1] with the split (split_bin) after it; the

@@ -1,9 +1,8 @@
 // Shared-memory mixed-radix Stockham stages (stage/run_stages), run by
-// the small-N kernels (small_fft.cu: K5) and the real composite's level 1
-// (composite_fft.cu: K7a); and what every kernel family shares: the
-// padded slot layout, complex arithmetic, the radix butterflies, and the
-// real split and merge (also run by the row engine, row_passes.cuh, and
-// the column engine, col_passes.cuh).
+// the small-N kernels (small_fft.cu: K5); and what every kernel family
+// shares: the padded slot layout, complex arithmetic, the radix
+// butterflies, and the real split and merge (also run by the row engine,
+// row_passes.cuh, and the column engine, col_passes.cuh).
 //
 // A block holds one row of M complex points in two padded shared buffers
 // and runs the plan's {4,2,3,5} stages between them, FP32 FMA only, with
@@ -130,8 +129,7 @@ __device__ __forceinline__ void butterfly(float2* v) {
 
 // One Stockham stage over a length-M complex row in shared memory, or
 // over 2^ls such rows interleaved (element i of row `lane` at index
-// (i << ls) + lane: the column tiles of composite_fft.cu; ls = 0 is one
-// row). Input viewed as (R, m, s), output as (m, R, s): butterfly
+// (i << ls) + lane: K5's row tiles; ls = 0 is one row). Input viewed as (R, m, s), output as (m, R, s): butterfly
 // t = p*s + q reads src[k*(M/R) + t], twiddles output j by W_n^(j*p) (the
 // stage's (R, m) table, conjugated for SIGN = +1), writes
 // dst[p*R*s + j*s + q]. Neighbouring threads take neighbouring lanes.

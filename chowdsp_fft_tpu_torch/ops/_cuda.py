@@ -34,13 +34,11 @@ MAX_CN = 13824
 # Largest N of K5, the small-N FFT: the JAX package's small-N domain ends
 # below 512.
 MAX_SMALL_N = 511
-# Longest column of the composite's column kernels (K6, K7): K6 and K7b
-# hold tiles of at most 8192 points (ops/col_passes: two padded buffers of
-# a wide tile take 135 KB); K7a's tile of TC columns holds two padded
-# L*TC-point buffers, 16.5*L*TC bytes, and the library picks the largest
-# TC up to 16 that fits, so L = 2048 takes TC = 4 (135 KB). Every
-# composite split up to 2^20 has a balanced pair within it (the largest
-# needed factor is 1080).
+# Longest column of the composite's column kernels (K6, K7): they hold
+# tiles of at most 8192 points (ops/col_passes: two padded buffers of a
+# wide tile take 135 KB), so a column of 2048 complex points takes a tile
+# of 4 or 2 columns. Every composite split up to 2^20 has a balanced pair
+# within it (the largest needed factor is 1080).
 MAX_COL = 2048
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -92,9 +90,9 @@ _SIGNATURES = {
     "k5_small_rfft": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "k5_small_irfft": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "hopper_composite_max_col": [],
-    "hopper_composite_col_tile": [_I],
     # Column-engine blocks resident per SM: role (K6 l1, l2, l2_rev,
-    # l1_rev, K7b), shape (narrow, wide, in place), threads, shared bytes.
+    # l1_rev, K7b, K7a), shape (narrow, wide, in place), threads, shared
+    # bytes.
     "hopper_composite_blocks_per_sm": [_I, _I, _I, _I],
     # K6 roles: x re/im, y re/im, element stride, batch, L, M, radices,
     # nstages, pass plan, npasses, pass twiddles, four-step twiddles (NULL
@@ -102,12 +100,11 @@ _SIGNATURES = {
     # grid), stream.
     **{name: [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P]
        for name in ("k6_l1", "k6_l2", "k6_l2_rev", "k6_l1_rev")},
-    # K7a: real in, packed re/im out, batch, A, C, radices, nstages, stage
-    # twiddles, split twiddles, stream.
-    "k7a_rfft_cols": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
-    # K7b: packed re/im in, real out, batch, A, C, radices, nstages, pass
-    # plan, npasses, pass twiddles, split twiddles, launch geometry, stream.
-    "k7b_irfft_cols": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # K7a: real in, packed re/im out; K7b: packed re/im in, real out; then
+    # batch, A, C, radices, nstages, pass plan, npasses, pass twiddles,
+    # split twiddles, launch geometry, stream.
+    **{name: [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P]
+       for name in ("k7a_rfft_cols", "k7b_irfft_cols")},
     # The pipelined forms take their grid kernel's arguments (K1-db and
     # K4-db without the launch geometry: they pick a persistent grid).
     "hopper_pipelined_blocks_per_sm": [_I, _I],

@@ -1,11 +1,12 @@
 """Launch geometry of the composite's column engine (``csrc/col_passes.cuh``).
 
-K6 (the column FFT of the two-level complex composite, in its four roles)
-and K7b (the real composite's column-blocked inverse) run the plan's
-mixed-radix stages on a tile of ``2^ls`` adjacent columns of L points,
-``POINTS_PER_THREAD`` points of one column a thread. A pass fuses one or
-two consecutive stages of the plan; the kernels load each thread's points
-from device memory straight into registers and store them from registers.
+K6 (the column FFT of the two-level complex composite, in its four roles),
+K7a and K7b (the real composite's column-blocked level 1 and its inverse)
+run the plan's mixed-radix stages on a tile of ``2^ls`` adjacent columns
+of L points, ``POINTS_PER_THREAD`` points of one column a thread. A pass
+fuses one or two consecutive stages of the plan; the kernels load each
+thread's points from device memory straight into registers and store them
+from registers (K7a from the tile, after its split).
 The passes between exchange through two padded tile buffers (narrow tiles,
 three blocks an SM, or wide ones, one block an SM), or in place through
 one where the plan's middle passes are all (4,4) (two blocks an SM).
@@ -91,7 +92,7 @@ def in_place_plan(length: int, passes: tuple[tuple[int, int], ...]) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class ColGeometry:
-    """A K6/K7b launch: ``passes`` ((r0, r1) pairs), a tile of
+    """A K6/K7a/K7b launch: ``passes`` ((r0, r1) pairs), a tile of
     ``2^lanes_shift`` adjacent columns, ``threads_per_col`` = ceil(L / 16)
     threads a column, ``threads`` and ``smem_bytes`` (one padded tile
     buffer) a block, ``grid`` blocks (batch rows x tiles; the last tile of
@@ -128,9 +129,9 @@ class ColGeometry:
 def launch_geometry(plan: FFTPlan, batch: int, cols: int, segment_bytes: int, in_place: bool) -> ColGeometry:
     """The launch of the column engine over ``batch`` rows of ``cols``
     columns of L points, L the plan's complex length (N for a complex
-    plan: K6; N/2 for a real one: K7b), a column taking ``segment_bytes``
-    a row and plane on its column side (8 complex64, 4 planes or K7b's real
-    samples): with ``in_place`` and a plan that allows it, the widest
+    plan: K6; N/2 for a real one: K7a, K7b), a column taking
+    ``segment_bytes`` a row and plane on its column side (8 complex64, 4
+    planes or K7's real samples): with ``in_place`` and a plan that allows it, the widest
     in-place tile up to MAX_LANES columns and IN_PLACE_TILE_POINTS; else
     the widest narrow tile, widened up to WIDE_TILE_POINTS where its
     columns would move less than SECTOR_BYTES a row and plane."""

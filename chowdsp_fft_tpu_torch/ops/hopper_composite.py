@@ -39,10 +39,9 @@ Not ported, as TPU VMEM artefacts with no counterpart here: the batch
 chunking (``_batch_chunked`` :3142, ``_v2_batch_cap``), the VMEM tile laws
 (``_v2_tile``, ``_col_tile``, ``_V2_BLOCK_BYTES``) and the v1 chains
 (``_cfft_pair_large_v1`` :2851, ``_rfft/_irfft_direct_composite_v1``
-:3356, :3414). K6 and K7b run the column engine (``csrc/col_passes.cuh``),
-whose tile, pass plan and grid come from ``col_passes.launch_geometry``;
-K7a's column tile is chosen by shared memory in ``csrc/composite_fft.cu``
-(``tile_shift``).
+:3356, :3414). K6, K7a and K7b run the column engine
+(``csrc/col_passes.cuh``), whose tile, pass plan and grid come from
+``col_passes.launch_geometry``.
 """
 
 from __future__ import annotations
@@ -168,7 +167,7 @@ def _view(x, shape):
 
 def _launch_columns(kernel: Kernel, entry: str, dev, plan: FFTPlan, batch: int, cols: int, segment_bytes: int,
                     in_place: bool, args, table):
-    """Launch a column-engine entry (K6, K7b) with ``args``, then the
+    """Launch a column-engine entry (K6, K7a, K7b) with ``args``, then the
     plan's radices, the pass plan and its twiddles, ``table`` (the
     four-step or the split twiddles) and the launch geometry over ``batch``
     rows of ``cols`` columns of ``segment_bytes`` a row and plane, in place
@@ -299,10 +298,9 @@ def rfft_cols(x: torch.Tensor, plan: FFTPlan):
     yre = torch.empty((b, c, a // 2), dtype=torch.float32, device=x.device)
     yim = torch.empty_like(yre)
     if b and c:
-        tabs = plan.device_tables(x.device)
-        launch(K7A, "k7a_rfft_cols", x.device, x.data_ptr(), yre.data_ptr(), yim.data_ptr(), b, a, c,
-               ctypes.addressof(host_ints(plan.radices)), len(plan.radices), tabs.stage_flat.data_ptr(),
-               tabs.split_tw.data_ptr())
+        _launch_columns(K7A, "k7a_rfft_cols", x.device, plan, b, c, 4, in_place_role(K7A, 1),
+                        (x.data_ptr(), yre.data_ptr(), yim.data_ptr(), b, a, c),
+                        plan.device_tables(x.device).split_tw.data_ptr())
     return yre, yim
 
 

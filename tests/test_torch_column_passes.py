@@ -1,12 +1,14 @@
 """The composite's column engine (``csrc/col_passes.cuh``: K6 in its four
-roles and K7b) on the CPU: the launch geometry (``ops/col_passes``) at
-every column length the composite's splits produce, the pass twiddle
-tables against float64, and a torch-ops emulation of the engine's passes
-(its pass plan, Stockham indexing, float32 inner roots and pass tables)
-held against the JAX package's two-level composite (``_cfft_composite_v2``,
-Pallas in interpret mode) level by level, and against its K7b
-(``_irfft_packed_cols_impl``). The kernels themselves run on the card
-only (tests/test_torch_cuda.py, chip_smoke.py)."""
+roles, K7a and K7b) on the CPU: the launch geometry (``ops/col_passes``)
+at every column length the composite's splits produce, the pass twiddle
+tables against float64, the wrappers' launch arguments, and a torch-ops
+emulation of the engine's passes (its pass plan, Stockham indexing,
+float32 inner roots and pass tables) held against the JAX package's
+two-level composite (``_cfft_composite_v2``, Pallas in interpret mode)
+level by level, against its K7a (``_rfft_packed_cols_impl``) and K7b
+(``_irfft_packed_cols_impl``), and K7a's against float64 at every real
+column length. The kernels themselves run on the card only
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import itertools
 import pathlib
@@ -24,7 +26,7 @@ from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
 
 CSRC = pathlib.Path(ct.__file__).parent / "csrc"
 COMPLEX_LENGTHS, REAL_LENGTHS = hc.column_lengths()
-# Every length K6 runs (complex L) and K7b runs (its A/2-point transform).
+# Every length K6 runs (complex L) and K7a, K7b run (their A/2-point transform).
 CASES = [(L, ct.FFT_COMPLEX) for L in COMPLEX_LENGTHS] + [(A, ct.FFT_REAL) for A in REAL_LENGTHS]
 
 
@@ -85,7 +87,7 @@ def test_geometry_at_every_length(n, kind):
     one; the grid covers every column of every row."""
     plan = ct.cached_plan(n, kind)
     L = length_of(plan)
-    forms = (8, 4) if kind == ct.FFT_COMPLEX else (4,)  # complex64 and planes; K7b's real samples
+    forms = (8, 4) if kind == ct.FFT_COMPLEX else (4,)  # complex64 and planes; K7a's and K7b's real samples
     for segment, in_place, (batch, cols) in itertools.product(forms, (False, True), ((1, 1), (7, 37), (64, 1024))):
         g = col_passes.launch_geometry(plan, batch, cols, segment, in_place)
         assert tuple(r for pair in g.passes for r in pair if r != 1) == plan.radices
@@ -120,6 +122,10 @@ def test_geometry_at_every_length(n, kind):
                 assert g.shape == 1 and blocks_by_shared(g) >= 1
         assert g.grid == batch * -(-cols // g.lanes)
         assert len(g.flat_passes) == 2 * len(g.passes)
+    if kind == ct.FFT_REAL:  # K7a and K7b take the tile of their role
+        for k in (hc.K7A, hc.K7B):
+            g = col_passes.launch_geometry(plan, 7, 37, 4, hc.in_place_role(k, 1))
+            assert g.buffers == (1 if hc.in_place_role(k, 1) and col_passes.in_place_plan(L, g.passes) else 2)
 
 
 def test_in_place_roles():
@@ -127,6 +133,7 @@ def test_in_place_roles():
     assert hc.in_place_role(hc.K6_L1, 2) and hc.in_place_role(hc.K6_L2, 1) and hc.in_place_role(hc.K6_L2_REV, 2)
     assert not hc.in_place_role(hc.K6_L2_REV, 1) and not hc.in_place_role(hc.K6_L1_REV, 2)
     assert not hc.in_place_role(hc.K7B, 1)
+    assert not hc.in_place_role(hc.K7A, 1)
     assert col_passes.in_place_plan(1024, col_passes.pass_plan(ct.cached_plan(1024).radices))
     assert not col_passes.in_place_plan(48, col_passes.pass_plan(ct.cached_plan(48).radices))  # last pass (3,1)
     assert not col_passes.in_place_plan(1000, col_passes.pass_plan(ct.cached_plan(1000).radices))  # 16 does not divide
@@ -163,6 +170,36 @@ def test_pass_twiddles_are_float64_roots(n, kind):
         off, s = off + P * m, s * P
     assert off == table.size
     assert torch.equal(col_passes.device_twiddles(plan.n, plan.kind, plan.radices, "cpu"), torch.from_numpy(table))
+
+
+@pytest.mark.parametrize("a", REAL_LENGTHS)
+@pytest.mark.parametrize("which", ["k7a", "k7b"])
+def test_real_column_wrappers_launch_the_column_engine(monkeypatch, which, a):
+    """K7a's and K7b's wrappers hand their C entries the arguments their
+    signatures name: the tensors, batch, A, C, the A/2-point plan's
+    radices, pass plan and pass twiddles, the split table, and the launch
+    geometry of their role over the C columns (ragged). Driven on meta
+    tensors, so only the wrapper's own logic runs."""
+    calls = []
+    monkeypatch.setattr(hc, "require_cuda", lambda *args: None)
+    monkeypatch.setattr(hc, "launch", lambda kernel, entry, dev, *args: calls.append((kernel, entry, args)))
+    plan = ct.cached_plan(a, ct.FFT_REAL)
+    meta = torch.device("meta")
+    rows, cols = 7, 37
+    if which == "k7a":
+        out = hc.rfft_cols(torch.empty((rows, a, cols), device=meta), plan)
+        assert [tuple(t.shape) for t in out] == [(rows, cols, a // 2)] * 2
+        kernel, entry = hc.K7A, "k7a_rfft_cols"
+    else:
+        p = torch.empty((rows, cols, a // 2), device=meta)
+        assert tuple(hc.irfft_cols(p, p, plan).shape) == (rows, a, cols)
+        kernel, entry = hc.K7B, "k7b_irfft_cols"
+    [(k, e, args)] = calls
+    g = col_passes.launch_geometry(plan, rows, cols, 4, hc.in_place_role(kernel, 1))
+    assert k is kernel and e == entry
+    assert len(args) + 1 == len(_cuda._SIGNATURES[entry])  # the stream comes last
+    assert args[3:6] == (rows, a, cols) and args[7] == len(plan.radices) and args[9] == len(g.passes)
+    assert args[-4:] == g.args
 
 
 def test_geometry_refuses_what_does_not_fit():
@@ -265,6 +302,37 @@ def emulate_irfft_cols(yre: torch.Tensor, yim: torch.Tensor, plan) -> torch.Tens
     return (2 * torch.stack([zt.real, zt.imag], -1)).reshape(b, c, 2 * h).transpose(1, 2)
 
 
+def emulate_rfft_cols(x: torch.Tensor, plan) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7a on the emulated engine: (B, A, C) f32 -> z_h = x[2h] + i x[2h+1]
+    down each column -> the forward A/2-point passes -> the split
+    (stockham.cuh split_bin: X[k] = E + w O from Z[k] and conj Z[H-k],
+    w the plan's float32 split table; bin 0 holds DC = Re Z0 + Im Z0 and
+    the Nyquist bin Re Z0 - Im Z0) -> packed planes (B, C, A/2)."""
+    b, a, c = x.shape
+    h = a // 2
+    z = torch.complex(x[:, 0::2], x[:, 1::2]).transpose(1, 2).reshape(b * c, h)
+    zt = engine_passes(z, plan, True)
+    k = torch.arange(h)
+    zc = torch.conj(zt[:, (h - k) % h])
+    w = torch.complex(torch.from_numpy(plan.rfft_tw_re), torch.from_numpy(plan.rfft_tw_im))
+    d = zt - zc
+    o = torch.complex(0.5 * d.imag, -0.5 * d.real)  # -i/2 * d
+    split = 0.5 * (zt + zc) + w * o
+    re = torch.where(k == 0, zt.real + zt.imag, split.real)
+    im = torch.where(k == 0, zt.real - zt.imag, split.imag)
+    return re.reshape(b, c, h), im.reshape(b, c, h)
+
+
+def packed_cols64(x: np.ndarray) -> np.ndarray:
+    """float64 packed planes of the real DFT down each column of (B, A, C)
+    ``x``, as (B, C, A) [re | im], the Nyquist bin in im's slot 0."""
+    a = x.shape[1]
+    spec = np.fft.rfft(x.astype(np.float64), axis=1).transpose(0, 2, 1)
+    im = spec.imag[..., : a // 2].copy()
+    im[..., 0] = spec[..., a // 2].real
+    return np.concatenate([spec.real[..., : a // 2], im], -1)
+
+
 def _spy_levels(monkeypatch):
     """Record every output of JAX's _v2_call (the composite's two levels)."""
     calls = []
@@ -331,3 +399,34 @@ def test_emulated_k7b_matches_jax():
     got = emulate_irfft_cols(torch.from_numpy(re), torch.from_numpy(im), ct.cached_plan(a, ct.FFT_REAL))
     assert float(np.abs(got.numpy() - want).max()) / a <= 2e-7 * a
     assert float(np.abs(got.numpy() / a - x).max()) <= 2e-7 * a
+
+
+@pytest.mark.parametrize("b,a,c", [(2, 256, 256), (2, 384, 128), (1, 640, 128)])
+def test_emulated_k7a_matches_jax(b, a, c):
+    """K7a's emulation (loads, forward passes, split) against JAX's
+    _rfft_packed_cols_impl, within 2e-7*A: (2, 256, 256), and A = 384 and
+    640, whose A/2-point plans end in the odd-radix passes (4,3) and
+    (4,5)."""
+    plan = ct.cached_plan(a, ct.FFT_REAL)
+    assert a == 256 or {3, 5} & set(plan.radices)
+    x = np.random.default_rng(a + c).standard_normal((b, a, c)).astype(np.float32)
+    jr, ji = (np.asarray(v) for v in pallas_fft._rfft_packed_cols_impl(jnp.asarray(x), a))
+    re, im = emulate_rfft_cols(torch.from_numpy(x), plan)
+    assert re.shape == im.shape == (b, c, a // 2)
+    assert max(float(np.abs(re.numpy() - jr).max()), float(np.abs(im.numpy() - ji).max())) <= 2e-7 * a
+    got = np.concatenate([re.numpy(), im.numpy()], -1)
+    assert float(np.abs(got - packed_cols64(x)).max()) <= 2e-7 * a
+
+
+@pytest.mark.parametrize("a", REAL_LENGTHS)
+def test_emulated_k7a_matches_float64(a):
+    """K7a's emulation at every real column length A, on 2 batch rows of 5
+    columns of unit-scale samples, within 2e-7*A of float64; zeroing the
+    Nyquist slot (im[..., 0]) breaks it."""
+    x = np.random.default_rng(a).standard_normal((2, a, 5)).astype(np.float32)
+    re, im = emulate_rfft_cols(torch.from_numpy(x), ct.cached_plan(a, ct.FFT_REAL))
+    got = np.concatenate([re.numpy(), im.numpy()], -1)
+    ref = packed_cols64(x)
+    assert float(np.abs(got - ref).max()) <= 2e-7 * a
+    got[..., a // 2] = 0
+    assert float(np.abs(got - ref).max()) > 2e-7 * a

@@ -376,6 +376,36 @@ def test_k6_roles_at_every_length(dev, length):
                 assert maxerr(torch.zeros_like(want), want) > bound
 
 
+def packed_cols64(x: torch.Tensor, a: int) -> torch.Tensor:
+    """The float64 packed planes of the length-A real DFT of every column
+    of (B, A, C) ``x``, as (B, C, A) [re | im]: bins 0..A/2-1, the
+    Nyquist bin in im's slot 0."""
+    spec = np.fft.rfft(x.double().cpu().numpy(), axis=1).transpose(0, 2, 1)  # (B, C, A/2 + 1)
+    im = spec.imag[..., : a // 2].copy()
+    im[..., 0] = spec[..., a // 2].real
+    return torch.from_numpy(np.concatenate([spec.real[..., : a // 2], im], -1)).to(x.device)
+
+
+@pytest.mark.parametrize("a", REAL_COLUMN_LENGTHS)
+def test_k7a_at_every_length(dev, a):
+    """K7a at every real column length A, 1 and 7 batch rows of a ragged
+    C = 37 columns of unit-scale samples: within held's bound of its plain
+    version and of float64 (which a zeroed output and one whose Nyquist
+    slot, im[..., 0], is zeroed fail)."""
+    plan = ct.cached_plan(a, ct.FFT_REAL)
+    for rows in (1, 7):
+        x = rand((rows, a, 37), dev, a + rows + 2)
+        got = torch.cat(hc.rfft_cols(x, plan), -1)
+        want = torch.cat(hc.rfft_cols_plain(x, plan), -1)
+        ref = packed_cols64(x, a)
+        bound = held_bound(want, a)
+        assert maxerr(got, want) <= bound and maxerr(got, ref) <= held_bound(ref, a)
+        no_nyq = got.clone()
+        no_nyq[..., a // 2] = 0  # im[..., 0]
+        assert maxerr(torch.zeros_like(want), want) > bound
+        assert maxerr(no_nyq, want) > bound
+
+
 @pytest.mark.parametrize("a", REAL_COLUMN_LENGTHS)
 def test_k7b_at_every_length(dev, a):
     """K7b at every real column length A, 1 and 7 batch rows of a ragged

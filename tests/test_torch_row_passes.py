@@ -361,12 +361,20 @@ def test_row_wrappers_pick_split_order_and_grid(name, call, position_split, grid
 
 def test_inverse_runs_the_row_engine():
     """K2, K3 and K2-db run row_fft.cuh's irfft_row (the row engine's
-    passes, the merge in the first pass's reads); only K5 and K7a still
-    reach stockham.cuh's run_stages."""
+    passes, the merge in the first pass's reads); only K5 still reaches
+    stockham.cuh's run_stages. K7a runs the column engine's passes
+    (col_passes.cuh), its old stage body and tile rule gone."""
     for name in ("real_fft.cu", "pipelined_fft.cu"):
         src = (CSRC / name).read_text()
         assert "irfft_row<" in src and "run_stages" not in src
     row = (CSRC / "row_fft.cuh").read_text()
     assert "MergeIn{" in row and "run_stages" not in row
     callers = sorted(p.name for p in CSRC.glob("*.cu") if "run_stages<" in p.read_text())
-    assert callers == ["composite_fft.cu", "small_fft.cu"]
+    assert callers == ["small_fft.cu"]
+    comp = (CSRC / "composite_fft.cu").read_text()
+    k7a = comp[comp.index("rfft_col_passes_kernel("):comp.index("// K7b:")]
+    assert "run_col_passes<-1, true>" in k7a and "run_col_passes_in_place<-1, true>" in k7a
+    assert "RealColsIn in{" in k7a and "split_bin(" in k7a
+    assert not re.search(r"\brfft_cols_kernel\b", comp) and "tile_shift" not in comp and "col_tile" not in comp
+    assert "col_tile" not in (CSRC.parent / "ops" / "_cuda.py").read_text()
+    assert "case 5: return reinterpret_cast<const void*>(rfft_col_passes_kernel<SHAPE>)" in comp
