@@ -11,7 +11,7 @@ Phases, each of which asserts:
    MAX_SMALL_N, MAX_COL) and K5's and the K1-K4 row engine's points per
    thread against Python's, report ptxas's registers and spills of the
    row engine's kernels (K1-K4, K1-db, K2-db, K4-db) and of the column
-   engine's (K6's four roles, K7b), and K7a's column tile;
+   engine's (K6's four roles, K7a, K7b);
 2. run K1-K3 against their plain PyTorch versions on the card and against
    float64 numpy on the host, bound 2e-7*N (max abs error); K1 at every
    size of its domain (36 N) at 1, 7 and 1001 rows, both orders, planes,
@@ -66,9 +66,11 @@ Phases, each of which asserts:
     complex N from 16384 to 2^20, real N from 32768 to 2^20, odd and even
     batches, planes and complex64; a zeroed K7b output and K7b without
     its Nyquist slot must fail the check; then K6's four roles (complex64
-    and planes) and K7b on their own at every column length the
+    and planes), K7a and K7b on their own at every column length the
     composite's splits produce (``hopper_composite.column_lengths``: 71
-    complex lengths, 51 real), 3 rows of a ragged 37 columns;
+    complex lengths, 51 real), 3 rows of a ragged 37 columns, K7a also
+    against float64; a zeroed K7a output and one without its Nyquist
+    slot must fail the check;
 13. BASELINE config 2's top row: ``fft``/``ifft``/``rfft_packed``/
     ``irfft_packed`` with ``engine="auto"`` at N=2^20, B=64, every row
     against the plain composite, 4 rows against float64; each composite
@@ -82,8 +84,8 @@ Phases, each of which asserts:
     against its plain version, its bound (``utils/roofline.py``) and the
     matching ``torch.fft`` call, with the column engine's launch geometry
     and resident blocks per SM there; K6 level 2 and its reverse on the
-    real composite's planes; the whole transforms, and the reverb's wall
-    and device time per call;
+    real composite's planes; K7a at the reverb's shape; the whole
+    transforms, and the reverb's wall and device time per call;
 16. BASELINE config 4 as examples/02_convolution_reverb.py deploys it:
     ``models.MultichannelConvolver`` built from the numpy IR bank (64
     channels, 2 s IRs) on its default device, ``apply`` on 64 x 10 s at
@@ -1169,8 +1171,8 @@ def phase14(ct, hc, hf, stream, dev, audio: np.ndarray, ir: np.ndarray) -> dict[
 def phase15(ct, hc, roof, stream, lib, dev, card, audio: np.ndarray, ir: np.ndarray) -> dict[str, dict]:
     """Returns each composite kernel's kernel_times at config 2's top row,
     with its bound under "bound"; logs the column engine's launch geometry
-    and resident blocks per SM there, and K6 level 2 on the real
-    composite's planes."""
+    and resident blocks per SM there, K6 level 2 on the real composite's
+    planes and K7a at the reverb's shape."""
     from chowdsp_fft_tpu_torch.ops import col_passes
 
     n, rows = CONFIG2_TOP
@@ -1211,7 +1213,7 @@ def phase15(ct, hc, roof, stream, lib, dev, card, audio: np.ndarray, ir: np.ndar
             (hc.K6_L2_REV, 2, pc, a, "complex64", 8), (hc.K6_L1_REV, 3, pa, c, "complex64", 8),
             (hc.K6_L2, 1, ct.cached_plan(rc, ct.FFT_COMPLEX), ra // 2, "planes", 4),
             (hc.K6_L2_REV, 2, ct.cached_plan(rc, ct.FFT_COMPLEX), ra // 2, "planes", 4),
-            (hc.K7B, 4, pra, rc, "real", 4)):
+            (hc.K7B, 4, pra, rc, "real", 4), (hc.K7A, 5, pra, rc, "real", 4)):
         g = col_passes.launch_geometry(plan, rows, cols, seg, hc.in_place_role(k, seg // 4))
         log(f"phase 15 {k.name} geometry ({form}, L={plan.n if role < 4 else plan.n // 2}): passes {g.passes}, "
             f"{g.lanes} columns and {g.threads} threads a block, {g.buffers} tile buffer(s) of {g.smem_bytes} B; "
@@ -1234,6 +1236,18 @@ def phase15(ct, hc, roof, stream, lib, dev, card, audio: np.ndarray, ir: np.ndar
     out[hc.K7A.name] = kernel_times(lambda v: hc.rfft_cols(v, pra), lambda v: hc.rfft_cols_plain(v, pra), xr3,
                                     lambda v: torch.fft.rfft(v, dim=1))
     out[hc.K7A.name]["bound"] = roof.level_roofline(n, rows, ra, "real")
+    # K7a at the reverb's shape (N = 2^19, two blocks a channel: the same
+    # bytes as config 2's top row).
+    vn, vrows = 1 << 19, 2 * REVERB["channels"]
+    va, vc = hc.split_large(vn, real=True)
+    pva = ct.cached_plan(va, ct.FFT_REAL)
+    xv = [(torch.randn(vrows, va, vc, device=dev),) for _ in range(2)]
+    t = kernel_times(lambda v: hc.rfft_cols(v, pva), lambda v: hc.rfft_cols_plain(v, pva), xv,
+                     lambda v: torch.fft.rfft(v, dim=1))
+    vb = roof.level_roofline(vn, vrows, va, "real")
+    log_times(15, hc.K7A.name, f"at the reverb's shape (N=2^19, B={vrows}, A={va}, C={vc}; bound {vb.ms:.4f} ms, "
+                               f"{vb.bound_by})", t, card)
+    del xv
     specs = [(torch.fft.rfft(v.transpose(1, 2), dim=-1),) for (v,) in xr3]
     out[hc.K7B.name] = kernel_times(lambda r, i: hc.irfft_cols(r, i, pra),
                                     lambda r, i: hc.irfft_cols_plain(r, i, pra), packed,
@@ -1687,16 +1701,16 @@ def main() -> int:
             f"kernel limits (MAX_N, MAX_CN, MAX_SMALL_N, MAX_COL, K5 POINTS_PER_THREAD, K1/K4 POINTS_PER_THREAD) "
             f"{limits} differ from Python's")
     # ptxas's registers and spills of the row engine's kernels (K1-K4 and
-    # their pipelined forms) and the column engine's (K6's four roles, K7b),
-    # as the build recorded them.
+    # their pipelined forms) and the column engine's (K6's four roles, K7a,
+    # K7b), as the build recorded them.
     for mangled in ("18rfft_packed_kernel", "19irfft_packed_kernel", "11cfft_kernel", "14rfft_db_kernel",
-                    "15irfft_db_kernel", "14cfft_db_kernel", "20column_passes_kernel", "23irfft_col_passes_kernel"):
-        for line in _cuda.kernel_resources(lib_path, mangled):
+                    "15irfft_db_kernel", "14cfft_db_kernel", "20column_passes_kernel", "22rfft_col_passes_kernel",
+                    "23irfft_col_passes_kernel"):
+        lines = _cuda.kernel_resources(lib_path, mangled)
+        require(bool(lines), f"no ptxas report of {mangled[2:]}")
+        for line in lines:
             log(f"phase 1 ptxas {mangled[2:]}: {line}")
-    tiles = {pts: lib.hopper_composite_col_tile(pts) for pts in (256, 512, 1024, 2048)}
-    require(all(t >= 1 for t in tiles.values()), f"composite column tiles {tiles}")
-    log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.2f} s -> {lib_path}; K7a's column "
-        f"tile by column length {tiles}")
+    log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.2f} s -> {lib_path}")
 
     # -- phase 2 ------------------------------------------------------------
     shapes = [HEADLINE, (4096, 1), (4096, 1023), (512, 64), (2048, 256),

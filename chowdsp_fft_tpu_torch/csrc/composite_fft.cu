@@ -157,7 +157,11 @@ rfft_col_passes_kernel(const float* __restrict__ x, float* __restrict__ yre, flo
   const size_t out_at = (static_cast<size_t>(tl.b) * C + tl.m0) * H;
   // e / H == umulhi(e, magic) for e * H < 2^32 (e < 16 * H, H <= MAX_COL / 2).
   const unsigned magic = 0xFFFFFFFFu / static_cast<unsigned>(H) + 1u;
-#pragma unroll
+#ifndef K7A_SPLIT_UNROLL
+#define K7A_SPLIT_UNROLL 16
+#endif
+  constexpr int kSplitUnroll = K7A_SPLIT_UNROLL;
+#pragma unroll kSplitUnroll
   for (int c = 0; c < kRowPoints; ++c) {
     const int e = threadIdx.x + c * blockDim.x;
     if (e < pts) {
