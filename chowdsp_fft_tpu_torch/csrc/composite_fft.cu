@@ -157,26 +157,20 @@ rfft_col_passes_kernel(const float* __restrict__ x, float* __restrict__ yre, flo
   const size_t out_at = (static_cast<size_t>(tl.b) * C + tl.m0) * H;
   // e / H == umulhi(e, magic) for e * H < 2^32 (e < 16 * H, H <= MAX_COL / 2).
   const unsigned magic = 0xFFFFFFFFu / static_cast<unsigned>(H) + 1u;
-#ifndef K7A_SPLIT_UNROLL
-#define K7A_SPLIT_UNROLL 16
-#endif
-  constexpr int kSplitUnroll = K7A_SPLIT_UNROLL;
-#pragma unroll kSplitUnroll
-  for (int c = 0; c < kRowPoints; ++c) {
-    const int e = threadIdx.x + c * blockDim.x;
-    if (e < pts) {
-      const int jj = static_cast<int>(__umulhi(static_cast<unsigned>(e), magic));
-      const int k = e - jj * H;
-      float2 X;
-      if (k == 0) {
-        const float2 z0 = z(0, jj);
-        X = make_float2(z0.x + z0.y, z0.x - z0.y);
-      } else {
-        X = split_bin(z(k, jj), z(H - k, jj), __ldg(split_tw + k));
-      }
-      yre[out_at + e] = X.x;
-      yim[out_at + e] = X.y;
+  // Not unrolled: unrolled 16 (or 2) times, the in-place tile spilled 60 B
+  // and ran 8% slower (PERF.md, PR 9).
+  for (int e = threadIdx.x; e < pts; e += blockDim.x) {
+    const int jj = static_cast<int>(__umulhi(static_cast<unsigned>(e), magic));
+    const int k = e - jj * H;
+    float2 X;
+    if (k == 0) {
+      const float2 z0 = z(0, jj);
+      X = make_float2(z0.x + z0.y, z0.x - z0.y);
+    } else {
+      X = split_bin(z(k, jj), z(H - k, jj), __ldg(split_tw + k));
     }
+    yre[out_at + e] = X.x;
+    yim[out_at + e] = X.y;
   }
 }
 

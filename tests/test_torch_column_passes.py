@@ -129,11 +129,11 @@ def test_geometry_at_every_length(n, kind):
 
 
 def test_in_place_roles():
-    """The wrappers' choice of tile per kernel (PERF.md, PR 7)."""
+    """The wrappers' choice of tile per kernel (PERF.md, PR 7 and PR 9)."""
     assert hc.in_place_role(hc.K6_L1, 2) and hc.in_place_role(hc.K6_L2, 1) and hc.in_place_role(hc.K6_L2_REV, 2)
     assert not hc.in_place_role(hc.K6_L2_REV, 1) and not hc.in_place_role(hc.K6_L1_REV, 2)
     assert not hc.in_place_role(hc.K7B, 1)
-    assert not hc.in_place_role(hc.K7A, 1)
+    assert hc.in_place_role(hc.K7A, 1)
     assert col_passes.in_place_plan(1024, col_passes.pass_plan(ct.cached_plan(1024).radices))
     assert not col_passes.in_place_plan(48, col_passes.pass_plan(ct.cached_plan(48).radices))  # last pass (3,1)
     assert not col_passes.in_place_plan(1000, col_passes.pass_plan(ct.cached_plan(1000).radices))  # 16 does not divide

@@ -271,3 +271,39 @@ def test_filter_takes_host_blocks_to_its_device():
     assert y.device.type == "meta"
     _, y = fir.step_k(state, x[:, :384].reshape(2, 3, 128))
     assert y.device.type == "meta" and y.shape == (2, 3, 128)
+
+
+def _imported_modules(path: pathlib.Path) -> set[str]:
+    import ast
+
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", sorted((REPO / "chowdsp_fft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_module_imports_jax(path):
+    """No module of the port, and not chip_smoke.py, imports JAX or the JAX
+    package, at any depth of the file (also inside functions)."""
+    for name in _imported_modules(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "chowdsp_fft_tpu"), (path.name, name)
+
+
+def test_chip_smoke_refuses_a_machine_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result where
+    torch.cuda.is_available() is false, and from a directory that holds it
+    alone."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"), (tmp_path, lone)):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
