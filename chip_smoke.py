@@ -155,8 +155,13 @@ K4_PATH = (1024, CONFIG5_SAMPLES // 1024)  # K4 at phase 8's channelizer shape
 DOMAIN_ROWS = (1, 7, 1001)  # K1 and K4 at every size of their domains: one, an odd and a large batch
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the script started (where the
+    run's time goes, against its time limit)."""
+    print(f"[{time.perf_counter() - _START:6.1f} s] {msg}", flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1688,7 +1693,7 @@ def main() -> int:
 
     # -- phase 1 ------------------------------------------------------------
     card = card_line()
-    log(card)  # the nvidia-smi line as it is: name, power limit
+    print(card, flush=True)  # the nvidia-smi line as it is: name, power limit
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     lib_path = _cuda.build()

@@ -31,7 +31,9 @@
 //     16 | L the first pass (4,4) runs on the loaded registers (thread t's
 //     butterfly is its own points) and a last pass with P | 16 leaves its
 //     outputs in the registers the stores read; otherwise the points go
-//     through the tile;
+//     through the tile. K7a's split reads bins k and L - k, which no
+//     thread holds together, so its last pass always ends in the tile
+//     (TO_TILE);
 //   * two shapes of exchange. Two buffers: each pass between takes one
 //     butterfly at a time from one buffer to the other (P points live), one
 //     barrier a pass; tiles of at most 4096 points and 256 threads (67.6 KB,
@@ -41,8 +43,9 @@
 //     passes between the first and the last are all (4,4) (every power of
 //     two from 32): one buffer, each thread's one butterfly held in registers across
 //     the barrier between the pass's reads and writes; 8192 points, 512
-//     threads and 64 registers, two blocks an SM, twice the columns of a
-//     narrow tile. The wrappers pick the shape by role
+//     threads and 64 registers (ptxas spills 36-60 B a kernel there), two
+//     blocks an SM, twice the columns of a narrow tile. The wrappers pick
+//     the shape by role
 //     (ops/hopper_composite.in_place_role, measured);
 //   * twiddles: bin j = j1*R0 + j0 of a pass takes W^(j*p*s) as rows j0
 //     and j1*R0 of the pass table ([row*m + p], built in float64, rounded

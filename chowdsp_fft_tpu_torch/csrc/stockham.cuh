@@ -182,14 +182,6 @@ __device__ float2* run_stages(float2* a, float2* b, int M, const Radices& rad,
   return a;
 }
 
-// Threads for one block over an M-point row: one radix-4 butterfly each.
-int threads_for(int M) {
-  int t = ((M / 4 + 31) / 32) * 32;
-  if (t < 64) t = 64;
-  if (t > kMaxThreads) t = kMaxThreads;
-  return t;
-}
-
 int make_radices(const int* radices, int count, Radices* out) {
   if (count < 0 || count > kMaxStages) return static_cast<int>(cudaErrorInvalidValue);
   out->count = count;
