@@ -158,7 +158,7 @@ rfft_col_passes_kernel(const float* __restrict__ x, float* __restrict__ yre, flo
   // e / H == umulhi(e, magic) for e * H < 2^32 (e < 16 * H, H <= MAX_COL / 2).
   const unsigned magic = 0xFFFFFFFFu / static_cast<unsigned>(H) + 1u;
   // Not unrolled: unrolled 16 (or 2) times, the in-place tile spilled 60 B
-  // and ran 8% slower (PERF.md, PR 9).
+  // and ran 8% slower (PERF.md §6, K7a's development runs).
   for (int e = threadIdx.x; e < pts; e += blockDim.x) {
     const int jj = static_cast<int>(__umulhi(static_cast<unsigned>(e), magic));
     const int k = e - jj * H;

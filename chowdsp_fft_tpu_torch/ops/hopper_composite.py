@@ -187,10 +187,10 @@ def in_place_role(kernel: Kernel, stride: int) -> bool:
     """Whether a column-engine kernel takes in-place tiles where its plan
     allows (one buffer, twice the columns, two blocks an SM) or narrow
     two-buffer tiles (three blocks an SM). Measured on the H100 at
-    N = 2^20 (PERF.md, PR 7 and PR 9): in place is faster for K6 l1 and l2
-    in both forms, for l2_rev on complex64 and for K7a (0.267 against
-    0.351 ms: like l1, it reads columns and writes rows); two buffers for
-    l1_rev and K7b (whose inputs are rows) and for l2_rev on planes."""
+    N = 2^20 (PERF.md §6): in place is faster for K6 l1 and l2 in both
+    forms, for l2_rev on complex64 and for K7a (0.244 against 0.346 ms:
+    like l1, it reads columns and writes rows); two buffers for l1_rev
+    and K7b (whose inputs are rows) and for l2_rev on planes."""
     return kernel is K6_L1 or kernel is K6_L2 or kernel is K7A or (kernel is K6_L2_REV and stride == 2)
 
 

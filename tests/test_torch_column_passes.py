@@ -129,7 +129,7 @@ def test_geometry_at_every_length(n, kind):
 
 
 def test_in_place_roles():
-    """The wrappers' choice of tile per kernel (PERF.md, PR 7 and PR 9)."""
+    """The wrappers' choice of tile per kernel (measured: PERF.md §6)."""
     assert hc.in_place_role(hc.K6_L1, 2) and hc.in_place_role(hc.K6_L2, 1) and hc.in_place_role(hc.K6_L2_REV, 2)
     assert not hc.in_place_role(hc.K6_L2_REV, 1) and not hc.in_place_role(hc.K6_L1_REV, 2)
     assert not hc.in_place_role(hc.K7B, 1)
