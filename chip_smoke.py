@@ -116,14 +116,34 @@ Phases, each of which asserts:
     and resident blocks per SM; config 4's ``apply`` (wall, device time by
     kernel, idle share) and one ``step``, and ``spectrogram``.
 
+20. gradients on the card (``ops/autodiff.py``): each autograd Function
+    against the same Function on the plain versions (2e-7*N times the
+    cotangent's largest value), against float64 (the adjoint identity,
+    relative 1e-6; the slot-0 closed forms, relative 1e-5; Parseval's
+    closed form for RfftPacked) and by the kernels its backward launched:
+    RfftPacked and IrfftPacked at N=4096, B=1024 (both orders), N=256,
+    B=32768 (K5), N=576 and N=2^20, B=64 (the composite);
+    ConvolveIrfftPacked at config 3's 512 x 16384 with a shared and a
+    batched B; CfftPair at 4096 x 1024 (K4), 256 x 32768 (K5) and 2^20 x
+    64 (K6's four roles), both directions, planes and complex64. A zeroed
+    gradient and a half weight applied to slot 0 must fail. Then the
+    training slice: an impulse response learned with Adam from zero on
+    config 3's streams (5 steps; K1 + K3 forward, K1 + K2 backward) and on
+    the reverb (3 steps; the composite both ways), the loss falling at
+    every step, the first gradient against the Stockham engine and float64
+    (2e-7*N of its largest value), each step's wall, device time by kernel
+    and backward/forward ratio; and config 4's ``apply`` differentiated
+    with respect to x, 8 channels against the Stockham engine.
+
 Every kernel time is taken twice (phases 5, 11, 15, 19): ``ms``, CUDA
 events around 20 calls from Python (host-inclusive: the wrapper, ctypes
 and the launch), and ``device_ms``, the same 20 calls captured in one CUDA
 graph and replayed (``graph_time_ms``: no host in the loop); the matching
 ``torch.fft`` call likewise (``library_ms``, ``library_device_ms``).
 
-Phases run in the order 1-9, 12-14, 16-18, 10, 11, 15, 19. The line before the last
-is the kernel report as JSON; the last line is ``{"ok": true, "device":
+Phases run in the order 1-9, 12-14, 16-18, 20, 10, 11, 15, 19. The line before the
+last is the kernel report as JSON (with each kernel's launches in phase
+20's backward passes, ``backward_launches``); the last line is ``{"ok": true, "device":
 {...}}``. Exits non-zero on any failure and when no CUDA device is
 present.
 """
@@ -1652,7 +1672,7 @@ def phase19(ct, hf, hc4, roof, row_passes, lib, models, stream, dev, card, audio
     del paths, ols_args, ols_lib, pfir_args, pfir_lib, acc_lib
 
     channels, t = audio.shape
-    conv = models.MultichannelConvolver(ir, models.ConvolverConfig(channels=channels, block=CONFIG4_BLOCK))
+    conv = models.MultichannelConvolver(ir, models.ConvolverConfig(channels=channels, block=CONFIG4_BLOCK), device=dev)
     x = torch.from_numpy(audio).to(dev)
 
     apply_wall = wall_ms(lambda: conv.apply(x), 5)
@@ -1675,6 +1695,475 @@ def phase19(ct, hf, hc4, roof, row_passes, lib, models, stream, dev, card, audio
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: gradients on the card (ops/autodiff.py)
+# ---------------------------------------------------------------------------
+
+ADJOINT_RTOL = 1e-6  # <J v, u> against <v, J^T u> over the operand norms (test_autodiff.py)
+SLOT0_RTOL = 1e-5  # the slot-0 closed forms, over N times the cotangent's largest value
+GRAD_REAL = ((4096, 1024, True), (4096, 1024, False), (256, 32768, True), (576, 64, True), (1 << 20, 64, True))
+GRAD_COMPLEX = ((4096, 1024), (256, 32768), (1 << 20, 64))
+GRAD_CONV = (16384, 512)  # config 3's fir_filter_ols(block=8192): K3 on 512 rows of 16384
+TRAIN_STEPS = {"config 3": 5, "reverb": 3}
+TRAIN_LR = 0.1  # Adam's step over the mean |h*|: small against the error each tap starts with
+GRAD_ENGINE_RTOL = 1e-4  # a gradient against the Stockham engine's, over its largest value (_grad_match)
+PLAIN_ROWS = 8  # rows of a complex composite held against the plain route
+
+
+def dot64(a, b) -> float:
+    """The real inner product of two tensors or two tuples of planes, in
+    float64 on the card (complex: Re sum(conj(a) b))."""
+    pairs = zip(a, b) if isinstance(a, tuple) else ((a, b),)
+    total = 0.0
+    for p, q in pairs:
+        if p.is_complex():
+            p, q = torch.view_as_real(p), torch.view_as_real(q)
+        total += float((p.double() * q.double()).sum())
+    return total
+
+
+def norm64(a) -> float:
+    return float(np.sqrt(sum(float(t.abs().double().pow(2).sum()) for t in (a if isinstance(a, tuple) else (a,)))))
+
+
+def counted_grad(hf, out, inputs, cot, backward: dict[str, int]) -> tuple:
+    """torch.autograd.grad of ``out`` along ``cot``, with every launch
+    count reset just before and read just after; adds them to
+    ``backward``."""
+    torch.cuda.synchronize()
+    hf.reset_launch_counts()
+    grads = torch.autograd.grad(out if isinstance(out, tuple) else (out,), inputs, cot)
+    torch.cuda.synchronize()
+    for k in hf.KERNELS:
+        backward[k.name] = backward.get(k.name, 0) + k.launches
+    return grads, {k.name: k.launches for k in hf.KERNELS if k.launches}
+
+
+@contextlib.contextmanager
+def slot0_weight_wrong(autodiff):
+    """The half-spectrum weight applied to slot 0 as to the paired bins: a
+    wrong rule the slot-0 closed forms must catch."""
+    right = autodiff.halfspec_weight
+    autodiff.halfspec_weight = lambda re, im, w: (re * w, im * w)
+    try:
+        yield
+    finally:
+        autodiff.halfspec_weight = right
+
+
+def alternating_sum(t: torch.Tensor) -> torch.Tensor:
+    """sum_n (-1)^n t[..., n] in float64 (the Nyquist bin's projection)."""
+    d = t.double()
+    return d[..., 0::2].sum(-1) - d[..., 1::2].sum(-1)
+
+
+def phase20_functions(ct, hf, hs, hc, autodiff, dev, seed: int) -> tuple[dict[str, int], dict[str, float]]:
+    """Each autograd Function on the card, checked three ways at the
+    table's shapes: against the same Function on the plain versions (2e-7*N
+    times the cotangent's largest value, twice that where the rule weights
+    by 2; the plain gradient's largest value for K3's), against float64
+    (the adjoint identity in float64, relative 1e-6; the slot-0 closed
+    forms, relative 1e-5; Parseval's closed form of
+    test_pallas_engine.py:383-400 for RfftPacked), and by the kernels its
+    backward launched (> 0). A zeroed gradient must fail the plain check
+    and the adjoint identity; a half weight applied to slot 0 must fail
+    the slot-0 forms. Returns the backward launches and each check's
+    worst ratio to its bound."""
+    backward: dict[str, int] = {}
+    worst: dict[str, float] = {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):  # made on the card from the seed: numpy takes seconds at 2^26 values
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def held_to(key, err, bound):
+        require(err <= bound, f"phase 20 {key}: {err:.3e} > {bound:.3e}")
+        kind = " ".join(key.split()[:2])  # the Function and the check
+        worst[kind] = max(worst.get(kind, 0.0), err / bound)
+
+    def caught(key, err, bound):
+        require(err > bound, f"phase 20 {key}: the wrong gradient passes ({err:.3e} <= {bound:.3e})")
+        return err / bound
+
+    def expect_launched(key, launches, kernels):
+        for k in kernels:
+            require(launches.get(k.name, 0) > 0, f"phase 20 {key}: {k.name} was not launched in backward")
+
+    def real_kernels(n, inverse_rule):
+        """What RfftPacked's backward (``inverse_rule``) or IrfftPacked's launches at N."""
+        if hs.in_domain(n):
+            return [hs.K5_REAL_INVERSE if inverse_rule else hs.K5_REAL]
+        if hf._in_domain(n):
+            return [hf.K2 if inverse_rule else hf.K1]
+        return [hc.K7B, hc.K6_L2_REV] if inverse_rule else [hc.K7A, hc.K6_L2]
+
+    for n, rows, ordered in GRAD_REAL:
+        tag = f"N={n} B={rows} {'ordered' if ordered else 'unordered'}"
+        plan = ct.cached_plan(n, ct.FFT_REAL)
+        x = randn(rows, n)
+        u = (randn(rows, n // 2), randn(rows, n // 2))
+        umax = max(float(t.abs().max()) for t in u)
+
+        # RfftPacked: x -> planes; backward the inverse of the half-weighted cotangent.
+        v = x.clone().requires_grad_()
+        y = autodiff.RfftPacked.apply(v, plan, ordered, False)
+        (g,), launches = counted_grad(hf, y, [v], u, backward)
+        expect_launched(f"RfftPacked {tag}", launches, real_kernels(n, True))
+        vp = x.clone().requires_grad_()
+        (gp,), _ = counted_grad(hf, autodiff.RfftPacked.apply(vp, plan, ordered, True), [vp], u, {})
+        bound = TOL * n * umax
+        held_to(f"RfftPacked plain {tag}", max_err(g, gp), bound)
+        caught(f"RfftPacked plain {tag} zeroed", max_err(torch.zeros_like(g), gp), bound)
+        y = tuple(t.detach() for t in y)
+        scale = norm64(y) * norm64(u)
+        held_to(f"RfftPacked adjoint {tag}", abs(dot64(y, u) - dot64(x, g)) / scale, ADJOINT_RTOL)
+        caught(f"RfftPacked adjoint {tag} zeroed", abs(dot64(y, u) - 0.0) / scale, ADJOINT_RTOL)
+
+        def slot0_real(grad):
+            return max(float((grad.double().sum(-1) - n * u[0][:, 0].double()).abs().max()),
+                       float((alternating_sum(grad) - n * u[1][:, 0].double()).abs().max())) / (n * umax)
+
+        held_to(f"RfftPacked slot-0 {tag}", slot0_real(g), SLOT0_RTOL)
+        with slot0_weight_wrong(autodiff):
+            vb = x.clone().requires_grad_()
+            (gb,), _ = counted_grad(hf, autodiff.RfftPacked.apply(vb, plan, ordered, False), [vb], u, {})
+        slot0_caught = caught(f"RfftPacked slot-0 {tag} half weight", slot0_real(gb), SLOT0_RTOL)
+        # Parseval: sum re^2 + im^2 has gradient N*x + X_0 + (-1)^j X_{N/2}.
+        vq = x.clone().requires_grad_()
+        yq = autodiff.RfftPacked.apply(vq, plan, ordered, False)
+        (gq,), _ = counted_grad(hf, yq, [vq], tuple(2 * t.detach() for t in yq), backward)
+        signs = torch.ones(n, dtype=torch.float64, device=dev)
+        signs[1::2] = -1
+        want = n * x.double() + x.double().sum(-1, keepdim=True) + signs * alternating_sum(x)[:, None]
+        xmax = max(float(torch.hypot(y[0][:, 1:], y[1][:, 1:]).max()), float(y[0][:, 0].abs().max()),
+                   float(y[1][:, 0].abs().max()))
+        held_to(f"RfftPacked Parseval {tag}", float((gq.double() - want).abs().max()), TOL * n * 2.0 * xmax)
+        log(f"phase 20 RfftPacked {tag}: plain {max_err(g, gp):.3e} (bound {bound:.3e}), adjoint "
+            f"{abs(dot64(y, u) - dot64(x, g)) / scale:.2e}, slot 0 {slot0_real(g):.2e} (a half weight there: "
+            f"{slot0_caught:.3g}x its bound); backward launches {launches}")
+
+        # IrfftPacked: planes -> x; backward the forward of the cotangent, weighted 2.
+        w = randn(rows, n)
+        wmax = float(w.abs().max())
+        s = tuple(t.clone().requires_grad_() for t in y)
+        out = autodiff.IrfftPacked.apply(*s, plan, ordered, False)
+        g, launches = counted_grad(hf, out, list(s), (w,), backward)
+        expect_launched(f"IrfftPacked {tag}", launches, real_kernels(n, False))
+        sp = tuple(t.clone().requires_grad_() for t in y)
+        gp, _ = counted_grad(hf, autodiff.IrfftPacked.apply(*sp, plan, ordered, True), list(sp), (w,), {})
+        bound = 2 * TOL * n * wmax
+        err = max(max_err(a, b) for a, b in zip(g, gp))
+        held_to(f"IrfftPacked plain {tag}", err, bound)
+        caught(f"IrfftPacked plain {tag} zeroed", max(max_err(torch.zeros_like(b), b) for b in gp), bound)
+        out = out.detach()
+        scale = norm64(out) * norm64(w)
+        adj = abs(dot64(out, w) - dot64(y, tuple(g))) / scale
+        held_to(f"IrfftPacked adjoint {tag}", adj, ADJOINT_RTOL)
+        caught(f"IrfftPacked adjoint {tag} zeroed", abs(dot64(out, w)) / scale, ADJOINT_RTOL)
+
+        def slot0_inv(grad):
+            return max(float((grad[0][:, 0].double() - w.double().sum(-1)).abs().max()),
+                       float((grad[1][:, 0].double() - alternating_sum(w)).abs().max())) / (n * wmax)
+
+        held_to(f"IrfftPacked slot-0 {tag}", slot0_inv(g), SLOT0_RTOL)
+        with slot0_weight_wrong(autodiff):
+            sb = tuple(t.clone().requires_grad_() for t in y)
+            gb, _ = counted_grad(hf, autodiff.IrfftPacked.apply(*sb, plan, ordered, False), list(sb), (w,), {})
+        slot0_caught = caught(f"IrfftPacked slot-0 {tag} weight 2", slot0_inv(gb), SLOT0_RTOL)
+        log(f"phase 20 IrfftPacked {tag}: plain {err:.3e} (bound {bound:.3e}), adjoint {adj:.2e}, slot 0 "
+            f"{slot0_inv(g):.2e} (weight 2 there: {slot0_caught:.3g}x its bound); backward launches {launches}")
+        del x, u, y, v, vp, vq, yq, g, gp, gb, gq, want, w, s, sp, sb, out
+
+    # ConvolveIrfftPacked at config 3's shape, a shared and a batched B.
+    n, rows = GRAD_CONV
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    a = hf.rfft_rows(randn(rows, n), plan, False)
+    w = randn(rows, n)
+    for b_rows in (1, rows):
+        tag = f"N={n} B={rows}, B rows {b_rows}"
+        hb = randn(b_rows, n) / n ** 0.5
+        b = hf.rfft_rows(hb, plan, False)
+        args = [t.clone().requires_grad_() for t in (*a, *b)]
+        out = autodiff.ConvolveIrfftPacked.apply(*args, plan, 1.0 / n, False, False)
+        g, launches = counted_grad(hf, out, args, (w,), backward)
+        expect_launched(f"ConvolveIrfftPacked {tag}", launches, [hf.K1])
+        argp = [t.clone().requires_grad_() for t in (*a, *b)]
+        gp, _ = counted_grad(hf, autodiff.ConvolveIrfftPacked.apply(*argp, plan, 1.0 / n, False, True), argp,
+                             (w,), {})
+        err = max(max_err(p, q) / (TOL * n * float(q.abs().max())) for p, q in zip(g, gp))
+        held_to(f"ConvolveIrfftPacked plain {tag}", err, 1.0)
+        caught(f"ConvolveIrfftPacked plain {tag} zeroed",
+               max(max_err(torch.zeros_like(q), q) / (TOL * n * float(q.abs().max())) for q in gp), 1.0)
+        out = out.detach()
+        scale = norm64(out) * norm64(w)
+        adj = max(abs(dot64(out, w) - dot64(a, tuple(g[:2]))), abs(dot64(out, w) - dot64(b, tuple(g[2:])))) / scale
+        held_to(f"ConvolveIrfftPacked adjoint {tag}", adj, ADJOINT_RTOL)
+        caught(f"ConvolveIrfftPacked adjoint {tag} zeroed", abs(dot64(out, w)) / scale, ADJOINT_RTOL)
+        sw, aw = w.double().sum(-1), alternating_sum(w)
+        b0 = max(float(b[0][:, 0].abs().max()), float(b[1][:, 0].abs().max()))
+
+        def slot0_conv(grad):
+            want_re, want_im = b[0][:, 0].double() * sw / n, b[1][:, 0].double() * aw / n
+            return max(float((grad[0][:, 0].double() - want_re).abs().max()),
+                       float((grad[1][:, 0].double() - want_im).abs().max())) / (b0 * float(w.abs().max()))
+
+        held_to(f"ConvolveIrfftPacked slot-0 {tag}", slot0_conv(g), SLOT0_RTOL)
+        with slot0_weight_wrong(autodiff):
+            argb = [t.clone().requires_grad_() for t in (*a, *b)]
+            gb, _ = counted_grad(hf, autodiff.ConvolveIrfftPacked.apply(*argb, plan, 1.0 / n, False, False), argb,
+                                 (w,), {})
+        slot0_caught = caught(f"ConvolveIrfftPacked slot-0 {tag} weight 2", slot0_conv(gb), SLOT0_RTOL)
+        log(f"phase 20 ConvolveIrfftPacked {tag}: plain {err:.3e} of its bound, adjoint {adj:.2e}, slot 0 "
+            f"{slot0_conv(g):.2e} (weight 2 there: {slot0_caught:.3g}x its bound); backward launches {launches}")
+        del args, argp, argb, out, g, gp, gb
+    del a, w
+
+    # CfftPair: both directions, planes and complex64 (K4 also unordered).
+    cases = [(n, rows, fwd, planes, True) for n, rows in GRAD_COMPLEX for fwd in (True, False)
+             for planes in (True, False)] + [(*GRAD_COMPLEX[0], True, False, False)]
+    for n, rows, fwd, planes, ordered in cases:
+        tag = (f"N={n} B={rows} {'forward' if fwd else 'backward'} {'planes' if planes else 'complex64'}"
+               f"{'' if ordered else ' unordered'}")
+        plan = ct.cached_plan(n, ct.FFT_COMPLEX)
+        z = torch.complex(randn(rows, n), randn(rows, n))
+        u = torch.complex(randn(rows, n), randn(rows, n))
+        if hs.in_domain(n):
+            kernels = [hs.K5_COMPLEX]
+        elif n <= hf.MAX_CN:
+            kernels = [hf.K4]
+        else:
+            kernels = [hc.K6_L2_REV, hc.K6_L1_REV] if fwd else [hc.K6_L1, hc.K6_L2]
+        inputs = (z.real.contiguous(), z.imag.contiguous()) if planes else (z,)
+        cot = (u.real.contiguous(), u.imag.contiguous()) if planes else (u,)
+
+        def run(plain, r):
+            args = [t[:r].clone().requires_grad_() for t in inputs]
+            out = autodiff.CfftPair.apply(args[0], args[1] if planes else None, plan, fwd, ordered, plain)
+            grads, launches = counted_grad(hf, out, args, tuple(t[:r] for t in cot), backward if not plain else {})
+            return (tuple(t.detach() for t in out) if planes else out.detach()), grads, launches
+
+        out, g, launches = run(False, rows)
+        expect_launched(f"CfftPair {tag}", launches, kernels)
+        # Rows are independent: at the composite sizes the plain route (a
+        # Stockham composite of many small ops) takes PLAIN_ROWS of them.
+        r = rows if n <= hf.MAX_CN else PLAIN_ROWS
+        _, gp, _ = run(True, r)
+        bound = TOL * n * float(torch.view_as_real(u).abs().max())
+        err = max(max_err(p[:r], q) for p, q in zip(g, gp))
+        held_to(f"CfftPair plain {tag}", err, bound)
+        caught(f"CfftPair plain {tag} zeroed", max(max_err(torch.zeros_like(q), q) for q in gp), bound)
+        scale = norm64(out) * norm64(u)
+        adj = abs(dot64(out, cot if planes else u) - dot64(inputs if planes else z, tuple(g) if planes else g[0]))
+        held_to(f"CfftPair adjoint {tag}", adj / scale, ADJOINT_RTOL)
+        caught(f"CfftPair adjoint {tag} zeroed", abs(dot64(out, cot if planes else u)) / scale, ADJOINT_RTOL)
+        log(f"phase 20 CfftPair {tag}: plain {err:.3e} (bound {bound:.3e}), adjoint {adj / scale:.2e}; backward "
+            f"launches {launches}")
+        del z, u, inputs, cot, out, g, gp
+    torch.cuda.empty_cache()
+    return backward, worst
+
+
+def phase20_timing(ct, hf, autodiff, dev, card) -> None:
+    """Device time (torch.profiler, device events) of one forward and one
+    backward of each Function at the headline shape (unordered, as the
+    stream layer runs it) and at config 2's top row, the backward split
+    into the port's kernels and the plain-torch glue (PyTorch's own
+    ``at::native`` kernels), and the backward/forward ratio."""
+    def one(name, fn, inputs, cot):
+        args = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*args)
+        torch.autograd.grad(out, args, cot, retain_graph=True)  # warm-up
+        torch.cuda.synchronize()
+        fwd = kernel_device_times(lambda: fn(*args))
+        bwd = kernel_device_times(lambda: torch.autograd.grad(out, args, cot, retain_graph=True))
+        glue = sum(v for k, v in bwd.items() if "at::native" in k)
+        f_ms, b_ms = sum(fwd.values()), sum(bwd.values())
+        log(f"phase 20 timing {name}: forward {f_ms:.4f} ms, backward {b_ms:.4f} ms (port kernels "
+            f"{b_ms - glue:.4f}, glue {glue:.4f}), backward/forward {b_ms / f_ms:.3f} (device, profiler) [{card}]")
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for n, rows, ordered in ((4096, 1024, False), (1 << 20, 64, True)):
+        plan = ct.cached_plan(n, ct.FFT_REAL)
+        x = torch.randn(rows, n, device=dev, generator=gen)
+        u = tuple(torch.randn(rows, n // 2, device=dev, generator=gen) for _ in range(2))
+        one(f"RfftPacked N={n} B={rows}", lambda v: autodiff.RfftPacked.apply(v, plan, ordered, False), [x], u)
+        spec = hf.rfft_rows(x, plan, ordered)
+        one(f"IrfftPacked N={n} B={rows}", lambda a, b: autodiff.IrfftPacked.apply(a, b, plan, ordered, False),
+            list(spec), (x,))
+        cplan = ct.cached_plan(n, ct.FFT_COMPLEX)
+        z = torch.complex(x, torch.randn(rows, n, device=dev, generator=gen))
+        one(f"CfftPair N={n} B={rows} forward complex64",
+            lambda a: autodiff.CfftPair.apply(a, None, cplan, True, True, False), [z], (z,))
+        del x, u, spec, z
+    n, rows = GRAD_CONV
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    a = hf.rfft_rows(torch.randn(rows, n, device=dev, generator=gen), plan, False)
+    b = hf.rfft_rows(torch.randn(1, n, device=dev, generator=gen) / n ** 0.5, plan, False)
+    one(f"ConvolveIrfftPacked N={n} B={rows} shared B",
+        lambda *t: autodiff.ConvolveIrfftPacked.apply(*t, plan, 1.0 / n, False, False), [*a, *b],
+        (torch.randn(rows, n, device=dev, generator=gen),))
+    torch.cuda.empty_cache()
+
+
+def fft_convolve64_card(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The float64 FFT convolution of float32 streams with filters, on the
+    card (``torch.fft`` in float64: a reference, not the port), truncated
+    to the streams' length."""
+    t, taps = x.shape[-1], h.shape[-1]
+    nfft = 1 << (t + taps - 2).bit_length()
+    spec = torch.fft.rfft(x.double(), nfft) * torch.fft.rfft(h.double(), nfft)
+    return torch.fft.irfft(spec, nfft)[..., :t]
+
+
+def xcorr64(r: np.ndarray, x: np.ndarray, taps: int) -> np.ndarray:
+    """sum_t r[..., t] x[..., t - k] for k < taps, float64 numpy FFTs: the
+    gradient of sum(r * (x * h)) with respect to h."""
+    nfft = 1 << (r.shape[-1] + taps - 1).bit_length()
+    return np.fft.irfft(np.fft.rfft(r, nfft) * np.conj(np.fft.rfft(x, nfft)), nfft)[..., :taps]
+
+
+def learn_ir(hf, stream, name: str, x: torch.Tensor, target: torch.Tensor, h_star: torch.Tensor, steps: int,
+             block, card: str, check_rows: int) -> dict:
+    """Fit an impulse response with Adam from zero: loss = mean((fir_filter_ols(x, h) - target)^2), target
+    the float64 convolution with ``h_star``. Each step's wall (host clock after synchronize) and its
+    backward's launches; after each step a forward and a backward at the new h (not applied) under
+    torch.profiler for the device time by kernel. The first gradient against the same call on the
+    Stockham engine and against float64 (the cross-correlation of the residual with x, numpy, on
+    ``check_rows`` streams): 2e-7*N of the float64 gradient's largest value, the engine's bound for
+    one N-point transform chain relative to its scale. The loss must fall at every step."""
+    kw = {} if block is None else {"block": block}
+    taps = h_star.shape[-1]
+    n = stream.next_fft_size((block or max(256, stream.next_fft_size(4 * taps) // 2)) + taps - 1)
+
+    def loss_of(param, engine="auto"):
+        y = stream.fir_filter_ols(x, param, engine=engine, **kw)
+        return ((y - target) ** 2).mean(), y
+
+    h = torch.nn.Parameter(torch.zeros_like(h_star))
+    lr = TRAIN_LR * float(h_star.abs().mean())
+    opt = torch.optim.Adam([h], lr=lr)
+    losses, walls, ratios, backward = [], [], [], {}
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss, y = loss_of(h)
+        hf.reset_launch_counts()
+        loss.backward()
+        launches = {k.name: k.launches for k in hf.KERNELS if k.launches}
+        opt.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+        for k, v in launches.items():
+            backward[k] = backward.get(k, 0) + v
+        if step == 0:
+            g = h.grad.detach().clone()
+            h0 = torch.zeros_like(h_star, requires_grad=True)
+            (gs,) = torch.autograd.grad(loss_of(h0, "stockham")[0], h0)
+            r = (y.detach()[:check_rows] - target[:check_rows]).double().cpu().numpy()
+            x64 = x[:check_rows].double().cpu().numpy()
+            g64 = xcorr64(r, x64, h_star.shape[-1]) * (2.0 / y.numel())
+            if h_star.ndim == 1:
+                g64 = g64.sum(0)
+                g_rows, gs_rows = g, gs
+            else:
+                g_rows, gs_rows = g[:check_rows], gs[:check_rows]
+            scale = float(np.abs(g64).max())
+            err64, err_s = max_err(g_rows, g64), max_err(g_rows, gs_rows)
+            bound = TOL * n * scale
+            log(f"phase 20 {name} (N={n}) first gradient: vs float64 {err64:.3e}, vs engine=stockham {err_s:.3e} "
+                f"(bound 2e-7*N*max|g64| = {bound:.3e}; max|g64| {scale:.3e}); backward launches {launches}")
+            require(err64 <= bound and err_s <= bound, f"{name}: the first gradient is off ({err64}, {err_s})")
+            require(max_err(torch.zeros_like(g_rows), g64) > bound, f"{name}: a zeroed gradient passes")
+            del y, gs, g, r, x64
+        fwd = kernel_device_times(lambda: loss_of(h))
+        loss_p, _ = loss_of(h)
+        bwd = kernel_device_times(lambda: torch.autograd.grad(loss_p, h))
+        del loss_p
+        f_ms, b_ms = sum(fwd.values()), sum(bwd.values())
+        ratios.append(b_ms / f_ms)
+        log(f"phase 20 {name} step {step + 1}: loss {losses[-1]:.9e}, wall {walls[-1]:.3f} ms (host clock after "
+            f"synchronize); device forward {f_ms:.3f} ms, backward {b_ms:.3f} ms, backward/forward "
+            f"{b_ms / f_ms:.3f}, idle share {1 - (f_ms + b_ms) / walls[-1]:.3f} (Adam's update not profiled); "
+            f"backward launches {launches} [{card}]")
+        for kname, ms in sorted(bwd.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"  backward {ms:9.4f} ms  {kname[:100]}")
+    with torch.no_grad():
+        losses.append(float(loss_of(h)[0]))
+    log(f"phase 20 {name}: losses {', '.join(f'{v:.9e}' for v in losses)} (lr {lr:.3e})")
+    require(all(b < a for a, b in zip(losses, losses[1:])), f"{name}: the loss did not fall at every step {losses}")
+    return {"backward": backward, "walls": walls, "ratios": ratios, "losses": losses}
+
+
+def phase20_training(hf, stream, models, dev, rng, card, x3, h3, ref3: np.ndarray, audio: np.ndarray,
+                     ir: np.ndarray) -> dict[str, int]:
+    """The training slice at full width: a learned impulse response fitted
+    with Adam on config 3's streams (4 x 2^20, 4096 taps, block 8192: K1 +
+    K3 forward, K1 + K2 backward; 5 steps) and on the reverb (64 ch x 10 s,
+    2 s per-channel IRs, N = 2^19: the composite both ways; 3 steps), the
+    targets the float64 convolutions with phase 3's filter and the
+    reverb's IRs; then config 4's ``MultichannelConvolver.apply``
+    differentiated with respect to x (K1/K2 at N = 8192, P = 24), 8
+    channels against the model on the Stockham engine (rtol 1e-4 of its
+    largest value, as _grad_match). Returns the backward launches."""
+    backward: dict[str, int] = {}
+    t0 = time.perf_counter()
+    run = learn_ir(hf, stream, "config 3", x3, torch.from_numpy(ref3.astype(np.float32)).to(dev), h3,
+                   TRAIN_STEPS["config 3"], 8192, card, x3.shape[0])
+    for k in (hf.K1, hf.K2):
+        require(run["backward"].get(k.name, 0) > 0, f"config 3 training: {k.name} was not launched in backward")
+    for k, v in run["backward"].items():
+        backward[k] = backward.get(k, 0) + v
+    log(f"phase 20 config 3 training ok in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    x = torch.from_numpy(audio).to(dev)
+    h_star = torch.from_numpy(ir).to(dev)
+    target = fft_convolve64_card(x, h_star).float()
+    run = learn_ir(hf, stream, "reverb", x, target, h_star, TRAIN_STEPS["reverb"], None, card, 8)
+    from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
+    for k in (hc.K7A, hc.K6_L2, hc.K6_L2_REV, hc.K7B):
+        require(run["backward"].get(k.name, 0) > 0, f"reverb training: {k.name} was not launched in backward")
+    for k, v in run["backward"].items():
+        backward[k] = backward.get(k, 0) + v
+    del target
+    log(f"phase 20 reverb training ok in {time.perf_counter() - t0:.1f} s")
+
+    # Config 4: the gradient of MultichannelConvolver.apply with respect to x.
+    t0 = time.perf_counter()
+    channels = audio.shape[0]
+    conv = models.MultichannelConvolver(ir, models.ConvolverConfig(channels=channels, block=CONFIG4_BLOCK), device=dev)
+    w = torch.from_numpy(rng.standard_normal(audio.shape, dtype=np.float32)).to(dev)
+    xv = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss = (conv.apply(xv) * w).sum()
+    hf.reset_launch_counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) * 1e3
+    launches = {k.name: k.launches for k in hf.KERNELS if k.launches}
+    for k in (hf.K1, hf.K2):
+        require(launches.get(k.name, 0) > 0, f"config 4 gradient: {k.name} was not launched in backward")
+    for k, v in launches.items():
+        backward[k] = backward.get(k, 0) + v
+    conv8 = models.MultichannelConvolver(ir[:8], models.ConvolverConfig(channels=8, block=CONFIG4_BLOCK,
+                                                                        engine="stockham"), device=dev)
+    x8 = x[:8].clone().requires_grad_()
+    (conv8.apply(x8) * w[:8]).sum().backward()
+    err = max_err(xv.grad[:8], x8.grad) / float(x8.grad.abs().max())
+    log(f"phase 20 config 4 dL/dx ({channels} ch x {audio.shape[1]}): forward+backward wall {wall:.3f} ms (first "
+        f"call, host clock); 8 channels vs engine=stockham {err:.3e} of its largest value (rtol "
+        f"{GRAD_ENGINE_RTOL}); backward launches {launches} [{card}]")
+    require(err <= GRAD_ENGINE_RTOL, f"config 4 gradient vs stockham: {err} > {GRAD_ENGINE_RTOL}")
+    require(bool(torch.isfinite(xv.grad).all()), "config 4 gradient: non-finite values")
+    del conv, conv8, xv, x8, w, loss, x
+    torch.cuda.empty_cache()
+    log(f"phase 20 config 4 gradient ok in {time.perf_counter() - t0:.1f} s")
+    return backward
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1682,7 +2171,7 @@ def main() -> int:
 
     import chowdsp_fft_tpu_torch as ct
     from chowdsp_fft_tpu_torch import models, stream
-    from chowdsp_fft_tpu_torch.ops import _cuda, hopper_cfft, hopper_small, row_passes, tables
+    from chowdsp_fft_tpu_torch.ops import _cuda, autodiff, hopper_cfft, hopper_small, row_passes, tables
     from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
     from chowdsp_fft_tpu_torch.ops import hopper_fft as hf
     from chowdsp_fft_tpu_torch.utils import roofline as roof
@@ -1837,6 +2326,16 @@ def main() -> int:
     errs.update(db_errs)
     launches.update(db_launches)
 
+    # -- phase 20: gradients on the card ---------------------------------------
+    t0 = time.perf_counter()
+    backward, worst = phase20_functions(ct, hf, hopper_small, hc, autodiff, dev, 20261017)
+    log("phase 20 Functions ok in " + f"{time.perf_counter() - t0:.1f} s; worst share of each bound: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+    phase20_timing(ct, hf, autodiff, dev, card)
+    for k, v in phase20_training(hf, stream, models, dev, rng, card, x, h, ref, audio, ir).items():
+        backward[k] = backward.get(k, 0) + v
+    log(f"phase 20 ok in {time.perf_counter() - t0:.1f} s; backward launches {backward}")
+
     # -- phase 10 -------------------------------------------------------------
     for k in hf.KERNELS:
         require(launches[k.name] > 0, f"{k.name} was not launched on its path")
@@ -1893,6 +2392,7 @@ def main() -> int:
             "bound_ms": bounds[k.name].ms, "bound_by": bounds[k.name].bound_by,
             "library_ms": times[k.name]["library_ms"],
             "device_ms": times[k.name]["device_ms"], "library_device_ms": times[k.name]["library_device_ms"],
+            "backward_launches": backward.get(k.name, 0),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     result = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -232,7 +232,9 @@ def check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.devi
           dtype: torch.dtype = torch.float32, align: int = 8):
     """Refuse what a kernel does not take: another dtype, device or shape,
     a non-contiguous tensor or one not ``align``-byte aligned (16 for the
-    pipelined kernels' 16-byte copies), or one that requires grad."""
+    pipelined kernels' 16-byte copies), a lazy conjugate or negative view
+    (its memory holds the unconjugated values), or one that requires
+    grad (the engine entries differentiate, ``ops/autodiff.py``)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
@@ -243,10 +245,14 @@ def check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.devi
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: expected {align}-byte aligned data")
+    if t.is_conj() or t.is_neg():
+        raise ValueError(f"{name}: expected materialized data, got a lazy conjugate or negative view "
+                         "(resolve_conj() / resolve_neg())")
     if t.requires_grad:
         raise RuntimeError(
-            f"{name}: the Hopper kernels have no autograd yet; detach the input "
-            "explicitly or run on the CPU"
+            f"{name}: a kernel wrapper takes no input that requires grad; for autograd, call the "
+            "engine entries (ct.rfft_packed, ct.irfft_packed, ct.convolve_irfft_packed, ct.fft, "
+            "ct.fft_planes, ...), which route through ops.autodiff's Functions, or detach the input"
         )
 
 

@@ -1,0 +1,195 @@
+"""Gradients through the Hopper engine: one ``torch.autograd.Function`` per
+adjoint rule of ``chowdsp_fft_tpu/ops/pallas_fft.py``'s ``jax.custom_vjp``
+blocks, at the same grain.
+
+| Function | JAX rule | forward | backward |
+|---|---|---|---|
+| :class:`RfftPacked` | ``_pallas_rfft_packed`` :1273, ``_rdc_fwd`` :3287 | K5, K1 or the real composite | the inverse of the half-weighted cotangent |
+| :class:`IrfftPacked` | ``_pallas_irfft_packed`` :1293, ``_rdc_inv`` :3305 | K5, K2 or the composite inverse | the forward of the cotangent, weighted 2 |
+| :class:`ConvolveIrfftPacked` | ``_pallas_irfft_conv`` :2114 | K3 | the unfused composition's adjoint |
+| :class:`CfftPair` | ``_cfft_pair`` :2905 | K5, K4 or the composite (K6) | the opposite direction, same ``ordered`` |
+
+No kernel is written for a backward pass: as in the JAX package, each
+backward runs the forward kernels of the opposite direction, and the glue
+(the half-spectrum weight, the packed product's adjoint) is plain torch.
+The JAX package's ``_rfft_packed_cols`` (:1519) wraps its v1 composite's
+level 1 alone; here the whole real composite sits under
+:class:`RfftPacked` and :class:`IrfftPacked` (as under ``_rdc_fwd`` and
+``_rdc_inv``), so K7a and K7b need no Function of their own.
+
+Every Function takes a ``plain`` flag: with it, forward and backward run
+the kernels' plain versions on any device, so the plain route and the
+kernels share one rule (a CPU tensor takes the plain versions anyway).
+The engine entries (``hopper_fft.rfft_packed``, ``irfft_packed``,
+``convolve_irfft_packed``, ``cfft``, ``cfft_planes``) route through these
+Functions only when grad mode is on and an input requires grad.
+
+Each backward is marked ``once_differentiable``, as the JAX backward
+rules call the ``_impl`` functions, which have no rule of their own: a
+second derivative (``create_graph=True`` and backward again) raises.
+
+Complex gradients: PyTorch hands a complex tensor the conjugate Wirtinger
+gradient (dL/dre + i dL/dim) and the transpose of the complex transform
+on that is the opposite-direction transform, unscaled; ``jax.grad`` of a
+real loss with respect to a complex input returns its conjugate. On
+(re, im) planes both frameworks agree.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
+
+# hopper_fft imports this module for its entries; the cycle is between
+# modules only, and the dispatchers are looked up at call time.
+from . import hopper_composite, hopper_fft
+from ..plans import FFTPlan
+
+__all__ = [
+    "needs_grad",
+    "halfspec_weight",
+    "packed_product_adjoint",
+    "RfftPacked",
+    "IrfftPacked",
+    "ConvolveIrfftPacked",
+    "CfftPair",
+]
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether an engine entry must route through a Function: grad mode on
+    and some input requiring grad. Otherwise the entries take the kernels
+    directly (no extra host work; CUDA-graph capture as before)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def halfspec_weight(re: torch.Tensor, im: torch.Tensor, w_pair: float):
+    """``_halfspec_weight`` (pallas_fft.py:1262): slot 0 of packed planes
+    holds DC (re) and Nyquist (im), one real bin each, weight 1; every
+    other slot stands for a conjugate pair of bins, weight ``w_pair`` (1/2
+    transposing the forward, 2 transposing the inverse). By slot, not by
+    bin number: bin 0 is at index 0 in the unordered layouts too."""
+    sre, sim = re * w_pair, im * w_pair
+    sre[..., 0] = re[..., 0]
+    sim[..., 0] = im[..., 0]
+    return sre, sim
+
+
+def packed_product_adjoint(gre: torch.Tensor, gim: torch.Tensor, bre: torch.Tensor, bim: torch.Tensor,
+                           scale: float):
+    """The adjoint of ``P = scale * A (.) B`` on packed planes
+    (``convolve_accumulate_packed``) with respect to A, given the
+    cotangent G of P: ``scale * G * conj(B)`` in every slot but slot 0,
+    where DC and Nyquist are two real products (``scale * G.re * B.re``,
+    ``scale * G.im * B.im``). With A and B swapped, the adjoint with
+    respect to B."""
+    re = (gre * bre + gim * bim) * scale
+    im = (gim * bre - gre * bim) * scale
+    re[..., 0] = gre[..., 0] * bre[..., 0] * scale
+    im[..., 0] = gim[..., 0] * bim[..., 0] * scale
+    return re, im
+
+
+def _detached(*tensors: torch.Tensor):
+    """Inputs for the kernel wrappers, which refuse tensors that require grad."""
+    return tuple(t.detach() for t in tensors)
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """A gradient as the kernel wrappers take it: no lazy conjugate or
+    negative view, contiguous, 8-byte aligned."""
+    t = t.resolve_conj().resolve_neg().contiguous()
+    return t.clone() if t.data_ptr() % 8 else t
+
+
+class RfftPacked(torch.autograd.Function):
+    """``hopper_fft.rfft_packed`` on (rows, N) f32 rows -> packed planes.
+    Backward (``_pallas_rfft_packed_bwd`` :1285, ``_rdc_fwd_bwd`` :3298):
+    the unscaled inverse, same ``ordered``, of the cotangent weighted 1/2
+    in every slot but slot 0. Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, plan: FFTPlan, ordered: bool, plain: bool = False):
+        ctx.plan, ctx.ordered, ctx.plain = plan, ordered, plain
+        return hopper_fft.rfft_rows(*_detached(x), plan, ordered, plain)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gre, gim):
+        sre, sim = halfspec_weight(gre, gim, 0.5)
+        return hopper_fft.irfft_rows(sre, sim, ctx.plan, ctx.ordered, ctx.plain), None, None, None
+
+
+class IrfftPacked(torch.autograd.Function):
+    """``hopper_fft.irfft_packed`` on packed planes (rows, N/2) x2 ->
+    (rows, N) f32. Backward (``_pallas_irfft_packed_bwd`` :1303,
+    ``_rdc_inv_bwd`` :3315): the forward transform of the cotangent, same
+    ``ordered``, weighted 2 in every slot but slot 0. Once
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, yre, yim, plan: FFTPlan, ordered: bool, plain: bool = False):
+        ctx.plan, ctx.ordered, ctx.plain = plan, ordered, plain
+        return hopper_fft.irfft_rows(*_detached(yre, yim), plan, ordered, plain)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        re, im = hopper_fft.rfft_rows(_dense(g), ctx.plan, ctx.ordered, ctx.plain)
+        return (*halfspec_weight(re, im, 2.0), None, None, None)
+
+
+class ConvolveIrfftPacked(torch.autograd.Function):
+    """K3, ``irfft(scale * A (.) B)`` on rows: A (rows, N/2) x2, B (1 or
+    rows, N/2) x2, K1 domain. Backward (``_pallas_irfft_conv_bwd`` :2126):
+    the adjoint of the unfused composition, :class:`IrfftPacked`'s (K1 on
+    the cotangent, weighted 2) and then the packed product's
+    (:func:`packed_product_adjoint`); B's gradient is summed over the rows
+    when B has one row (a shared filter). Saves A and B. Once
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, are, aim, bre, bim, plan: FFTPlan, scale: float, ordered: bool, plain: bool = False):
+        ctx.plan, ctx.scale, ctx.ordered, ctx.plain = plan, scale, ordered, plain
+        args = _detached(are, aim, bre, bim)
+        ctx.save_for_backward(*args)
+        k3 = hopper_fft.convolve_irfft_packed_plain if plain else hopper_fft.convolve_irfft_packed_kernel
+        return k3(*args, scale, plan, ordered)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        are, aim, bre, bim = ctx.saved_tensors
+        gre, gim = halfspec_weight(*hopper_fft.rfft_rows(_dense(g), ctx.plan, ctx.ordered, ctx.plain), 2.0)
+        da = db = (None, None)
+        if any(ctx.needs_input_grad[:2]):
+            da = packed_product_adjoint(gre, gim, bre, bim, ctx.scale)
+        if any(ctx.needs_input_grad[2:4]):
+            db = packed_product_adjoint(gre, gim, are, aim, ctx.scale)
+            if bre.shape[0] != are.shape[0]:
+                db = tuple(t.sum(0, keepdim=True) for t in db)
+        return (*da, *db, None, None, None, None)
+
+
+class CfftPair(torch.autograd.Function):
+    """``hopper_composite.cfft_rows`` (the complex dispatch: K5, K4 or the
+    composite) on (rows, N) rows, given as one complex64 tensor ``a``
+    (``b`` None) or as planes ``a``, ``b``; returns the same form.
+    Backward (``_cfft_pair_bwd`` :2923): the opposite direction with the
+    same ``ordered`` flag on the gradient, in the same form. Once
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, a, b, plan: FFTPlan, forward: bool, ordered: bool, plain: bool = False):
+        ctx.plan, ctx.forward, ctx.ordered, ctx.plain = plan, forward, ordered, plain
+        ctx.planes = b is not None
+        x = _detached(a, b) if ctx.planes else a.detach()
+        return hopper_composite.cfft_rows(x, plan, forward, ordered, plain)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        g = tuple(map(_dense, grads)) if ctx.planes else _dense(grads[0])
+        out = hopper_composite.cfft_rows(g, ctx.plan, not ctx.forward, ctx.ordered, ctx.plain)
+        da, db = out if ctx.planes else (out, None)
+        return da, db, None, None, None, None

@@ -47,7 +47,7 @@ import torch
 
 from .. import api as _api
 from ..plans import FFT_COMPLEX, FFT_FORWARD, FFT_REAL, FFTPlan, cached_plan
-from . import hopper_cfft, hopper_composite, hopper_small, row_passes, stockham
+from . import autodiff, hopper_cfft, hopper_composite, hopper_small, row_passes, stockham
 from ._cuda import MAX_CN, MAX_N, Kernel, check as _check, device_perm, host_ints, launch, require_cuda, require_domain
 from .convolve import convolve_accumulate_packed
 from .layout import packed_planes_to_spectrum, spectrum_to_packed_planes
@@ -74,6 +74,8 @@ __all__ = [
     "convolve_irfft_packed",
     "cfft",
     "cfft_planes",
+    "rfft_rows",
+    "irfft_rows",
     "rfft_packed_kernel",
     "irfft_packed_kernel",
     "convolve_irfft_packed_kernel",
@@ -325,8 +327,10 @@ def convolve_irfft_packed_kernel(are, aim, bre, bim, scale: float, plan: FFTPlan
 
 
 def _rows(t: torch.Tensor, width: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """(..., width) -> contiguous, 8-byte aligned (rows, width) rows."""
-    t = t.to(dtype).reshape(-1, width).contiguous()
+    """(..., width) -> contiguous, 8-byte aligned (rows, width) rows, with
+    a lazy conjugate or negative view (``z.conj()``) made real: the
+    kernels read the memory as it lies."""
+    t = t.to(dtype).reshape(-1, width).resolve_conj().resolve_neg().contiguous()
     return t.clone() if t.data_ptr() % 8 else t
 
 
@@ -337,34 +341,57 @@ def _plan_for(n: int, plan: FFTPlan | None, kind: str = FFT_REAL) -> FFTPlan:
     return plan
 
 
+def rfft_rows(x: torch.Tensor, plan: FFTPlan, ordered: bool = True, plain: bool = False):
+    """The real forward dispatch on (rows, N) f32 rows -> packed planes:
+    K5 for its sizes, K1 in its domain, the composite above; with
+    ``plain`` each one's plain version, whatever the device."""
+    n = plan.n
+    if hopper_small.in_domain(n):
+        return (hopper_small.small_rfft_plain if plain else hopper_small.small_rfft_kernel)(x, plan)
+    if _in_domain(n):
+        return (rfft_packed_plain if plain else rfft_packed_kernel)(x, plan, ordered)
+    return hopper_composite.rfft_composite(x, plan, plain)
+
+
+def irfft_rows(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool = True, plain: bool = False):
+    """The real inverse dispatch on packed planes (rows, N/2) x2 -> (rows,
+    N) f32, unscaled: K5, K2 or the composite (or their plain versions)."""
+    n = plan.n
+    if hopper_small.in_domain(n):
+        return (hopper_small.small_irfft_plain if plain else hopper_small.small_irfft_kernel)(yre, yim, plan)
+    if _in_domain(n):
+        return (irfft_packed_plain if plain else irfft_packed_kernel)(yre, yim, plan, ordered)
+    return hopper_composite.irfft_composite(yre, yim, plan, plain)
+
+
 def rfft_packed(x: torch.Tensor, plan: FFTPlan | None = None, ordered: bool = True):
     """Real FFT -> packed half-spectrum planes ((..., N/2) f32 x2): K5,
     then K1 up to MAX_N, then the composite; K5 and composite sizes are in
-    natural order either way."""
+    natural order either way. An input that requires grad (in grad mode)
+    goes through ``autodiff.RfftPacked``, whose backward runs the inverse
+    kernels."""
     n = x.shape[-1]
     plan = _plan_for(n, plan)
     batch_shape = x.shape[:-1]
     rows = _rows(x, n)
-    if hopper_small.in_domain(n):
-        yre, yim = hopper_small.small_rfft_kernel(rows, plan)
-    elif _in_domain(n):
-        yre, yim = rfft_packed_kernel(rows, plan, ordered)
+    if autodiff.needs_grad(rows):
+        yre, yim = autodiff.RfftPacked.apply(rows, plan, ordered, False)
     else:
-        yre, yim = hopper_composite.rfft_composite(rows, plan)
+        yre, yim = rfft_rows(rows, plan, ordered)
     return yre.reshape(*batch_shape, n // 2), yim.reshape(*batch_shape, n // 2)
 
 
 def irfft_packed(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan | None = None, ordered: bool = True):
-    """Unscaled inverse of :func:`rfft_packed` -> (..., N) f32."""
+    """Unscaled inverse of :func:`rfft_packed` -> (..., N) f32 (through
+    ``autodiff.IrfftPacked`` when an input requires grad)."""
     m = yre.shape[-1]
     plan = _plan_for(2 * m, plan)
     batch_shape = yre.shape[:-1]
-    if hopper_small.in_domain(2 * m):
-        x = hopper_small.small_irfft_kernel(_rows(yre, m), _rows(yim, m), plan)
-    elif _in_domain(2 * m):
-        x = irfft_packed_kernel(_rows(yre, m), _rows(yim, m), plan, ordered)
+    rows = _rows(yre, m), _rows(yim, m)
+    if autodiff.needs_grad(*rows):
+        x = autodiff.IrfftPacked.apply(*rows, plan, ordered, False)
     else:
-        x = hopper_composite.irfft_composite(_rows(yre, m), _rows(yim, m), plan)
+        x = irfft_rows(*rows, plan, ordered)
     return x.reshape(*batch_shape, 2 * m)
 
 
@@ -372,20 +399,24 @@ def convolve_irfft_packed(are, aim, bre, bim, plan: FFTPlan | None = None, scali
     """Fused ``irfft_packed(A (.) B * scaling)``: the product spectrum
     never reaches device memory. A is (..., N/2) packed planes; B matches
     A's batch or is one shared spectrum (a filter). The fused kernel (K3)
-    serves the K1 domain with a number ``scaling``; a tensor ``scaling``,
-    a K5 size or a composite size takes the unfused composition (same
-    math), as the JAX package's gate does (pallas_fft.py:2151-2159)."""
+    serves the K1 domain with a number ``scaling`` (through
+    ``autodiff.ConvolveIrfftPacked`` when an input requires grad); a
+    tensor ``scaling``, a K5 size or a composite size takes the unfused
+    composition (same math), as the JAX package's gate does
+    (pallas_fft.py:2151-2159)."""
     m = are.shape[-1]
     plan = _plan_for(2 * m, plan)
     if isinstance(scaling, torch.Tensor) or not _in_domain(plan.n):
         pr, pi = convolve_accumulate_packed((are, aim), (bre, bim), scaling=scaling)
         return irfft_packed(pr, pi, plan, ordered)
     batch_shape = are.shape[:-1]
-    af, aif = _rows(are, m), _rows(aim, m)
-    bf, bif = _rows(bre, m), _rows(bim, m)
-    if bf.shape[0] not in (1, af.shape[0]):
-        raise ValueError(f"B batch {bf.shape[0]} must be 1 or match A batch {af.shape[0]}")
-    x = convolve_irfft_packed_kernel(af, aif, bf, bif, float(scaling), plan, ordered)
+    rows = _rows(are, m), _rows(aim, m), _rows(bre, m), _rows(bim, m)
+    if rows[2].shape[0] not in (1, rows[0].shape[0]):
+        raise ValueError(f"B batch {rows[2].shape[0]} must be 1 or match A batch {rows[0].shape[0]}")
+    if autodiff.needs_grad(*rows):
+        x = autodiff.ConvolveIrfftPacked.apply(*rows, plan, float(scaling), ordered, False)
+    else:
+        x = convolve_irfft_packed_kernel(*rows, float(scaling), plan, ordered)
     return x.reshape(*batch_shape, 2 * m)
 
 
@@ -425,7 +456,11 @@ def cfft(x: torch.Tensor, plan: FFTPlan | None = None, direction: str = FFT_FORW
     in place as float2."""
     n = x.shape[-1]
     plan = _plan_for(n, plan, FFT_COMPLEX)
-    y = hopper_composite.cfft_rows(_rows(x, n, torch.complex64), plan, direction == FFT_FORWARD, ordered)
+    rows = _rows(x, n, torch.complex64)
+    if autodiff.needs_grad(rows):
+        y = autodiff.CfftPair.apply(rows, None, plan, direction == FFT_FORWARD, ordered, False)
+    else:
+        y = hopper_composite.cfft_rows(rows, plan, direction == FFT_FORWARD, ordered)
     return y.reshape(*x.shape[:-1], n)
 
 
@@ -434,7 +469,11 @@ def cfft_planes(re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None,
     """Complex FFT on SoA float32 planes -> (re, im) planes."""
     n = re.shape[-1]
     plan = _plan_for(n, plan, FFT_COMPLEX)
-    yre, yim = hopper_composite.cfft_rows((_rows(re, n), _rows(im, n)), plan, direction == FFT_FORWARD, ordered)
+    rows = _rows(re, n), _rows(im, n)
+    if autodiff.needs_grad(*rows):
+        yre, yim = autodiff.CfftPair.apply(*rows, plan, direction == FFT_FORWARD, ordered, False)
+    else:
+        yre, yim = hopper_composite.cfft_rows(rows, plan, direction == FFT_FORWARD, ordered)
     return yre.reshape(*re.shape[:-1], n), yim.reshape(*re.shape[:-1], n)
 
 

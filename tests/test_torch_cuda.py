@@ -480,3 +480,142 @@ def test_db_kernels_refuse_misaligned_input(dev):
     s = x[:, :512]
     with pytest.raises(ValueError, match="contiguous|16-byte"):
         hf.irfft_packed_db_kernel(s, s, plan)
+
+
+# ---------------------------------------------------------------------------
+# Gradients on the card: each autograd Function (ops/autodiff.py) against
+# the same Function on the plain versions, the backward's launches counted
+# ---------------------------------------------------------------------------
+
+
+def vjp_on_card(fn, inputs, cotangents, backward_kernels):
+    """Gradients of ``fn`` at ``inputs`` along ``cotangents``; the launch
+    counts are reset after the forward, so they count the backward, and
+    each of ``backward_kernels`` must have launched."""
+    args = [t.clone().requires_grad_() for t in inputs]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    hf.reset_launch_counts()
+    grads = torch.autograd.grad(out if isinstance(out, tuple) else (out,), args, cotangents)
+    torch.cuda.synchronize()
+    assert all(k.launches > 0 for k in backward_kernels), {k.name: k.launches for k in backward_kernels}
+    return grads
+
+
+def real_backward_kernels(n: int, inverse_rule: bool):
+    """The kernels the backward of RfftPacked (``inverse_rule``: the
+    inverse transform) or IrfftPacked (the forward) launches at N."""
+    if hopper_small.in_domain(n):
+        return [hopper_small.K5_REAL_INVERSE if inverse_rule else hopper_small.K5_REAL]
+    if hf._in_domain(n):
+        return [hf.K2 if inverse_rule else hf.K1]
+    return [hc.K7B, hc.K6_L2_REV] if inverse_rule else [hc.K7A, hc.K6_L2]
+
+
+GRAD_REAL = [(64, 33), (480, 5), (4096, 33), (16384, 4), (576, 5), (32768, 3), (1 << 20, 2)]
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("n,rows", GRAD_REAL)
+def test_real_gradients_match_plain(dev, n, rows, ordered):
+    """RfftPacked's and IrfftPacked's gradients (K5, K2/K1, the composite
+    in backward) within 2e-7*N times the cotangent's largest value (twice
+    that for IrfftPacked's weight 2) of the plain route's."""
+    from chowdsp_fft_tpu_torch.ops import autodiff
+
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    x = rand((rows, n), dev, n)
+    u = (rand((rows, n // 2), dev, n + 1), rand((rows, n // 2), dev, n + 2))
+    for plain in (False, True):
+        kernels = [] if plain else real_backward_kernels(n, True)
+        g = vjp_on_card(lambda v: autodiff.RfftPacked.apply(v, plan, ordered, plain), [x], u, kernels)[0]
+        if plain:
+            assert maxerr(g, g_kernel) <= 2e-7 * n * float(torch.cat(u).abs().max())
+        g_kernel = g
+    spec = hf.rfft_rows(x, plan, ordered)
+    w = rand((rows, n), dev, n + 3)
+    for plain in (False, True):
+        kernels = [] if plain else real_backward_kernels(n, False)
+        g = vjp_on_card(lambda a, b: autodiff.IrfftPacked.apply(a, b, plan, ordered, plain), list(spec), (w,),
+                        kernels)
+        if plain:
+            assert max(maxerr(a, b) for a, b in zip(g, g_kernel)) <= 2 * 2e-7 * n * float(w.abs().max())
+        g_kernel = g
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("n,rows", [(4096, 33), (16384, 4)])
+def test_convolve_gradients_match_plain(dev, n, rows, ordered):
+    """ConvolveIrfftPacked's gradients (K1 in backward) for all four
+    arguments, a shared and a batched B, against the plain route's, 2e-7*N
+    times the plain gradient's largest value."""
+    from chowdsp_fft_tpu_torch.ops import autodiff
+
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    a = hf.rfft_rows(rand((rows, n), dev, n), plan, ordered)
+    w = rand((rows, n), dev, n + 1)
+    for b_rows in (1, rows):
+        b = hf.rfft_rows(rand((b_rows, n), dev, n + 2) / n ** 0.5, plan, ordered)
+        got = vjp_on_card(lambda *t: autodiff.ConvolveIrfftPacked.apply(*t, plan, 1.0 / n, ordered, False),
+                          [*a, *b], (w,), [hf.K1])
+        want = vjp_on_card(lambda *t: autodiff.ConvolveIrfftPacked.apply(*t, plan, 1.0 / n, ordered, True),
+                           [*a, *b], (w,), [])
+        for p, q in zip(got, want):
+            assert p.shape == q.shape and maxerr(p, q) <= 2e-7 * n * float(q.abs().max())
+
+
+@pytest.mark.parametrize("planes", [True, False])
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("n,rows", [(64, 33), (4096, 33), (16384, 3), (1 << 20, 2)])
+def test_complex_gradients_match_plain(dev, n, rows, ordered, forward, planes):
+    """CfftPair's gradient (K5, K4 or K6 in the opposite direction) on
+    planes and complex64, against the plain route's, 2e-7*N times the
+    cotangent's largest value."""
+    from chowdsp_fft_tpu_torch.ops import autodiff
+
+    plan = ct.cached_plan(n, ct.FFT_COMPLEX)
+    z = crand((rows, n), dev, n)
+    u = crand((rows, n), dev, n + 1)
+    if hopper_small.in_domain(n):
+        kernels = [hopper_small.K5_COMPLEX]
+    elif hopper_cfft.in_domain(n):
+        kernels = [hopper_cfft.K4]
+    else:
+        kernels = [hc.K6_L2_REV, hc.K6_L1_REV] if forward else [hc.K6_L1, hc.K6_L2]
+    if planes:
+        inputs, cot = [z.real.contiguous(), z.imag.contiguous()], (u.real.contiguous(), u.imag.contiguous())
+    else:
+        inputs, cot = [z], (u,)
+
+    def fn(plain):
+        return lambda *t: autodiff.CfftPair.apply(t[0], t[1] if planes else None, plan, forward, ordered, plain)
+
+    got = vjp_on_card(fn(False), inputs, cot, kernels)
+    want = vjp_on_card(fn(True), inputs, cot, [])
+    bound = 2e-7 * n * float(torch.view_as_real(u).abs().max())
+    assert max(maxerr(p, q) for p, q in zip(got, want)) <= bound
+
+
+def test_engine_entries_differentiate_on_card(dev):
+    """loss.backward() through the engine entries on CUDA tensors, against
+    the Stockham engine's native gradient, and a conjugate view read as
+    its values."""
+    x = rand((3, 4096), dev, 21)
+    z = crand((3, 4096), dev, 22)
+    grads = {}
+    for engine in ("hopper", "stockham"):
+        v = x.clone().requires_grad_()
+        zz = z.clone().requires_grad_()
+        re, im = ct.rfft_packed_unordered(v, engine=engine)
+        y = ct.irfft_packed_unordered(re * re, im, engine=engine)
+        loss = (y ** 2).sum() / 4096 ** 3 + (ct.fft(zz, engine=engine).abs() ** 2).sum() / 4096
+        hf.reset_launch_counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        if engine == "hopper":
+            assert all(k.launches > 0 for k in (hf.K1, hf.K2, hopper_cfft.K4))
+        grads[engine] = (v.grad, zz.grad)
+    for p, q in zip(grads["hopper"], grads["stockham"]):
+        assert maxerr(p, q) <= 1e-4 * float(q.abs().max())
+    assert maxerr(ct.fft(z.conj()), ct.fft(z.conj().resolve_conj())) == 0.0
