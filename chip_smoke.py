@@ -134,6 +134,25 @@ Phases, each of which asserts:
     (2e-7*N of its largest value), each step's wall, device time by kernel
     and backward/forward ratio; and config 4's ``apply`` differentiated
     with respect to x, 8 channels against the Stockham engine.
+21. the parallel layer (``chowdsp_fft_tpu_torch/parallel``) on a one-rank
+    NCCL group, a ``dsp_mesh(1)`` on the card: its collectives are copies
+    (the halo hop has no operations), so the exchange between cards is
+    not shown, only the sharded paths' local work. Config 3's
+    ``sharded_fir_ols(block=8192)`` and ``sharded_partitioned_fir(block=1024)``
+    against phase 3's float64 reference (atol 5e-4, 1e-3); config 4's
+    ``time_sharded_apply`` and ``channel_sharded_apply`` at full width
+    against ``apply`` (1e-4); config 5's ``SDRChain.sharded_step`` on phase
+    7's capture against ``chain(capture)`` (1e-4 on the occupied channels);
+    the distributed FFT (complex and real, forward and inverse) at config
+    2's top row (N=2^20, B=64) against float64 on the card and at N=2^24,
+    B=2 against numpy float64 on the host, through ``spectrum_order`` and
+    ``rspectrum_order`` (2e-7*N; a zeroed output and a real spectrum
+    without its DC/Nyquist slots must fail), and ``sharded_rfft_convolve``
+    / ``sharded_fft_convolve`` against float64 convolutions; K1-K5 carried
+    the paths. Timing (informational): ``sharded_fft_planes`` beside
+    ``ct.fft`` and cuFFT at N=2^20, B=64 with the all_to_all's share, each
+    sharded form's wall beside its unsharded call, and the halo model's
+    prediction for config 4 (a model on NVLink's data-sheet rate).
 
 Every kernel time is taken twice (phases 5, 11, 15, 19): ``ms``, CUDA
 events around 20 calls from Python (host-inclusive: the wrapper, ctypes
@@ -141,10 +160,11 @@ and the launch), and ``device_ms``, the same 20 calls captured in one CUDA
 graph and replayed (``graph_time_ms``: no host in the loop); the matching
 ``torch.fft`` call likewise (``library_ms``, ``library_device_ms``).
 
-Phases run in the order 1-9, 12-14, 16-18, 20, 10, 11, 15, 19. The line before the
-last is the kernel report as JSON (with each kernel's launches in phase
-20's backward passes, ``backward_launches``); the last line is ``{"ok": true, "device":
-{...}}``. Exits non-zero on any failure and when no CUDA device is
+Phases run in the order 1-9, 12-14, 16-18, 20, 21, 10, 11, 15, 19. The line
+before the last is the kernel report as JSON (with each kernel's launches
+in phase 20's backward passes, ``backward_launches``, and on phase 21's
+parallel paths, ``parallel_launches``); the last line is ``{"ok": true,
+"device": {...}}``. Exits non-zero on any failure and when no CUDA device is
 present.
 """
 
@@ -2164,6 +2184,234 @@ def phase20_training(hf, stream, models, dev, rng, card, x3, h3, ref3: np.ndarra
     return backward
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the parallel layer on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+DIST_BIG = (1 << 24, 2)  # one rank splits it A = C = 4096, above the single-card composite's 2^20
+DIST_CONV_ROWS = 8  # the circular convolutions at N = 2^20
+SHARDED_ATOL = 1e-4  # a sharded model form vs its unsharded call (test_parallel.py's SDR tolerance)
+DIST_REAL_CONV_RTOL = 4e-6  # of the reference's peak (test_parallel.py)
+DIST_COMPLEX_CONV_RTOL = 1e-4
+
+
+def held_dist(got: torch.Tensor, want: torch.Tensor, n: int) -> float:
+    """max |got - want| over the 2e-7*N bound (at most 1 to pass)."""
+    return max_err(got, want) / (TOL * n)
+
+
+def dist_fft_checks(parallel, mesh, dev, n: int, rows: int, seed: int) -> dict[str, float]:
+    """The distributed FFT at (n, rows) on the mesh against float64 (on the
+    card up to 2^20, numpy's on the host above), through spectrum_order /
+    rspectrum_order, and the round trips; a zeroed output and a real
+    spectrum without its DC/Nyquist slots must fail."""
+    import scipy.fft
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    re, im = (torch.randn(rows, n, device=dev, generator=g) for _ in range(2))
+    x = torch.randn(rows, n, device=dev, generator=g)
+    on_host = n > CONFIG2_TOP[0]
+    perm = torch.from_numpy(parallel.spectrum_order(n, 1)).to(dev)
+    rperm = torch.from_numpy(parallel.rspectrum_order(n, 1)).to(dev)
+    fr, fi = (t.to_local() for t in parallel.sharded_fft_planes(re, im, mesh))
+    br, bi = (t.to_local() for t in parallel.sharded_ifft_planes(fr, fi, mesh))
+    rr, ri = (t.to_local() for t in parallel.sharded_rfft_planes(x, mesh))
+    xb = parallel.sharded_irfft_planes(rr, ri, mesh, n).to_local()
+    torch.cuda.synchronize()
+    valid = rperm >= 0
+    if on_host:  # numpy float64 (scipy's pocketfft, one worker a row)
+        z64 = torch.complex(re, im).cpu().numpy().astype(np.complex128)
+        spec = torch.from_numpy(scipy.fft.fft(z64, axis=-1, workers=-1)).to(dev)
+        half = torch.from_numpy(scipy.fft.rfft(x.double().cpu().numpy(), axis=-1, workers=-1)).to(dev)
+        idx = rperm[valid]
+        rspec = torch.where(idx <= n // 2, half[:, idx.clamp(max=n // 2)], half[:, (n - idx).clamp(max=n // 2)].conj())
+    else:
+        spec = torch.fft.fft(torch.complex(re.double(), im.double()))
+        rspec = torch.fft.fft(x.double())[:, rperm[valid]]
+    want = spec[:, perm]
+    got = torch.complex(fr, fi)
+    rgot = torch.complex(rr, ri)
+    errs = {
+        "fft": held_dist(got, want, n),
+        "ifft": held_dist(torch.complex(br, bi) / n, torch.complex(re, im), n),
+        "rfft": held_dist(rgot[:, valid], rspec, n),
+        "rfft padding": float(rgot[:, ~valid].abs().max()) if bool((~valid).any()) else 0.0,
+        "irfft": held_dist(xb / n, x, n),
+    }
+    dc_nyq = (rperm[valid] == 0) | (rperm[valid] == n // 2)
+    broken = {"zeroed fft": held_dist(torch.zeros_like(got), want, n),
+              "rfft without its DC/Nyquist slots": held_dist(rgot[:, valid] * ~dc_nyq, rspec, n)}
+    tag = f"N=2^{n.bit_length() - 1}, B={rows}"
+    log(f"phase 21 distributed FFT {tag} (split {parallel.dist_fft._dist_split(n, 1)}; float64 "
+        f"{'numpy on the host' if on_host else 'on the card'}): share of the 2e-7*N bound "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + "; must fail: " + ", ".join(f"{k} {v:.3e}" for k, v in broken.items()))
+    for key, v in errs.items():
+        require(v <= (0.0 if key == "rfft padding" else 1.0), f"phase 21 {tag} {key}: {v:.3e}")
+    for key, v in broken.items():
+        require(v > 1.0, f"phase 21 {tag}: the check passes a {key} ({v:.3e})")
+    return errs
+
+
+def phase21(hf, hs, models, stream, roof, dev, card, x3, h3, ref3: np.ndarray, audio: np.ndarray, ir: np.ndarray,
+            capture: np.ndarray) -> dict[str, int]:
+    """The parallel layer's paths on a one-rank NCCL group (a dsp_mesh(1) on
+    the card): every local transform runs K1-K5 at full width, the halo
+    hop has no operations and each all_to_all is a copy. Returns the
+    kernels' launches on these paths."""
+    import torch.distributed as dist
+    from chowdsp_fft_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    parallel.init_local_group("cuda")
+    try:
+        launches = phase21_paths(parallel, hf, hs, models, stream, roof, dev, card, x3, h3, ref3, audio, ir, capture)
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 21 ok in {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
+
+
+def phase21_paths(parallel, hf, hs, models, stream, roof, dev, card, x3, h3, ref3, audio, ir, capture) -> dict[str, int]:
+    mesh = parallel.dsp_mesh(1)
+    cmesh = parallel.dsp_mesh(1, axis=parallel.CHANNEL_AXIS)
+    require(mesh.device_type == "cuda" and mesh.size() == 1, f"mesh {mesh}")
+    launches = {k.name: 0 for k in hf.KERNELS}
+
+    def counted(name: str, fn):
+        hf.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in hf.KERNELS if k.launches}
+        for k, v in got.items():
+            launches[k] += v
+        log(f"phase 21 {name}: {time.perf_counter() - t0:.3f} s (first call, host clock); launches {got}")
+        return out, got
+
+    # Config 3: the sharded filters on the 4 x 2^20 streams.
+    (y_ols, y_pf), got = counted("config 3 sharded_fir_ols(block=8192), sharded_partitioned_fir(block=1024)",
+                                 lambda: (parallel.sharded_fir_ols(x3, h3, mesh, block=8192).to_local(),
+                                          parallel.sharded_partitioned_fir(x3, h3, mesh, block=1024).to_local()))
+    for name, y, atol in (("sharded_fir_ols", y_ols, 5e-4), ("sharded_partitioned_fir", y_pf, 1e-3)):
+        require(tuple(y.shape) == tuple(x3.shape) and bool(torch.isfinite(y).all()), f"{name}: {tuple(y.shape)}")
+        err = max_err(y, ref3)
+        log(f"phase 21 config 3 {name}: max abs err vs float64 {err:.3e} (atol {atol})")
+        require(err <= atol, f"phase 21 {name}: {err} > {atol}")
+    for k in (hf.K1, hf.K3, hf.K2):
+        require(got.get(k.name, 0) > 0, f"{k.name} was not launched on config 3's sharded path")
+
+    # Config 4 at full width: both sharded forms against apply.
+    conv = models.MultichannelConvolver(ir, models.ConvolverConfig(channels=ir.shape[0], block=CONFIG4_BLOCK), device=dev)
+    xa = torch.from_numpy(audio).to(dev)
+    wet = conv.apply(xa)
+    time_form = conv.time_sharded_apply(mesh, parallel.TIME_AXIS)
+    chan_form = conv.channel_sharded_apply(cmesh)
+    (yt, yc), got = counted("config 4 time_sharded_apply, channel_sharded_apply",
+                            lambda: (time_form(xa).to_local(), chan_form(xa).to_local()))
+    errs4 = {"time_sharded_apply": max_err(yt, wet), "channel_sharded_apply": max_err(yc, wet)}
+    log("phase 21 config 4 (64 ch x 10 s, 2 s IRs, block 4096) vs apply: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs4.items()) + f" (atol {SHARDED_ATOL})")
+    for key, v in errs4.items():
+        require(v <= SHARDED_ATOL, f"phase 21 config 4 {key}: {v} > {SHARDED_ATOL}")
+    for k in (hf.K1, hf.K2):
+        require(got.get(k.name, 0) > 0, f"{k.name} was not launched on config 4's sharded paths")
+
+    # Config 5: the sharded chain on the 2^24-sample capture.
+    chain = models.SDRChain(models.SDRChainConfig(), device=dev)
+    iq = torch.from_numpy(capture).to(dev)
+    single = chain(iq)
+    step = chain.sharded_step(mesh)
+    sharded, got = counted("config 5 SDRChain.sharded_step", lambda: step(iq).to_local())
+    require(tuple(sharded.shape) == tuple(single.shape), f"sharded audio {tuple(sharded.shape)}")
+    # Noise-only channels' demod lands on either side of +-pi from one
+    # rounding to the next (phase 7): held are the occupied channels after
+    # the transient, every channel is reported.
+    occ = list(CARRIERS)
+    err5 = max_err(sharded[occ, AUDIO_SKIP:], single[occ, AUDIO_SKIP:])
+    log(f"phase 21 config 5 sharded_step vs chain(capture): occupied channels {err5:.3e} (atol {SHARDED_ATOL}); "
+        f"every channel {max_err(sharded, single):.3e}")
+    require(err5 <= SHARDED_ATOL, f"phase 21 config 5: {err5} > {SHARDED_ATOL}")
+    require(got.get(hs.K5_COMPLEX.name, 0) > 0, "K5 was not launched on config 5's sharded path")
+
+    # The distributed FFT: config 2's top row, N = 2^24, the convolutions.
+    n, rows = CONFIG2_TOP
+    _, got = counted(f"distributed FFT N=2^{n.bit_length() - 1} B={rows}",
+                     lambda: dist_fft_checks(parallel, mesh, dev, n, rows, 21))
+    for k in (hf.K4, hf.K1, hf.K2):
+        require(got.get(k.name, 0) > 0, f"{k.name} was not launched on the distributed FFT")
+    counted(f"distributed FFT N=2^{DIST_BIG[0].bit_length() - 1} B={DIST_BIG[1]}",
+            lambda: dist_fft_checks(parallel, mesh, dev, *DIST_BIG, 22))
+    g = torch.Generator(device=dev).manual_seed(23)
+    x, h, xi, hi = (torch.randn(DIST_CONV_ROWS, n, device=dev, generator=g) for _ in range(4))
+    (yr, (cr, ci)), _ = counted(f"sharded_rfft_convolve, sharded_fft_convolve N=2^{n.bit_length() - 1} "
+                                f"B={DIST_CONV_ROWS}",
+                                lambda: (parallel.sharded_rfft_convolve(x, h, mesh).to_local(),
+                                         tuple(t.to_local() for t in parallel.sharded_fft_convolve(x, xi, h, hi, mesh))))
+    ref_r = torch.fft.irfft(torch.fft.rfft(x.double()) * torch.fft.rfft(h.double()), n=n)
+    ref_c = torch.fft.ifft(torch.fft.fft(torch.complex(x.double(), xi.double()))
+                           * torch.fft.fft(torch.complex(h.double(), hi.double())))
+    err_r = max_err(yr, ref_r) / float(ref_r.abs().max())
+    err_c = max_err(torch.complex(cr, ci), ref_c) / float(ref_c.abs().max())
+    log(f"phase 21 circular convolutions vs float64, max err / peak: real {err_r:.3e} (bound "
+        f"{DIST_REAL_CONV_RTOL}), complex {err_c:.3e} (bound {DIST_COMPLEX_CONV_RTOL})")
+    require(err_r <= DIST_REAL_CONV_RTOL and err_c <= DIST_COMPLEX_CONV_RTOL, "phase 21 convolutions")
+    del x, h, xi, hi, yr, cr, ci, ref_r, ref_c
+    for k in (hf.K1, hf.K2, hf.K3, hf.K4, hs.K5_COMPLEX):
+        require(launches[k.name] > 0, f"{k.name} was not launched on the parallel paths")
+
+    phase21_timing(parallel, stream, roof, mesh, dev, card, conv, xa, chain, iq, x3, h3)
+    return launches
+
+
+def phase21_timing(parallel, stream, roof, mesh, dev, card, conv, xa, chain, iq, x3, h3) -> None:
+    """Informational: the one-rank distributed FFT's device time (profiler)
+    beside ct.fft and cuFFT at config 2's top row, the all_to_all's share
+    (on one rank a copy), each sharded form's wall beside its unsharded
+    call, and the halo model's prediction for config 4."""
+    import chowdsp_fft_tpu_torch as ct
+
+    n, rows = CONFIG2_TOP
+    g = torch.Generator(device=dev).manual_seed(24)
+    re, im = (torch.randn(rows, n, device=dev, generator=g) for _ in range(2))
+    z = torch.complex(re, im)
+    # The sharded call holds a collective, so no CUDA graph: its device time
+    # is the profiler's (sum of device events, NCCL's own range apart,
+    # which overlies the copy that carries it on one rank), the library
+    # calls' the graph replay of the other phases.
+    sharded = lambda: parallel.sharded_fft_planes(re, im, mesh)  # noqa: E731
+    by_kernel = kernel_device_times(sharded)
+    a2a = sum(v for k, v in by_kernel.items() if k.startswith("nccl:"))
+    device = sum(v for k, v in by_kernel.items() if not k.startswith("nccl:"))
+    for kname, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {v:9.4f} ms  {kname[:110]}")
+    log(f"phase 21 timing sharded_fft_planes N=2^20 B={rows}: {time_ms(sharded, [()], iters=5, rounds=3):.4f} ms a "
+        f"call (host-inclusive), device {device:.4f} ms (profiler), of it the one-rank all_to_all (NCCL) "
+        f"{a2a:.4f} ms ({a2a / device:.3f}) [{card}]")
+    for name, fn in (("ct.fft", lambda a: ct.fft(a)), ("torch.fft.fft", lambda a: torch.fft.fft(a))):
+        ms, device_ms = both_ms(fn, [(z,)])
+        log(f"phase 21 timing {name} N=2^20 B={rows}: {ms:.4f} ms a call (host-inclusive), device {device_ms:.4f} "
+            f"ms (graph replay) [{card}]")
+    del re, im, z
+    forms = {
+        "config 3 fir_filter_ols(block=8192)": (lambda: parallel.sharded_fir_ols(x3, h3, mesh, block=8192),
+                                                lambda: stream.fir_filter_ols(x3, h3, block=8192)),
+        "config 4 time_sharded_apply": (lambda: conv.time_sharded_apply(mesh, parallel.TIME_AXIS)(xa),
+                                        lambda: conv.apply(xa)),
+        "config 5 sharded_step": (lambda: chain.sharded_step(mesh)(iq), lambda: chain(iq)),
+    }
+    for name, (sharded, unsharded) in forms.items():
+        log(f"phase 21 timing {name}: sharded wall {wall_ms(sharded, 3):.3f} ms, unsharded "
+            f"{wall_ms(unsharded, 3):.3f} ms (median of 3, host clock) [{card}]")
+    model = roof.halo_weak_scaling(xa.shape[-1], conv.taps, CONFIG4_BLOCK, overlap_comm=True)
+    log(f"phase 21 model (not a measurement): halo_weak_scaling for config 4 (a card per time shard of "
+        f"{xa.shape[-1]} samples, {conv.taps} taps, block {CONFIG4_BLOCK}; NVLink 4 data-sheet "
+        f"{roof.H100_NVLINK_BYTES_PER_S / 1e9:.0f} GB/s a direction): compute bound "
+        f"{model['t_compute_s'] * 1e3:.4f} ms, halo {model['t_halo_s'] * 1e3:.4f} ms, efficiency "
+        f"{model['efficiency']:.3f} with the hop overlapped")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2336,6 +2584,9 @@ def main() -> int:
         backward[k] = backward.get(k, 0) + v
     log(f"phase 20 ok in {time.perf_counter() - t0:.1f} s; backward launches {backward}")
 
+    # -- phase 21: the parallel layer on a one-rank NCCL group -----------------
+    parallel_launches = phase21(hf, hopper_small, models, stream, roof, dev, card, x, h, ref, audio, ir, capture)
+
     # -- phase 10 -------------------------------------------------------------
     for k in hf.KERNELS:
         require(launches[k.name] > 0, f"{k.name} was not launched on its path")
@@ -2393,6 +2644,7 @@ def main() -> int:
             "library_ms": times[k.name]["library_ms"],
             "device_ms": times[k.name]["device_ms"], "library_device_ms": times[k.name]["library_device_ms"],
             "backward_launches": backward.get(k.name, 0),
+            "parallel_launches": parallel_launches[k.name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     result = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,8 @@ Layers:
   api     — the public transform/convolve surface (re-exported here)
   stream  — overlap-save FIR, polyphase resampling, channelizer, demod, STFT
   models  — the SDR receiver chain, the multichannel convolver
+  parallel — meshes, halo-exchange streams and the all_to_all distributed
+             FFT on torch.distributed (DTensors in and out)
   convert — carry the JAX package's plans, filters, state and models across
 """
 

@@ -9,9 +9,10 @@ call, accumulates the P partitions with the packed convolve-accumulate
 and inverts in one batched K2 call. The IR bank's packed spectra are
 buffers of the module, so ``.to(device)`` moves them.
 
-The JAX model's multi-chip forms, ``channel_sharded_apply`` and
-``time_sharded_apply``, are not ported yet: they need the ``parallel``
-layer.
+Two sharded forms (``parallel/``): :meth:`~MultichannelConvolver.channel_sharded_apply`
+gives each rank whole channels (no communication), and
+:meth:`~MultichannelConvolver.time_sharded_apply` a time shard of every
+channel, with one (taps-1)-sample halo hop an application.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..parallel.mesh import CHANNEL_AXIS, DeviceMesh, axis_group, local_shard, require_mesh_device, sharded
+from ..parallel.sharded import _sharded_stream_filter
 from ..stream import PartitionedFIR
 
 __all__ = ["ConvolverConfig", "MultichannelConvolver"]
@@ -55,6 +58,7 @@ class MultichannelConvolver(nn.Module):
         if ir.shape[0] != config.channels:
             raise ValueError(f"ir has {ir.shape[0]} channels, config says {config.channels}")
         fir = PartitionedFIR(ir, block=config.block, engine=config.engine)
+        self.taps = ir.shape[-1]
         self.register_buffer("h_re", fir.h_re)
         self.register_buffer("h_im", fir.h_im)
 
@@ -69,6 +73,7 @@ class MultichannelConvolver(nn.Module):
         conv = cls.__new__(cls)
         nn.Module.__init__(conv)
         conv.config = config
+        conv.taps = fir.partitions * config.block  # the spectra's length; trailing taps may be zero
         conv.register_buffer("h_re", fir.h_re)
         conv.register_buffer("h_im", fir.h_im)
         return conv
@@ -96,3 +101,34 @@ class MultichannelConvolver(nn.Module):
     def step(self, state: dict, frame) -> tuple[dict, torch.Tensor]:
         """One (channels, block) frame in -> one (channels, block) out."""
         return self.fir.step(state, frame)
+
+    # -- sharded ---------------------------------------------------------------
+
+    def channel_sharded_apply(self, mesh: DeviceMesh, axis_name: str = CHANNEL_AXIS):
+        """Channels sharded over the mesh axis: each rank filters its own
+        channels with their own IR spectra; no communication. Returns a
+        function (channels, T) -> (channels, T) DTensor sharded along dim 0
+        (its input a DTensor sharded so, or a tensor every rank holds
+        whole). The module must lie on the mesh's device type."""
+        require_mesh_device(self.h_re, mesh)
+
+        def run(x):
+            _, size, index = axis_group(mesh, axis_name)
+            if self.config.channels % size:
+                raise ValueError(f"{self.config.channels} channels do not divide over {size} devices")
+            per = self.config.channels // size
+            xl = local_shard(x, mesh, axis_name, 0)
+            own = slice(index * per, (index + 1) * per)
+            fir = PartitionedFIR._on_spectra(self.h_re[own], self.h_im[own], self.config.block, self.config.engine)
+            return sharded(fir.apply_offline(xl), mesh, axis_name, 0)
+
+        return run
+
+    def time_sharded_apply(self, mesh: DeviceMesh, axis_name: str):
+        """The time axis sharded over the mesh axis: every rank filters its
+        time shard of all channels, with the halo hop and boundary
+        correction of ``parallel.sharded_partitioned_fir`` (taps-1
+        samples). Returns a function (channels, T) -> (channels, T) DTensor
+        sharded along the last dim."""
+        require_mesh_device(self.h_re, mesh)
+        return lambda x: _sharded_stream_filter(self.apply, x, mesh, axis_name, halo=self.taps - 1)

@@ -8,9 +8,10 @@
       -> audio low-pass + decimate per channel
 
 The three filters are buffers of the module (``front_lp``, ``audio_lp``,
-``channelizer.hpoly``), so ``.to(device)`` moves them all. The JAX
-chain's multi-chip ``sharded_step`` is not ported yet (it needs the
-``parallel`` layer).
+``channelizer.hpoly``), so ``.to(device)`` moves them all.
+:meth:`SDRChain.sharded_step` runs the chain over a mesh axis: the
+wideband front half on time shards, one all_to_all, the per-channel back
+half on channel shards.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..parallel.dist_fft import all_to_all
+from ..parallel.mesh import TIME_AXIS, DeviceMesh, axis_group, local_shard, require_mesh_device, sharded
+from ..parallel.sharded import halo_exchange_left
 from ..stream import Channelizer, design_lowpass, fm_demod, polyphase_decimate
 
 __all__ = ["SDRChainConfig", "SDRChain"]
@@ -66,3 +70,54 @@ class SDRChain(nn.Module):
     def forward(self, iq: torch.Tensor) -> torch.Tensor:
         """(..., T) complex IQ -> (..., C, T/(decim*C*audio_decim)) float32 audio."""
         return self.back_end(self.channelizer(self.front_end(iq)))
+
+    # ------------------------------------------------------------------
+    # Sharded application
+    # ------------------------------------------------------------------
+
+    def _shard_halo(self) -> tuple[int, int]:
+        """(wideband halo, decimated samples dropped) of a time shard: the
+        front FIR needs front_taps-1 input samples of history, rounded up to
+        whole decimation steps (the shard's decimation phase stays aligned),
+        and the channelizer the K-1 frames of C decimated samples before the
+        shard (K = taps per branch). The front end's first ``dropped``
+        outputs on the extended shard are its transient."""
+        c = self.config
+        dropped = -(-(c.front_taps - 1) // c.decimation)
+        return (dropped + (c.channel_taps_per_branch - 1) * c.channels) * c.decimation, dropped
+
+    def sharded_step(self, mesh: DeviceMesh, axis_name: str | None = None):
+        """A function computing the chain with the wideband input (..., T)
+        time-sharded over the mesh axis and the channelized back half
+        channel-sharded; returns the (..., C, S) audio DTensor sharded over
+        the channels (dim -2). The seam is written out (JAX leaves it to
+        GSPMD): each rank takes :meth:`_shard_halo`'s wideband history from
+        its left neighbour (one halo hop), runs the front end and the
+        channelizer on its extended shard and keeps its own steps; one
+        all_to_all turns the (C, S/D) time-sharded channel frames into
+        (C/D, S) channel-sharded ones; ``back_end`` runs on whole channels.
+        T must divide into D shards of whole channelizer frames
+        (decimation * C wideband samples), C over D."""
+        require_mesh_device(self.front_lp, mesh)
+        names = mesh.mesh_dim_names
+        axis = axis_name or (TIME_AXIS if TIME_AXIS in names else names[0])
+        c = self.config
+        halo, dropped = self._shard_halo()
+
+        def step(iq):
+            group, d, _ = axis_group(mesh, axis)
+            x = local_shard(iq, mesh, axis, -1)
+            frame = c.decimation * c.channels
+            if x.shape[-1] % frame or c.channels % d:
+                raise ValueError(f"{x.shape[-1] * d} samples over {d} devices: each shard must hold whole "
+                                 f"frames of {frame} samples, and {c.channels} channels must divide over them")
+            ext = halo_exchange_left(x, halo, mesh, axis)
+            ch = self.channelizer(self.front_end(ext)[..., dropped:])[..., c.channel_taps_per_branch - 1:]
+            # (..., C, S/D) -> (..., C/D, S): block d of the channels goes to rank d.
+            *lead, _, s_loc = ch.shape
+            send = torch.view_as_real(ch.reshape(*lead, d, c.channels // d, s_loc).movedim(-3, 0).contiguous())
+            recv = torch.view_as_complex(all_to_all(send, group))  # block i: steps of rank i
+            own = recv.movedim(0, -2).reshape(*lead, c.channels // d, d * s_loc)
+            return sharded(self.back_end(own), mesh, axis, -2)
+
+        return step

@@ -12,7 +12,7 @@ power limit beside any share of a bound.
 
 Not ported from the TPU module: the MXU pass model of the merge matmul,
 the serial-phase sum and the 32 MB live-footprint law (TPU hardware
-terms); ``halo_weak_scaling`` waits for the port's ``parallel`` layer.
+terms).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import math
 
 __all__ = [
     "ChipSpec", "H100", "Roofline", "roofline", "fft_roofline", "level_roofline", "conv_roofline",
-    "direct_dft_roofline",
+    "direct_dft_roofline", "H100_NVLINK_BYTES_PER_S", "HOP_LATENCY_S", "halo_weak_scaling",
 ]
 
 
@@ -35,6 +35,12 @@ class ChipSpec:
 
 
 H100 = ChipSpec(name="H100 SXM", hbm_bytes_per_s=3.35e12, f32_flops=67e12, power_w=700.0)
+
+# NVLink 4 of the H100 SXM: 900 GB/s a card in both directions together
+# (NVIDIA's data sheet), 450 GB/s each way. A data-sheet figure, not a
+# measurement: no run of this repository has had two cards.
+H100_NVLINK_BYTES_PER_S = 450e9
+HOP_LATENCY_S = 1e-6  # the model's fixed cost of one halo hop (assumed, as the JAX model's)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,3 +122,42 @@ def conv_roofline(n_fft: int, batch_blocks: int, chip: ChipSpec = H100) -> Roofl
     bytes_moved = batch_blocks * (2 * fft_bytes(n_fft, "real") + 3 * spec)
     flops = batch_blocks * (2 * _fft_flops(n_fft, "real") + 6 * (n_fft // 2))
     return roofline(bytes_moved, flops, chip)
+
+
+def halo_weak_scaling(
+    per_device_samples: int,
+    taps: int,
+    block: int = 1024,
+    chip: ChipSpec = H100,
+    link_bytes_per_s: float = H100_NVLINK_BYTES_PER_S,
+    overlap_comm: bool = False,
+) -> dict:
+    """Predicted weak-scaling efficiency of the time-sharded partitioned
+    FIR (``parallel.sharded_partitioned_fir``) on a ring of cards: a
+    model, never a measurement.
+
+    Each card holds a contiguous time shard and receives a (taps-1)-sample
+    float32 halo from its left neighbour in one hop an application, so the
+    traffic does not grow with the number of cards and the model does not
+    depend on it: efficiency = t_comp / (t_comp + t_halo) with the hop in
+    series, or min(1, t_comp / max(t_comp, t_halo)) with the hop
+    overlapped by the main filter (the structure ``sharded.py`` keeps).
+    t_comp is the card's bound for the shard's overlap-save rounds
+    (:func:`conv_roofline`), t_halo the halo's bytes over the link's
+    data-sheet rate plus :data:`HOP_LATENCY_S`.
+    """
+    n_fft = 2 * block
+    blocks = -(-per_device_samples // block)
+    t_comp = conv_roofline(n_fft, blocks, chip).seconds
+    t_halo = (taps - 1) * 4 / link_bytes_per_s + HOP_LATENCY_S
+    if overlap_comm:
+        eff = min(1.0, t_comp / max(t_comp, t_halo))
+    else:
+        eff = t_comp / (t_comp + t_halo)
+    return {
+        "per_device_samples": per_device_samples,
+        "taps": taps,
+        "t_compute_s": t_comp,
+        "t_halo_s": t_halo,
+        "efficiency": eff,
+    }

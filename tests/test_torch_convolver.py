@@ -1,7 +1,7 @@
 """Port parity: the multichannel convolver (BASELINE config 4) against the
 JAX model and numpy float64, on the same numpy inputs (test_models.py's
-cases, without the channel-sharded one, which waits for the port's
-``parallel`` layer). Tolerances are test_models.py's: 1e-3 offline
+cases; the channel-sharded one is in test_torch_parallel.py, on a gloo
+group). Tolerances are test_models.py's: 1e-3 offline
 against float64 (and against the JAX model), 1e-4 streaming against
 offline. A model built from the JAX model's spectra, and a stream state
 carried across mid-way, keep matching JAX."""

@@ -619,3 +619,96 @@ def test_engine_entries_differentiate_on_card(dev):
     for p, q in zip(grads["hopper"], grads["stockham"]):
         assert maxerr(p, q) <= 1e-4 * float(q.abs().max())
     assert maxerr(ct.fft(z.conj()), ct.fft(z.conj().resolve_conj())) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The parallel layer on a one-rank NCCL group (chowdsp_fft_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A dsp_mesh(1) on card 0 over a one-rank NCCL group: the sharded
+    entries' local work on the card, their collectives copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    import torch.distributed as dist
+    from chowdsp_fft_tpu_torch import parallel
+
+    parallel.init_local_group("cuda")
+    try:
+        yield parallel.dsp_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_sharded_filters_match_unsharded(nccl_mesh):
+    from chowdsp_fft_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    x = rand((3, 1 << 16), dev, 31)
+    h = rand((1000,), dev, 32) / 32
+    hf.reset_launch_counts()
+    y = parallel.sharded_fir_ols(x, h, nccl_mesh)
+    yp = parallel.sharded_partitioned_fir(x, h, nccl_mesh, block=512)
+    assert isinstance(y, parallel.DTensor) and y.to_local().device == dev
+    assert maxerr(y.to_local(), stream.fir_filter_ols(x, h)) <= 1e-5
+    assert maxerr(yp.to_local(), stream.partitioned_fir_apply(x, h, block=512)) <= 1e-5
+    assert all(k.launches > 0 for k in (hf.K1, hf.K2, hf.K3))
+    with pytest.raises(ValueError, match="mesh on cuda"):
+        parallel.sharded_fir_ols(x.cpu(), h, nccl_mesh)
+
+
+@pytest.mark.parametrize("n,rows,kernels", [
+    (1 << 16, 3, ("small_cfft_kernel", "small_rfft_kernel", "small_irfft_kernel")),  # split 256 x 256: K5
+    (1 << 20, 2, ("rfft_packed_kernel", "irfft_packed_kernel", "cfft_kernel")),  # 1024 x 1024: K1, K2, K4
+])
+def test_one_rank_distributed_fft_matches_engine(nccl_mesh, n, rows, kernels):
+    """Forward and inverse, complex and real, against the engine's own
+    transform through spectrum_order / rspectrum_order (2e-7*N), and the
+    two circular convolutions against float64; the local transforms ran
+    on the split's kernels."""
+    from chowdsp_fft_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    re, im, x, h = (rand((rows, n), dev, n + k) for k in range(4))
+    hf.reset_launch_counts()
+    fr, fi = (t.to_local() for t in parallel.sharded_fft_planes(re, im, nccl_mesh))
+    perm = torch.from_numpy(parallel.spectrum_order(n, 1)).to(dev)
+    assert maxerr(torch.complex(fr, fi), ct.fft(torch.complex(re, im))[:, perm]) <= 2e-7 * n
+    br, bi = (t.to_local() for t in parallel.sharded_ifft_planes(fr, fi, nccl_mesh))
+    assert maxerr(torch.complex(br, bi) / n, torch.complex(re, im)) <= 2e-7 * n
+    rr, ri = (t.to_local() for t in parallel.sharded_rfft_planes(x, nccl_mesh))
+    rperm = torch.from_numpy(parallel.rspectrum_order(n, 1)).to(dev)
+    valid = rperm >= 0
+    full = torch.fft.fft(x.double())
+    assert maxerr(torch.complex(rr, ri)[:, valid], full[:, rperm[valid]]) <= 2e-7 * n
+    assert maxerr(parallel.sharded_irfft_planes(rr, ri, nccl_mesh, n).to_local() / n, x) <= 2e-7 * n
+    assert all(k.launches > 0 for k in hf.KERNELS if k.name in kernels)
+    y = parallel.sharded_rfft_convolve(x, h, nccl_mesh).to_local()
+    ref = torch.fft.irfft(torch.fft.rfft(x.double()) * torch.fft.rfft(h.double()), n=n)
+    assert maxerr(y, ref) <= 4e-6 * float(ref.abs().max())
+    cr, ci = (t.to_local() for t in parallel.sharded_fft_convolve(x, re, h, im, nccl_mesh))
+    refc = torch.fft.ifft(torch.fft.fft(torch.complex(x.double(), re.double()))
+                          * torch.fft.fft(torch.complex(h.double(), im.double())))
+    assert maxerr(torch.complex(cr, ci), refc) <= 1e-4 * float(refc.abs().max())
+
+
+def test_one_rank_sharded_models_match_unsharded(nccl_mesh):
+    from chowdsp_fft_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    conv = models.MultichannelConvolver(rand((4, 3000), dev, 41) / 64, models.ConvolverConfig(channels=4, block=512))
+    x = rand((4, 20000), dev, 42)
+    wet = conv.apply(x)
+    cmesh = parallel.dsp_mesh(1, axis=parallel.CHANNEL_AXIS)
+    assert maxerr(conv.time_sharded_apply(nccl_mesh, parallel.TIME_AXIS)(x).to_local(), wet) <= 1e-4
+    assert maxerr(conv.channel_sharded_apply(cmesh)(x).to_local(), wet) <= 1e-4
+    from torch_parallel_cases import fm_carriers  # a carrier in every channel: the demod is defined everywhere
+
+    chain = models.SDRChain(models.SDRChainConfig(channels=16))
+    iq = torch.from_numpy(fm_carriers(16, 2, 16 * 2 * 4 * 256, seed=43)).to(dev)
+    hf.reset_launch_counts()
+    out = chain.sharded_step(nccl_mesh)(iq).to_local()
+    assert maxerr(out, chain(iq)) <= 1e-4
+    assert hopper_small.K5_COMPLEX.launches > 0
