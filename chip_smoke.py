@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, ``nvcc`` and the repo checkout (the kernels are built
-from ``chowdsp_fft_tpu_torch/csrc`` into ``build/hopper/`` on first use).
+Needs one CUDA card, ``nvcc``, ``g++`` and the repo checkout (the kernels
+are built from ``chowdsp_fft_tpu_torch/csrc`` into ``build/hopper/`` on
+first use, the native planner from ``native/planner.cpp`` into
+``build/native/``).
 Phases, each of which asserts:
 
 1. identify the card (name and power limit), build the kernels (one nvcc
@@ -153,6 +155,30 @@ Phases, each of which asserts:
     ``ct.fft`` and cuFFT at N=2^20, B=64 with the all_to_all's share, each
     sharded form's wall beside its unsharded call, and the halo model's
     prediction for config 4 (a model on NVLink's data-sheet rate).
+22. the last modules of the port, through the kernels: the native planner
+    built from ``native/planner.cpp`` into ``build/native/`` and the
+    plans' tables (real 4096, 256 and 2^20, complex 256 and 2^20)
+    bit-equal to its float64 tables cast to float32; plans saved and
+    loaded (``plans.save_plan``/``load_plan``) driving K1 (ordered, 4096 x
+    1024), K5 (256 x 32768, complex and real), K7a and K7b (2^20 x 64)
+    with output ``torch.equal`` to a fresh plan's, and a loaded plan with
+    one split twiddle changed changing K1's output;
+    ``merge_precision("bf16x3")``: K1, K2, K3 (config 3's 512 x 16384, a
+    shared filter), K4 and K5 ``torch.equal`` to "highest", the ambient
+    float32 matmul precision restored; the numpy adapter's
+    fft/ifft/rfft/irfft at 4096 x 1024 and 2^20 x 64, an ``axis=0``, an
+    ``n=`` and a host-array case, and ``JuceStyleFFT`` at every order
+    5..20 on 8 rows and order 12 on 1024 (``perform`` both ways, both
+    real-only transforms, the frequency-only transform), all against
+    float64 on the card (2e-7*N; a zeroed output fails), each on the
+    kernels its size dispatches to (K5 to order 8; complex: K4 9-13, K6
+    14-20; real: K1/K2 9-14, K7a/K7b with K6 level 2 15-20);
+    ``profiling.op_seconds`` of ``rfft_packed_unordered`` at the headline
+    within 0.8-1.25x of phase 5's graph device time of K1, and
+    ``profiling.trace`` writing a Chrome trace that names K1's kernel;
+    then (informational) graph-replay device totals (``op_seconds``) of
+    ``spectrogram`` (its work with the window on the card), ``istft``'s
+    irfft and config 4's ``step``, beside ``torch.profiler``'s totals.
 
 Every kernel time is taken twice (phases 5, 11, 15, 19): ``ms``, CUDA
 events around 20 calls from Python (host-inclusive: the wrapper, ctypes
@@ -160,10 +186,11 @@ and the launch), and ``device_ms``, the same 20 calls captured in one CUDA
 graph and replayed (``graph_time_ms``: no host in the loop); the matching
 ``torch.fft`` call likewise (``library_ms``, ``library_device_ms``).
 
-Phases run in the order 1-9, 12-14, 16-18, 20, 21, 10, 11, 15, 19. The line
-before the last is the kernel report as JSON (with each kernel's launches
-in phase 20's backward passes, ``backward_launches``, and on phase 21's
-parallel paths, ``parallel_launches``); the last line is ``{"ok": true,
+Phases run in the order 1-9, 12-14, 16-18, 20, 21, 22, 10, 11, 15, 19. The
+line before the last is the kernel report as JSON (with each kernel's
+launches in phase 20's backward passes, ``backward_launches``, on phase
+21's parallel paths, ``parallel_launches``, and on phase 22's paths,
+``adapter_launches``); the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure and when no CUDA device is
 present.
 """
@@ -172,6 +199,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -2412,6 +2441,370 @@ def phase21_timing(parallel, stream, roof, mesh, dev, card, conv, xa, chain, iq,
         f"{model['efficiency']:.3f} with the hop overlapped")
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the last modules on the card: the native planner, plan
+# persistence, merge_precision, the numpy and JUCE adapters, profiling
+# ---------------------------------------------------------------------------
+
+PHASE22_DIR = pathlib.Path(__file__).resolve().parent / "build" / "phase22"  # gitignored
+PLANNER_PLANS = ((4096, "real"), (256, "complex"), (256, "real"), (1 << 20, "real"), (1 << 20, "complex"))
+JUCE_ORDERS = range(5, 21)
+JUCE_ROWS = 8
+JUCE_WIDE = (12, 1024)  # (order, rows)
+OP_SECONDS_RATIO = (0.8, 1.25)  # op_seconds over phase 5's graph device time of the same K1 call
+
+
+def check64(name: str, got: torch.Tensor, want: torch.Tensor, n: int) -> float:
+    """Max abs error of ``got`` against the float64 ``want`` (both on the
+    card), bound 2e-7*N; a zeroed output must fail the same bound."""
+    bound = TOL * n
+    err = max_err(got, want)
+    require(err <= bound, f"{name}: {err:.3e} > {bound:.3e}")
+    require(float(want.abs().max()) > bound, f"{name}: a zeroed output would pass ({bound:.3e})")
+    return err
+
+
+def counted(hf, fn):
+    """(``fn()``, the launches it made): the counters are zeroed just before."""
+    hf.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in hf.KERNELS if k.launches}
+
+
+def ran(where: str, launches: dict[str, int], kernels, total: dict[str, int]) -> None:
+    """Each of ``kernels`` was launched; add ``launches`` to ``total``."""
+    for k in kernels:
+        require(launches.get(k.name, 0) > 0, f"{where}: {k.name} was not launched ({launches})")
+    for name, v in launches.items():
+        total[name] = total.get(name, 0) + v
+
+
+def names_kernel(text: str, kernel: str) -> bool:
+    """Whether ``text`` names the CUDA kernel ``kernel`` (rfft_packed_kernel
+    is not irfft_packed_kernel)."""
+    return re.search(rf"\b{kernel}\b", text) is not None
+
+
+def as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def phase22_planner(ct, native) -> None:
+    """The planner is built from native/planner.cpp into build/native/, and
+    the plans the engine reads hold its float64 tables cast to float32."""
+    t0 = time.perf_counter()
+    path = native.ensure_built()
+    require(path is not None and native.available(), "the native planner did not build (g++)")
+    require(path.parent == pathlib.Path(__file__).resolve().parent / "build" / "native", f"planner at {path}")
+    for n, kind in PLANNER_PLANS:
+        plan = ct.cached_plan(n, kind)
+        tables = native.stage_twiddles(n // 2 if kind == "real" else n)
+        require(len(tables) == len(plan.stages), f"{kind} {n}: {len(plan.stages)} stages, planner {len(tables)}")
+        for st, (re, im) in zip(plan.stages, tables):
+            require(np.array_equal(st.tw_re, re.astype(np.float32)) and np.array_equal(st.tw_im, im.astype(np.float32)),
+                    f"{kind} {n}: a stage table differs from the planner's")
+        if kind == "real":
+            sre, sim = native.rfft_twiddles(n)
+            require(np.array_equal(plan.rfft_tw_re, sre.astype(np.float32))
+                    and np.array_equal(plan.rfft_tw_im, sim.astype(np.float32)), f"{kind} {n}: split table differs")
+    log(f"phase 22 native planner {path.relative_to(pathlib.Path(__file__).resolve().parent)}: the tables of "
+        f"{', '.join(f'{k} {n}' for n, k in PLANNER_PLANS)} bit-equal to its float64 tables cast to float32 "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+
+def phase22_plans(ct, plans, hf, hs, hc, dev, total: dict[str, int]) -> None:
+    """A plan saved and loaded drives K1 (ordered), K5 (complex and real),
+    K7a and K7b with output torch.equal to a fresh plan's; a loaded plan
+    with one split twiddle changed changes K1's output."""
+    PHASE22_DIR.mkdir(parents=True, exist_ok=True)
+
+    def loaded(n: int, kind: str):
+        path = PHASE22_DIR / f"plan_{kind}_{n}"
+        plans.save_plan(ct.make_plan(n, kind), path)
+        plan = plans.load_plan(path)
+        require(not plan._on_device, "a loaded plan made device tables before its first use")
+        return plan
+
+    g = torch.Generator(device=dev).manual_seed(2201)
+    n, rows = HEADLINE
+    ns, rs = SMALL_TIMED
+    nl_, rl = CONFIG2_TOP
+    x = torch.randn(rows, n, device=dev, generator=g)
+    xs = torch.randn(rs, ns, device=dev, generator=g)
+    zs = torch.complex(torch.randn(rs, ns, device=dev, generator=g), torch.randn(rs, ns, device=dev, generator=g))
+    xl = torch.randn(rl, nl_, device=dev, generator=g)
+    sl = ct.rfft_packed(xl)
+    routes = (
+        (f"K1 ordered {n} x {rows}", n, "real", lambda p: ct.rfft_packed(x, plan=p), (hf.K1,)),
+        (f"K5 complex {ns} x {rs}", ns, "complex", lambda p: ct.fft(zs, plan=p), (hs.K5_COMPLEX,)),
+        (f"K5 real {ns} x {rs}", ns, "real", lambda p: ct.rfft_packed(xs, plan=p), (hs.K5_REAL,)),
+        (f"K7a {nl_} x {rl}", nl_, "real", lambda p: ct.rfft_packed(xl, plan=p), (hc.K7A,)),
+        (f"K7b {nl_} x {rl}", nl_, "real", lambda p: ct.irfft_packed(*sl, plan=p), (hc.K7B,)),
+    )
+    for name, size, kind, fn, kernels in routes:
+        want = as_tuple(fn(ct.make_plan(size, kind)))
+        got, launches = counted(hf, lambda: fn(loaded(size, kind)))
+        ran(f"phase 22 loaded plan, {name}", launches, kernels, total)
+        require(all(torch.equal(a, b) for a, b in zip(as_tuple(got), want)), f"{name}: a loaded plan's output differs")
+    tampered = loaded(n, "real")
+    tampered.rfft_tw_re[5] = -tampered.rfft_tw_re[5]
+    want = ct.rfft_packed(x, plan=ct.make_plan(n, "real"))
+    got = ct.rfft_packed(x, plan=tampered)
+    require(not all(torch.equal(a, b) for a, b in zip(got, want)), "K1 ignored a changed split twiddle of its plan")
+    log(f"phase 22 save_plan/load_plan: {', '.join(r[0] for r in routes)} torch.equal to a fresh plan's; one split "
+        f"twiddle changed moves K1's output by {max(max_err(a, b) for a, b in zip(got, want)):.3e}")
+
+
+def phase22_merge(ct, hf, hs, dev, total: dict[str, int]) -> None:
+    """Under merge_precision("bf16x3") K1, K2, K3 (config 3's shape, a
+    shared filter), K4 and K5 give output torch.equal to "highest"'s, and
+    the caller's precision comes back."""
+    prev = torch.get_float32_matmul_precision()
+    g = torch.Generator(device=dev).manual_seed(2202)
+    n, rows = HEADLINE
+    n3, r3 = GRAD_CONV
+    ns, rs = SMALL_TIMED
+    x = torch.randn(rows, n, device=dev, generator=g)
+    z = torch.complex(torch.randn(rows, n, device=dev, generator=g), torch.randn(rows, n, device=dev, generator=g))
+    re, im = ct.rfft_packed_unordered(x)
+    a3 = [torch.randn(r3, n3 // 2, device=dev, generator=g) for _ in range(2)]
+    b3 = [torch.randn(1, n3 // 2, device=dev, generator=g) for _ in range(2)]
+    zs = torch.complex(torch.randn(rs, ns, device=dev, generator=g), torch.randn(rs, ns, device=dev, generator=g))
+    calls = (
+        (hf.K1, lambda: ct.rfft_packed_unordered(x)),
+        (hf.K2, lambda: ct.irfft_packed_unordered(re, im)),
+        (hf.K3, lambda: ct.convolve_irfft_packed(*a3, *b3, scaling=1.0 / n3, ordered=False)),
+        (hf.K4, lambda: ct.fft(z)),
+        (hs.K5_COMPLEX, lambda: ct.fft(zs)),
+    )
+    for k, fn in calls:
+        with ct.merge_precision("highest"):
+            want = as_tuple(fn())
+        with ct.merge_precision("bf16x3"):
+            require(hf._merge_mode() == "bf16x3" and torch.get_float32_matmul_precision() == "high", "bf16x3 carrier")
+            got, launches = counted(hf, fn)
+        require(torch.get_float32_matmul_precision() == prev, "merge_precision did not restore the precision")
+        ran(f"phase 22 merge_precision {k.name}", launches, (k,), total)
+        require(all(torch.equal(a, b) for a, b in zip(as_tuple(got), want)), f"{k.name}: bf16x3 output differs")
+    log(f"phase 22 merge_precision: bf16x3 output torch.equal to highest for {', '.join(k.name for k, _ in calls)}; "
+        f"the float32 matmul precision restored to {prev!r}")
+
+
+def phase22_numpy(ct, nl, hf, hc, dev, total: dict[str, int]) -> None:
+    """The numpy adapter at the headline and config 2's top row, one axis=0
+    and one n= case and a host array, against float64 on the card
+    (inverses rescaled by N)."""
+    worst = 0.0
+    for n, rows in (HEADLINE, CONFIG2_TOP):
+        g = torch.Generator(device=dev).manual_seed(n + rows)
+        x = torch.randn(rows, n, device=dev, generator=g)
+        z = torch.complex(torch.randn(rows, n, device=dev, generator=g), torch.randn(rows, n, device=dev, generator=g))
+        # The inverses take spectra of unit-scale data, so their scaled
+        # outputs are unit-scale too: a zeroed output fails the bound.
+        zs = torch.fft.fft(z.to(torch.complex128)).to(torch.complex64)
+        s = torch.fft.rfft(x.double()).to(torch.complex64)
+        big = n > hf.MAX_N
+        cases = (
+            ("fft", lambda: nl.fft(z), lambda: torch.fft.fft(z.to(torch.complex128)),
+             (hc.K6_L1, hc.K6_L2) if big else (hf.K4,)),
+            ("ifft", lambda: nl.ifft(zs), lambda: torch.fft.ifft(zs.to(torch.complex128)),
+             (hc.K6_L2_REV, hc.K6_L1_REV) if big else (hf.K4,)),
+            ("rfft", lambda: nl.rfft(x), lambda: torch.fft.rfft(x.double()), (hc.K7A,) if big else (hf.K1,)),
+            ("irfft", lambda: nl.irfft(s), lambda: torch.fft.irfft(s.to(torch.complex128), n=n),
+             (hc.K7B,) if big else (hf.K2,)),
+        )
+        for name, fn, ref, kernels in cases:
+            got, launches = counted(hf, fn)
+            ran(f"phase 22 numpy_like.{name} {n} x {rows}", launches, kernels, total)
+            require(got.device == dev, f"numpy_like.{name}: output on {got.device}")
+            worst = max(worst, check64(f"numpy_like.{name} {n} x {rows}", got, ref(), n) / (TOL * n))
+        del x, z, zs, s
+    g = torch.Generator(device=dev).manual_seed(2203)
+    xa = torch.randn(4096, 64, device=dev, generator=g)
+    got, launches = counted(hf, lambda: nl.rfft(xa, axis=0))
+    ran("phase 22 numpy_like.rfft axis=0", launches, (hf.K1,), total)
+    worst = max(worst, check64("numpy_like.rfft axis=0", got, torch.fft.rfft(xa.double(), dim=0), 4096) / (TOL * 4096))
+    zp = torch.complex(torch.randn(64, 3000, device=dev, generator=g), torch.randn(64, 3000, device=dev, generator=g))
+    got, launches = counted(hf, lambda: nl.fft(zp, n=4096))
+    ran("phase 22 numpy_like.fft n=4096", launches, (hf.K4,), total)
+    worst = max(worst, check64("numpy_like.fft n=4096 (3000 padded)", got,
+                               torch.fft.fft(zp.to(torch.complex128), n=4096), 4096) / (TOL * 4096))
+    host = xa.T.contiguous().cpu().numpy()
+    got, launches = counted(hf, lambda: nl.rfft(host))
+    ran("phase 22 numpy_like.rfft of a host array", launches, (hf.K1,), total)
+    require(got.device.type == "cuda", f"a host array's transform landed on {got.device}")
+    check64("numpy_like.rfft of a host array", got, torch.fft.rfft(xa.T.double()), 4096)
+    log(f"phase 22 numpy adapter: fft/ifft/rfft/irfft at {HEADLINE[0]} x {HEADLINE[1]} and {CONFIG2_TOP[0]} x "
+        f"{CONFIG2_TOP[1]}, rfft axis=0, fft n=4096 of 3000, a host array: worst {worst:.3e} of 2e-7*N")
+
+
+def phase22_juce(JuceStyleFFT, hf, hs, hc, dev, total: dict[str, int]) -> None:
+    """JuceStyleFFT at every order 5..20 on 8 rows and order 12 on 1024
+    rows: perform both ways, the real-only transforms both ways and the
+    frequency-only transform, against float64 on the card, each on the
+    kernels its size dispatches to."""
+
+    def kernels(order: int, what: str):
+        if what in ("fwd", "inv"):
+            if order <= 8:
+                return (hs.K5_COMPLEX,)
+            if order <= 13:
+                return (hf.K4,)
+            return (hc.K6_L1, hc.K6_L2) if what == "fwd" else (hc.K6_L2_REV, hc.K6_L1_REV)
+        if order <= 8:
+            return (hs.K5_REAL_INVERSE,) if what == "real_inv" else (hs.K5_REAL,)
+        if order <= 14:
+            return (hf.K2,) if what == "real_inv" else (hf.K1,)
+        return (hc.K7B, hc.K6_L2_REV) if what == "real_inv" else (hc.K7A, hc.K6_L2)
+
+    worst = 0.0
+    g = torch.Generator(device=dev).manual_seed(2204)
+    for order, rows in [(o, JUCE_ROWS) for o in JUCE_ORDERS] + [JUCE_WIDE]:
+        n = 1 << order
+        f = JuceStyleFFT(order)
+        x = torch.randn(rows, n, device=dev, generator=g)
+        z = torch.complex(torch.randn(rows, n, device=dev, generator=g), torch.randn(rows, n, device=dev, generator=g))
+        z64 = z.to(torch.complex128)
+        spec = torch.fft.fft(z64).to(torch.complex64)  # spectra of unit-scale data for the inverses
+        buf64 = torch.view_as_real(torch.fft.rfft(x.double())).reshape(rows, n + 2)
+        buf = buf64.float()
+        mags64 = torch.nn.functional.pad(torch.fft.rfft(x.double()).abs(), (0, n - n // 2 - 1))
+        cases = (
+            ("perform", "fwd", lambda: f.perform(z), lambda: torch.fft.fft(z64)),
+            ("perform inverse", "inv", lambda: f.perform(spec, inverse=True),
+             lambda: torch.fft.ifft(spec.to(torch.complex128))),
+            ("real-only forward", "real_fwd", lambda: f.perform_real_only_forward_transform(x), lambda: buf64),
+            ("real-only inverse", "real_inv", lambda: f.perform_real_only_inverse_transform(buf),
+             lambda: torch.fft.irfft(torch.view_as_complex(buf.double().reshape(rows, -1, 2)), n=n)),
+            ("frequency-only", "real_fwd", lambda: f.perform_frequency_only_forward_transform(x), lambda: mags64),
+        )
+        for name, what, fn, ref in cases:
+            got, launches = counted(hf, fn)
+            ran(f"phase 22 JuceStyleFFT({order}).{name} on {rows} rows", launches, kernels(order, what), total)
+            worst = max(worst, check64(f"JuceStyleFFT({order}).{name}", got, ref(), n) / (TOL * n))
+        require(bool((f.perform_frequency_only_forward_transform(x)[:, n // 2 + 1 :] == 0).all()), "magnitudes' pad")
+    log(f"phase 22 JUCE adapter: orders {JUCE_ORDERS.start}-{JUCE_ORDERS.stop - 1} on {JUCE_ROWS} rows and order "
+        f"{JUCE_WIDE[0]} on {JUCE_WIDE[1]}, five transforms each: worst {worst:.3e} of 2e-7*N; K5 to order 8, K4 "
+        f"(complex) 9-13 and K6 14-20, K1/K2 (real) 9-14 and K7a/K7b with K6 level 2 15-20")
+
+
+def phase22_profiling(ct, profiling, hf, stream, models, dev, card, k1_device_ms: float, audio, ir) -> None:
+    """profiling.op_seconds of rfft_packed_unordered at the headline against
+    phase 5's graph device time of the same K1 call; graph-replay device
+    totals (op_seconds) of the paths whose profiler totals dropped K1 or
+    K2, beside the profiler's; last, trace writes a file naming K1's
+    kernel in a fresh process (and, informational, in this one)."""
+    n, rows = HEADLINE
+    g = torch.Generator(device=dev).manual_seed(2205)
+    xs = tuple(torch.randn(rows, n, device=dev, generator=g) for _ in range(4))  # 64 MB: beyond the 50 MB L2
+
+    def body(c):
+        inputs, _ = c
+        return inputs[1:] + inputs[:1], ct.rfft_packed_unordered(inputs[0])
+
+    ms = profiling.op_seconds(body, (xs, ct.rfft_packed_unordered(xs[0]))) * 1e3
+    ratio = ms / k1_device_ms
+    log(f"phase 22 profiling.op_seconds(rfft_packed_unordered, N={n} B={rows}): {ms:.4f} ms; phase 5's graph device "
+        f"time of K1 {k1_device_ms:.4f} ms; ratio {ratio:.3f} (allowed {OP_SECONDS_RATIO}) [{card}]")
+    require(OP_SECONDS_RATIO[0] <= ratio <= OP_SECONDS_RATIO[1], f"op_seconds / graph time {ratio:.3f}")
+
+    # Device totals by graph replay beside the profiler's (PERF.md section 7).
+    channels, t = audio.shape
+    xa = torch.from_numpy(audio).to(dev)
+    n_fft, hop = STFT
+    window = torch.from_numpy(stream.hann_window(n_fft)).to(dev)
+    spec = stream.stft(xa, n_fft=n_fft, hop=hop)
+    conv = models.MultichannelConvolver(ir, models.ConvolverConfig(channels=channels, block=CONFIG4_BLOCK), device=dev)
+    state, frame = conv.init_state(), xa[:, :CONFIG4_BLOCK]
+
+    def power(_):
+        # spectrogram's device work, with its window already on the card (spectrogram uploads it each call: a copy
+        # from host memory, which a graph cannot capture)
+        s = stream.stft(xa, n_fft=n_fft, hop=hop, window=window)
+        return s.real ** 2 + s.imag ** 2
+
+    require(torch.equal(power(None), stream.spectrogram(xa, n_fft=n_fft, hop=hop)), "the captured spectrogram differs")
+    paths = (
+        # (name, the call the profiler reads, the captured body and its carry, what the body is)
+        ("spectrogram", lambda: stream.spectrogram(xa, n_fft=n_fft, hop=hop), power, xa, "the same work"),
+        ("istft", lambda: stream.istft(spec, hop=hop, length=t), lambda _: ct.irfft(spec), spec,
+         "its irfft only: istft uploads its window and COLA table from the host each call"),
+        ("istft's irfft", lambda: ct.irfft(spec), lambda _: ct.irfft(spec), spec, "the same work"),
+        (f"config 4 step ({channels} x {CONFIG4_BLOCK})", lambda: conv.step(state, frame),
+         lambda s: conv.step(s, frame)[0], state, "the same work"),
+    )
+    for name, call, captured, init, what in paths:
+        by_kernel = kernel_device_times(call)
+        k1 = sum(v for k, v in by_kernel.items() if names_kernel(k, hf.K1.name))
+        k2 = sum(v for k, v in by_kernel.items() if names_kernel(k, hf.K2.name))
+        try:
+            graph = f"{profiling.op_seconds(captured, init) * 1e3:.4f} ms ({what})"
+        except RuntimeError as e:  # a path that syncs with the host cannot be captured
+            graph = f"not captured ({str(e).splitlines()[0][:120]})"
+        log(f"phase 22 device total {name}: graph replay {graph}; profiler {sum(by_kernel.values()):.4f} ms (K1 "
+            f"{k1:.4f}, K2 {k2:.4f}) [{card}]")
+
+    # profiling.trace in a fresh process, where it must name K1's kernel, then in this one (informational: in a
+    # process that has run for minutes its Chrome trace has come out without kernel events).
+    out = subprocess.run([sys.executable, "-c", TRACE_CHECK, str(pathlib.Path(__file__).resolve().parent),
+                          str(PHASE22_DIR / "trace"), str(n), str(rows)],
+                         capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0, f"the trace process failed: {out.stderr[-2000:]}")
+    fresh = trace_kernels(pathlib.Path(out.stdout.strip().splitlines()[-1]), hf.K1.name)
+    require(fresh[0] > 0, f"a fresh process's trace names no {hf.K1.name}: {fresh}")
+    with profiling.trace(PHASE22_DIR / "trace") as log_dir:
+        ct.rfft_packed_unordered(xs[0])
+    here = trace_kernels(max(pathlib.Path(log_dir).glob("trace_*.json"), key=lambda p: p.stat().st_mtime_ns),
+                         hf.K1.name)
+    in_events = sum(1 for k in kernel_device_times(lambda: ct.rfft_packed_unordered(xs[0])) if names_kernel(k, hf.K1.name))
+    log(f"phase 22 profiling.trace: a fresh process's Chrome trace has {fresh[0]} {hf.K1.name} event(s) of "
+        f"{fresh[1]} kernel events; this process's (at {time.perf_counter() - _START:.0f} s) {here[0]} of {here[1]}, "
+        f"and the profiler's parsed events of the same call name it {in_events} time(s)")
+    del xs
+
+
+TRACE_CHECK = """
+import pathlib, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chowdsp_fft_tpu_torch as ct
+from chowdsp_fft_tpu_torch.utils import profiling
+x = torch.randn(int(sys.argv[4]), int(sys.argv[3]), device="cuda")
+ct.rfft_packed_unordered(x)
+with profiling.trace(sys.argv[2]) as log_dir:
+    ct.rfft_packed_unordered(x)
+print(max(pathlib.Path(log_dir).glob("trace_*.json"), key=lambda p: p.stat().st_mtime_ns))
+"""
+
+
+def trace_kernels(path: pathlib.Path, kernel: str) -> tuple[int, int]:
+    """(events naming ``kernel``, all kernel events) of a Chrome trace."""
+    kernels = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("cat") == "kernel"]
+    return sum(names_kernel(e["name"], kernel) for e in kernels), len(kernels)
+
+
+def phase22(ct, hf, hs, hc, stream, models, dev, card, k1_device_ms: float, audio, ir) -> dict[str, int]:
+    """The last modules on the card, through the kernels. Returns the
+    launches of the phase's paths (before its timing)."""
+    from chowdsp_fft_tpu_torch import plans
+    from chowdsp_fft_tpu_torch.adapters import JuceStyleFFT
+    from chowdsp_fft_tpu_torch.adapters import numpy_like
+    from chowdsp_fft_tpu_torch.utils import native, profiling
+
+    t_phase = time.perf_counter()
+    total: dict[str, int] = {}
+    phase22_planner(ct, native)
+    phase22_plans(ct, plans, hf, hs, hc, dev, total)
+    phase22_merge(ct, hf, hs, dev, total)
+    phase22_numpy(ct, numpy_like, hf, hc, dev, total)
+    phase22_juce(JuceStyleFFT, hf, hs, hc, dev, total)
+    log(f"phase 22 paths ok in {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    phase22_profiling(ct, profiling, hf, stream, models, dev, card, k1_device_ms, audio, ir)
+    log(f"phase 22 ok in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2587,6 +2980,10 @@ def main() -> int:
     # -- phase 21: the parallel layer on a one-rank NCCL group -----------------
     parallel_launches = phase21(hf, hopper_small, models, stream, roof, dev, card, x, h, ref, audio, ir, capture)
 
+    # -- phase 22: the last modules (planner, plans, merge, adapters, profiling) --
+    adapter_launches = phase22(ct, hf, hopper_small, hc, stream, models, dev, card, times[hf.K1.name]["device_ms"],
+                               audio, ir)
+
     # -- phase 10 -------------------------------------------------------------
     for k in hf.KERNELS:
         require(launches[k.name] > 0, f"{k.name} was not launched on its path")
@@ -2645,6 +3042,7 @@ def main() -> int:
             "device_ms": times[k.name]["device_ms"], "library_device_ms": times[k.name]["library_device_ms"],
             "backward_launches": backward.get(k.name, 0),
             "parallel_launches": parallel_launches[k.name],
+            "adapter_launches": adapter_launches.get(k.name, 0),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     result = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

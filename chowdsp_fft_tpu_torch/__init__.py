@@ -18,6 +18,8 @@ Layers:
   parallel — meshes, halo-exchange streams and the all_to_all distributed
              FFT on torch.distributed (DTensors in and out)
   convert — carry the JAX package's plans, filters, state and models across
+  adapters — numpy.fft-style and juce::dsp::FFT-style surfaces
+  utils   — the native planner, profiling, the H100 roofline
 """
 
 from .api import (  # noqa: F401
@@ -52,15 +54,18 @@ from .api import (  # noqa: F401
     make_plan,
     multiply_spectra,
     packed_planes_to_spectrum,
+    plan_bytes,
     rfft,
     rfft_packed,
     rfft_packed_unordered,
     rfft_unordered,
     spectrum_to_packed_planes,
+    vector_width_bytes,
 )
 
 # Importing the Hopper engine registers it with the api dispatcher. It
 # builds nothing at import: the kernels compile on their first CUDA launch.
 from .ops import hopper_fft as _hopper_fft  # noqa: F401,E402
+from .ops.hopper_fft import merge_precision  # noqa: F401,E402
 
 __version__ = "0.1.0"

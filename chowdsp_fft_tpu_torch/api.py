@@ -64,6 +64,8 @@ __all__ = [
     "available_engines",
     "engine_for",
     "engine_supports",
+    "plan_bytes",
+    "vector_width_bytes",
     "fft",
     "ifft",
     "fft_unordered",
@@ -189,6 +191,27 @@ def engine_supports(name: str, n: int, kind: str = FFT_COMPLEX) -> bool:
     if e is None:
         raise ValueError(f"unknown engine {name!r}; have {sorted(_ENGINES)}")
     return bool(e["supports"](cached_plan(n, kind)))
+
+
+def plan_bytes(n: int, kind: str = FFT_COMPLEX) -> int:
+    """Bytes of float32 twiddle tables a plan carries (the stage tables
+    and a real plan's split table), the same count as the JAX package's:
+    for capacity planning, the analog of the reference's
+    ``fft_bytes_required``."""
+    plan = cached_plan(n, kind)
+    total = sum(st.tw_re.nbytes + st.tw_im.nbytes for st in plan.stages)
+    if plan.rfft_tw_re is not None:
+        total += plan.rfft_tw_re.nbytes + plan.rfft_tw_im.nbytes
+    return total
+
+
+def vector_width_bytes() -> int:
+    """128: one warp's 32 float32 lanes, which is also the 128-byte
+    transaction in which a warp's coalesced loads reach device memory.
+    The Hopper analog of the JAX package's 512-byte VPU row (128 float32
+    lanes) and of the reference's ``fft_simd_width_bytes`` (16 for
+    SSE/NEON, 32 for AVX)."""
+    return 32 * 4
 
 
 # ---------------------------------------------------------------------------

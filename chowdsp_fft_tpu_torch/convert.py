@@ -36,7 +36,7 @@ from .ops.tables import (
     jax_cfft_composite_is_natural,
     unordered_perm,
 )
-from .plans import FFT_COMPLEX, FFT_REAL, FFTPlan, StagePlan, make_plan
+from .plans import FFT_COMPLEX, FFT_REAL, FFTPlan, plan_with_tables
 from .stream.ols import PartitionedFIR
 
 __all__ = [
@@ -109,32 +109,7 @@ def plan_from_numpy(
     ``[(st.tw_re, st.tw_im) for st in plan.stages]`` and ``rfft_tw`` its
     ``(rfft_tw_re, rfft_tw_im)`` (real plans). Shapes are checked against
     the port's own factorization of N."""
-    template = make_plan(n, kind)
-    if len(stages) != len(template.stages):
-        raise ValueError(f"expected {len(template.stages)} stage tables, got {len(stages)}")
-    new_stages = []
-    for st, (re, im) in zip(template.stages, stages):
-        re = np.ascontiguousarray(re, dtype=np.float32)
-        im = np.ascontiguousarray(im, dtype=np.float32)
-        if re.shape != st.tw_re.shape or im.shape != st.tw_im.shape:
-            raise ValueError(f"stage table shape {re.shape} != expected {st.tw_re.shape}")
-        new_stages.append(StagePlan(radix=st.radix, m=st.m, s=st.s, tw_re=re, tw_im=im))
-    tw_re = tw_im = None
-    if template.kind == FFT_REAL:
-        if rfft_tw is None:
-            raise ValueError("a real plan needs its split twiddles (rfft_tw)")
-        tw_re = np.ascontiguousarray(rfft_tw[0], dtype=np.float32)
-        tw_im = np.ascontiguousarray(rfft_tw[1], dtype=np.float32)
-        if tw_re.shape != template.rfft_tw_re.shape or tw_im.shape != template.rfft_tw_im.shape:
-            raise ValueError(f"split twiddle shape {tw_re.shape} != expected {template.rfft_tw_re.shape}")
-    return FFTPlan(
-        n=n,
-        kind=template.kind,
-        radices=template.radices,
-        stages=tuple(new_stages),
-        rfft_tw_re=tw_re,
-        rfft_tw_im=tw_im,
-    )
+    return plan_with_tables(n, kind, stages, rfft_tw)
 
 
 def partitioned_fir_from_numpy(

@@ -40,6 +40,7 @@ composite runs its columns in tiles that fit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -69,6 +70,7 @@ __all__ = [
     "KERNELS",
     "supports_plan",
     "prefers",
+    "merge_precision",
     "rfft_packed",
     "irfft_packed",
     "convolve_irfft_packed",
@@ -124,6 +126,56 @@ KERNELS = (K1, K2, K3, K4, hopper_small.K5_COMPLEX, hopper_small.K5_REAL, hopper
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Merge precision
+# ---------------------------------------------------------------------------
+
+# The mode's carrier is PyTorch's ambient float32 matmul precision, as the
+# JAX package's is jax.default_matmul_precision: a precision that already
+# allows reduced-precision passes ("high", "medium") reads as "bf16x3".
+_MERGE_CARRIER = {"highest": "highest", "bf16x3": "high"}
+_MODE_OF_CARRIER = {"highest": "highest", "high": "bf16x3", "medium": "bf16x3"}
+
+
+def _merge_mode() -> str:
+    """The merge mode the ambient float32 matmul precision selects."""
+    carrier = torch.get_float32_matmul_precision()
+    mode = _MODE_OF_CARRIER.get(carrier)
+    if mode is None:
+        raise ValueError(f"float32 matmul precision {carrier!r} selects no merge precision")
+    return mode
+
+
+@contextlib.contextmanager
+def _matmul_precision(carrier: str):
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(carrier)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def merge_precision(mode: str):
+    """Context manager selecting the merge mode ("highest" | "bf16x3") for
+    the transforms run inside it, the JAX package's speed/accuracy opt-in
+    (its bf16x3 mode replaces the MXU merge's six passes with three bf16
+    passes).
+
+    The Hopper kernels have no matmul merge to relax: their butterflies
+    are FP32 FMAs throughout, and they ignore the mode, so under either
+    mode the port's transforms give the same output, within 2e-7*N of
+    float64. The mode is carried as it is in JAX, by the ambient
+    precision: "bf16x3" sets ``torch.set_float32_matmul_precision("high")``
+    for the context, "highest" sets "highest", and the caller's setting
+    comes back on exit, also on an exception. Side effect, as in JAX:
+    other float32 matmuls inside the context follow that precision ("high"
+    allows TF32 on the card)."""
+    if mode not in _MERGE_CARRIER:
+        raise ValueError(f"unknown merge precision {mode!r}")
+    return _matmul_precision(_MERGE_CARRIER[mode])
 
 
 # ---------------------------------------------------------------------------

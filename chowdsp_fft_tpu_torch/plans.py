@@ -1,20 +1,26 @@
 """FFT plan construction: radix factorization + twiddle tables.
 
 PyTorch counterpart of ``chowdsp_fft_tpu/plans.py``. A plan holds its
-twiddle tables as float32 numpy arrays, computed in float64 and cast once,
-so the same tables can be checked against the JAX package and carried
-across (``convert.plan_from_numpy``). Device copies are made on first use
-per device and kept on the plan; no plan owns a global device.
+twiddle tables as float32 numpy arrays, cast once from float64 tables:
+the native planner's (``utils/native.py``, long double with exact
+argument reduction, the same tables as the JAX package's) where g++ can
+build it, else numpy's. The same tables can be checked against the JAX
+package and carried across (``convert.plan_from_numpy``,
+:func:`save_plan`/:func:`load_plan` in the JAX package's ``.npz``
+format). Device copies are made on first use per device and kept on the
+plan; no plan owns a global device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Literal
+from typing import Literal, Sequence
 
 import numpy as np
 import torch
+
+from .utils import native
 
 # Transform kinds.
 FFT_REAL: str = "real"
@@ -161,36 +167,122 @@ def _rfft_tw_np(n: int) -> tuple[np.ndarray, np.ndarray]:
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
-def make_plan(n: int, kind: TransformKind = FFT_COMPLEX) -> FFTPlan:
-    """Build a plan. Raises InvalidSizeError for unsupported N."""
+def _stage_tables(cn: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """float32 (re, im) tables of each stage of the length-cn Stockham
+    plan: the native planner's where it is available, else numpy's."""
+    tables = native.stage_twiddles(cn) if native.available() else None
+    if tables is not None:
+        return [(re.astype(np.float32), im.astype(np.float32)) for re, im in tables]
+    out, sub = [], cn
+    for r in factorize(cn):
+        out.append(_stage_twiddle_np(sub, r))
+        sub //= r
+    return out
+
+
+def _split_table(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """float32 split twiddles of a real plan, as :func:`_stage_tables`."""
+    tw = native.rfft_twiddles(n) if native.available() else None
+    if tw is not None:
+        return tw[0].astype(np.float32), tw[1].astype(np.float32)
+    return _rfft_tw_np(n)
+
+
+def _check_args(n: int, kind: str) -> None:
     if kind not in (FFT_REAL, FFT_COMPLEX):
         raise ValueError(f"unknown transform kind: {kind!r}")
     if not is_valid_size(n, kind):
         raise InvalidSizeError(f"unsupported FFT size {n} for kind={kind}")
 
+
+def plan_with_tables(
+    n: int,
+    kind: TransformKind,
+    stages: Sequence[tuple[np.ndarray, np.ndarray]],
+    rfft_tw: tuple[np.ndarray, np.ndarray] | None = None,
+) -> FFTPlan:
+    """A plan holding the given tables as they are (cast to float32,
+    nothing recomputed): ``stages`` is one (tw_re, tw_im) pair a stage in
+    stage order, ``rfft_tw`` the split twiddles of a real plan. Shapes are
+    checked against the factorization of N."""
+    _check_args(n, kind)
     cn = n // 2 if kind == FFT_REAL else n
     radices: tuple[int, ...] = () if cn == 1 else factorize(cn)
-    stages = []
+    if len(stages) != len(radices):
+        raise ValueError(f"expected {len(radices)} stage tables, got {len(stages)}")
+    new_stages = []
     sub, s = cn, 1
-    for r in radices:
-        tw_re, tw_im = _stage_twiddle_np(sub, r)
-        stages.append(StagePlan(radix=r, m=sub // r, s=s, tw_re=tw_re, tw_im=tw_im))
+    for r, (re, im) in zip(radices, stages):
+        re = np.ascontiguousarray(re, dtype=np.float32)
+        im = np.ascontiguousarray(im, dtype=np.float32)
+        if re.shape != (r, sub // r) or im.shape != (r, sub // r):
+            raise ValueError(f"stage table shape {re.shape} != expected {(r, sub // r)}")
+        new_stages.append(StagePlan(radix=r, m=sub // r, s=s, tw_re=re, tw_im=im))
         sub, s = sub // r, s * r
-
-    rfft_tw_re = rfft_tw_im = None
+    tw_re = tw_im = None
     if kind == FFT_REAL:
-        rfft_tw_re, rfft_tw_im = _rfft_tw_np(n)
+        if rfft_tw is None:
+            raise ValueError("a real plan needs its split twiddles (rfft_tw)")
+        tw_re = np.ascontiguousarray(rfft_tw[0], dtype=np.float32)
+        tw_im = np.ascontiguousarray(rfft_tw[1], dtype=np.float32)
+        if tw_re.shape != (n // 2,) or tw_im.shape != (n // 2,):
+            raise ValueError(f"split twiddle shape {tw_re.shape} != expected {(n // 2,)}")
     return FFTPlan(
         n=n,
         kind=kind,
         radices=radices,
-        stages=tuple(stages),
-        rfft_tw_re=rfft_tw_re,
-        rfft_tw_im=rfft_tw_im,
+        stages=tuple(new_stages),
+        rfft_tw_re=tw_re,
+        rfft_tw_im=tw_im,
     )
+
+
+def make_plan(n: int, kind: TransformKind = FFT_COMPLEX) -> FFTPlan:
+    """Build a plan. Raises InvalidSizeError for unsupported N."""
+    _check_args(n, kind)
+    cn = n // 2 if kind == FFT_REAL else n
+    stages = [] if cn == 1 else _stage_tables(cn)
+    return plan_with_tables(n, kind, stages, _split_table(n) if kind == FFT_REAL else None)
 
 
 @functools.lru_cache(maxsize=256)
 def cached_plan(n: int, kind: TransformKind = FFT_COMPLEX) -> FFTPlan:
     """Memoized make_plan, used by the API when no plan is passed."""
     return make_plan(n, kind)
+
+
+def _npz_path(path) -> str:
+    # np.savez appends ".npz" to a name without it; load from the same file.
+    path = str(path)
+    return path if path.endswith(".npz") else f"{path}.npz"
+
+
+def save_plan(plan: FFTPlan, path) -> None:
+    """Write a plan to an ``.npz`` file in the JAX package's format: ``n``,
+    ``kind`` and ``leaf0``..``leafK``, the tables in the JAX plan's pytree
+    order (each stage's ``tw_re`` and ``tw_im`` in stage order, then
+    ``rfft_tw_re`` and ``rfft_tw_im`` of a real plan). A plan saved by
+    either package loads in the other."""
+    leaves = [t for st in plan.stages for t in (st.tw_re, st.tw_im)]
+    if plan.rfft_tw_re is not None:
+        leaves += [plan.rfft_tw_re, plan.rfft_tw_im]
+    np.savez(
+        _npz_path(path),
+        n=plan.n,
+        kind=plan.kind,
+        **{f"leaf{i}": np.asarray(leaf) for i, leaf in enumerate(leaves)},
+    )
+
+
+def load_plan(path) -> FFTPlan:
+    """Inverse of :func:`save_plan`: the tables come back bit-exactly, not
+    recomputed, and no device copy is made before first use."""
+    with np.load(_npz_path(path), allow_pickle=False) as z:
+        n = int(z["n"])
+        kind = str(z["kind"])
+        _check_args(n, kind)
+        cn = n // 2 if kind == FFT_REAL else n
+        nstages = 0 if cn == 1 else len(factorize(cn))
+        leaves = [z[f"leaf{i}"] for i in range(2 * nstages + (2 if kind == FFT_REAL else 0))]
+    stages = list(zip(leaves[0 : 2 * nstages : 2], leaves[1 : 2 * nstages : 2]))
+    return plan_with_tables(n, kind, stages, tuple(leaves[2 * nstages :]) if kind == FFT_REAL else None)

@@ -30,8 +30,14 @@ from chowdsp_fft_tpu_torch.ops import (
     _cuda, convolve, hopper_cfft, hopper_composite, hopper_fft, hopper_small, layout, stockham, tables,
 )
 from chowdsp_fft_tpu_torch.stream import channelizer, demod, polyphase
-from chowdsp_fft_tpu_torch.utils import roofline
+from chowdsp_fft_tpu_torch.utils import native, profiling, roofline
+from chowdsp_fft_tpu_torch.adapters import JuceStyleFFT, juce_like, numpy_like
 x = torch.randn(2, 1024)
+assert ct.make_plan(1024, "real").n == 1024 and ct.plan_bytes(1024, "real") > 0
+with ct.merge_precision("bf16x3"):
+    spec = numpy_like.rfft(x, device="cpu")
+assert spec.shape == (2, 513)
+assert JuceStyleFFT(10, device="cpu").perform_real_only_forward_transform(x).shape == (2, 1026)
 re, im = ct.rfft_packed_unordered(x)
 y = ct.irfft_packed_unordered(re, im)
 assert torch.allclose(y / 1024, x, atol=2e-7 * 1024)

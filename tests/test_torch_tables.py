@@ -12,13 +12,15 @@ import chowdsp_fft_tpu_torch as ct
 from chowdsp_fft_tpu import plans as jax_plans
 from chowdsp_fft_tpu.ops import convolve as jax_convolve
 from chowdsp_fft_tpu.ops import layout as jax_layout
+from chowdsp_fft_tpu.utils import native as jax_native
 from chowdsp_fft_tpu_torch import convert
 from chowdsp_fft_tpu_torch.ops import convolve as pt_convolve
 from chowdsp_fft_tpu_torch.ops import layout as pt_layout
 from chowdsp_fft_tpu_torch.ops import tables
+from chowdsp_fft_tpu_torch.utils import native as pt_native
 
-# The JAX plan may take its tables from the native long-double planner;
-# those differ from float64-numpy tables only below one float32 ulp of 1.
+# A plan's tables come from the native long-double planner or, without
+# g++, from float64 numpy: the two differ only below one float32 ulp of 1.
 TABLE_ATOL = 2.0**-24
 
 
@@ -73,23 +75,41 @@ def test_unordered_perm_is_jax_layout(n):
 @pytest.mark.parametrize("n", [384, 640, 1024, 1920, 4096, 16384])
 def test_kernel_tables_match_jax(n):
     """The tables the kernels read: the real plan's Stockham stage tables
-    (half-length complex transform) and its split twiddles."""
+    (half-length complex transform) and its split twiddles. With g++ the
+    port takes them from its native planner, bit-equal to the planner's
+    float64 tables cast to float32, and to the JAX plan's where the JAX
+    package's planner loaded too (one source); without g++, bit-equal to
+    the JAX package's float64-numpy construction."""
     mine = ct.make_plan(n, ct.FFT_REAL)
     ref = cf.make_plan(n, cf.FFT_REAL)
     assert mine.radices == tuple(ref.radices)
     assert len(mine.stages) == len(ref.stages)
-    for a, b in zip(mine.stages, ref.stages):
+    if pt_native.available():
+        want_stages = [(re.astype(np.float32), im.astype(np.float32)) for re, im in pt_native.stage_twiddles(n // 2)]
+        want_split = tuple(t.astype(np.float32) for t in pt_native.rfft_twiddles(n))
+    else:
+        want_stages = [jax_plans._stage_twiddle_np(st.radix * st.m, st.radix) for st in mine.stages]
+        k = np.arange(n // 2, dtype=np.float64)
+        want_split = (np.cos(-2.0 * np.pi * k / n).astype(np.float32), np.sin(-2.0 * np.pi * k / n).astype(np.float32))
+    jax_exact = pt_native.available() and jax_native.get_lib() is not None
+    for a, b, (want_re, want_im) in zip(mine.stages, ref.stages, want_stages, strict=True):
         assert (a.radix, a.m, a.s) == (b.radix, b.m, b.s)
         assert a.tw_re.dtype == np.float32 and a.tw_re.shape == (a.radix, a.m)
-        # Bit-equal to the JAX package's float64-numpy construction ...
-        want_re, want_im = jax_plans._stage_twiddle_np(a.radix * a.m, a.radix)
         np.testing.assert_array_equal(a.tw_re, want_re)
         np.testing.assert_array_equal(a.tw_im, want_im)
-        # ... and to the JAX plan's own tables within TABLE_ATOL.
-        np.testing.assert_allclose(a.tw_re, np.asarray(b.tw_re), atol=TABLE_ATOL, rtol=0)
-        np.testing.assert_allclose(a.tw_im, np.asarray(b.tw_im), atol=TABLE_ATOL, rtol=0)
-    np.testing.assert_allclose(mine.rfft_tw_re, np.asarray(ref.rfft_tw_re), atol=TABLE_ATOL, rtol=0)
-    np.testing.assert_allclose(mine.rfft_tw_im, np.asarray(ref.rfft_tw_im), atol=TABLE_ATOL, rtol=0)
+        # ... and to the JAX plan's own tables: bit-equal, or within TABLE_ATOL.
+        for got, jax_t in ((a.tw_re, b.tw_re), (a.tw_im, b.tw_im)):
+            if jax_exact:
+                np.testing.assert_array_equal(got, np.asarray(jax_t))
+            else:
+                np.testing.assert_allclose(got, np.asarray(jax_t), atol=TABLE_ATOL, rtol=0)
+    np.testing.assert_array_equal(mine.rfft_tw_re, want_split[0])
+    np.testing.assert_array_equal(mine.rfft_tw_im, want_split[1])
+    for got, jax_t in ((mine.rfft_tw_re, ref.rfft_tw_re), (mine.rfft_tw_im, ref.rfft_tw_im)):
+        if jax_exact:
+            np.testing.assert_array_equal(got, np.asarray(jax_t))
+        else:
+            np.testing.assert_allclose(got, np.asarray(jax_t), atol=TABLE_ATOL, rtol=0)
     # The flat table the kernels read is the stage tables in stage order.
     dev = mine.device_tables("cpu")
     flat = np.concatenate([(st.tw_re + 1j * st.tw_im).ravel() for st in mine.stages])
