@@ -1,0 +1,12 @@
+"""The whole call's share of its roofline: the least time of one call's
+work (``roofline.partitioned_convolution_work``) over the device's busy
+time a call (the union of its op intervals over the calls)."""
+
+from portbench import roofline
+
+
+def read(r):
+    work = r.work.get("call")
+    if work is None or r.busy_s <= 0:
+        return None
+    return 100.0 * roofline.least_seconds(*work) / (r.busy_s / r.calls)
