@@ -49,6 +49,7 @@ from .ops.convolve import (
     multiply_spectra,
 )
 from .ops.layout import packed_planes_to_spectrum, spectrum_to_packed_planes
+from .utils.tracing import spanned
 
 __all__ = [
     "FFT_FORWARD",
@@ -219,18 +220,21 @@ def vector_width_bytes() -> int:
 # ---------------------------------------------------------------------------
 
 
+@spanned("api.fft")
 def fft(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
     """Ordered forward complex FFT over the last axis -> (..., N) complex64."""
     plan = plan or cached_plan(x.shape[-1], FFT_COMPLEX)
     return _pick_engine(plan, engine)["cfft"](x, plan, FFT_FORWARD)
 
 
+@spanned("api.ifft")
 def ifft(spec: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
     """Ordered backward complex FFT (unscaled: returns N * inverse)."""
     plan = plan or cached_plan(spec.shape[-1], FFT_COMPLEX)
     return _pick_engine(plan, engine)["cfft"](spec, plan, FFT_BACKWARD)
 
 
+@spanned("api.fft_unordered")
 def fft_unordered(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
     """Forward complex FFT in the engine's bin order (one fixed
     permutation per N, independent of the batch)."""
@@ -238,12 +242,14 @@ def fft_unordered(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "a
     return _pick_engine(plan, engine)["cfft_unordered"](x, plan, FFT_FORWARD)
 
 
+@spanned("api.ifft_unordered")
 def ifft_unordered(spec: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
     """Backward complex FFT consuming the engine's bin order."""
     plan = plan or cached_plan(spec.shape[-1], FFT_COMPLEX)
     return _pick_engine(plan, engine)["cfft_unordered"](spec, plan, FFT_BACKWARD)
 
 
+@spanned("api.fft_planes")
 def fft_planes(
     re: torch.Tensor,
     im: torch.Tensor,
@@ -257,10 +263,12 @@ def fft_planes(
     return _pick_engine(plan, engine)["cfft_planes"](re, im, plan, direction)
 
 
+@spanned("api.ifft_planes")
 def ifft_planes(re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"):
     return fft_planes(re, im, plan, engine, direction=FFT_BACKWARD)
 
 
+@spanned("api.fft_planes_unordered")
 def fft_planes_unordered(
     re: torch.Tensor,
     im: torch.Tensor,
@@ -273,33 +281,39 @@ def fft_planes_unordered(
     return _pick_engine(plan, engine)["cfft_planes_unordered"](re, im, plan, direction)
 
 
+@spanned("api.ifft_planes_unordered")
 def ifft_planes_unordered(re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"):
     return fft_planes_unordered(re, im, plan, engine, direction=FFT_BACKWARD)
 
 
+@spanned("api.rfft")
 def rfft(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
     """Real forward FFT -> canonical (..., N//2+1) complex64 spectrum."""
     plan = plan or cached_plan(x.shape[-1], FFT_REAL)
     return _pick_engine(plan, engine)["rfft"](x, plan)
 
 
+@spanned("api.irfft")
 def irfft(spec: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
     """Backward real FFT (unscaled): irfft(rfft(x)) == N * x -> (..., N) f32."""
     plan = plan or cached_plan(2 * (spec.shape[-1] - 1), FFT_REAL)
     return _pick_engine(plan, engine)["irfft"](spec, plan)
 
 
+@spanned("api.rfft_unordered")
 def rfft_unordered(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
     """Canonical-type spectrum in the engine's bin order, Nyquist last."""
     plan = plan or cached_plan(x.shape[-1], FFT_REAL)
     return _pick_engine(plan, engine)["rfft_unordered"](x, plan)
 
 
+@spanned("api.irfft_unordered")
 def irfft_unordered(spec: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto") -> torch.Tensor:
     plan = plan or cached_plan(2 * (spec.shape[-1] - 1), FFT_REAL)
     return _pick_engine(plan, engine)["irfft_unordered"](spec, plan)
 
 
+@spanned("api.rfft_packed")
 def rfft_packed(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"):
     """Real FFT -> packed half-spectrum planes ((..., N/2) f32 re, im):
     re[k]/im[k] hold bin k for k in [1, N/2); re[0] = DC, im[0] = Nyquist."""
@@ -307,6 +321,7 @@ def rfft_packed(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "aut
     return _pick_engine(plan, engine)["rfft_packed"](x, plan)
 
 
+@spanned("api.irfft_packed")
 def irfft_packed(
     re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"
 ) -> torch.Tensor:
@@ -315,6 +330,7 @@ def irfft_packed(
     return _pick_engine(plan, engine)["irfft_packed"](re, im, plan)
 
 
+@spanned("api.rfft_packed_unordered")
 def rfft_packed_unordered(x: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"):
     """Packed real FFT in the engine's bin order (bin 0 stays at index 0,
     so convolve_accumulate_packed applies unchanged)."""
@@ -322,6 +338,7 @@ def rfft_packed_unordered(x: torch.Tensor, plan: FFTPlan | None = None, engine: 
     return _pick_engine(plan, engine)["rfft_packed_unordered"](x, plan)
 
 
+@spanned("api.irfft_packed_unordered")
 def irfft_packed_unordered(
     re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None, engine: str = "auto"
 ) -> torch.Tensor:
@@ -329,6 +346,7 @@ def irfft_packed_unordered(
     return _pick_engine(plan, engine)["irfft_packed_unordered"](re, im, plan)
 
 
+@spanned("api.convolve_irfft_packed")
 def convolve_irfft_packed(
     are: torch.Tensor,
     aim: torch.Tensor,

@@ -25,6 +25,7 @@ from torch import nn
 from ..parallel.mesh import CHANNEL_AXIS, DeviceMesh, axis_group, local_shard, require_mesh_device, sharded
 from ..parallel.sharded import _sharded_stream_filter
 from ..stream import PartitionedFIR
+from ..utils.tracing import spanned
 
 __all__ = ["ConvolverConfig", "MultichannelConvolver"]
 
@@ -85,6 +86,7 @@ class MultichannelConvolver(nn.Module):
 
     # -- offline -----------------------------------------------------------
 
+    @spanned("models.convolver.apply")
     def apply(self, x) -> torch.Tensor:
         """Filter (channels, T) streams -> (channels, T): the batched
         offline FDL on the IR bank's partitions."""
@@ -98,6 +100,7 @@ class MultichannelConvolver(nn.Module):
     def init_state(self) -> dict:
         return self.fir.init_state((self.config.channels,))
 
+    @spanned("models.convolver.step")
     def step(self, state: dict, frame) -> tuple[dict, torch.Tensor]:
         """One (channels, block) frame in -> one (channels, block) out."""
         return self.fir.step(state, frame)

@@ -26,6 +26,8 @@ import tempfile
 
 import torch
 
+from ..utils.tracing import LAUNCH_SPAN, span
+
 # Largest real N of K1-K3: two padded N/2-point buffers, 8.25N bytes.
 MAX_N = 16384
 # Largest complex N of K4: two padded N-point buffers, 16.5N bytes, within
@@ -220,12 +222,17 @@ def library() -> ctypes.CDLL:
 @dataclasses.dataclass
 class Kernel:
     """A kernel's identity and its launch count (incremented once per
-    launch of the CUDA kernel, never by the plain version)."""
+    launch of the CUDA kernel, never by the plain version). ``span`` names
+    the span around each launch."""
 
     name: str
     source: str
     replaces: str
     launches: int = 0
+    span: str = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self.span = LAUNCH_SPAN + self.name
 
 
 def check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device,
@@ -288,7 +295,8 @@ def launch(kernel: Kernel, entry: str, device: torch.device, *args):
     fn = getattr(library(), entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+        with span(kernel.span):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with cudaError {err}")
     kernel.launches += 1

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import spanned
+
 __all__ = [
     "convolve_accumulate",
     "convolve_accumulate_packed",
@@ -31,6 +33,7 @@ def _scale(scaling, device):
     return float(scaling)
 
 
+@spanned("ops.convolve.accumulate_packed")
 def convolve_accumulate_packed(
     a: tuple[torch.Tensor, torch.Tensor],
     b: tuple[torch.Tensor, torch.Tensor],

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import api
+from ..utils.tracing import span, spanned
 
 __all__ = [
     "next_fft_size",
@@ -32,6 +33,7 @@ def next_fft_size(n: int) -> int:
     return p
 
 
+@spanned("stream.ols.frame")
 def _frame_overlap(x: torch.Tensor, block: int, overlap: int) -> torch.Tensor:
     """(..., T) -> (..., num_blocks, overlap + block) frames, stride =
     block, left-padded with `overlap` zeros (and right-padded to whole
@@ -59,6 +61,7 @@ def filter_device(h, device: torch.device | str | None = None) -> torch.device |
     return h.device if isinstance(h, torch.Tensor) else "cuda"
 
 
+@spanned("stream.ols.fir_filter_ols")
 def fir_filter_ols(
     x: torch.Tensor,
     h: torch.Tensor,
@@ -107,8 +110,9 @@ def fir_filter_ols(
         yblocks = api.irfft_packed_unordered(yre, yim, plan=plan, engine=engine)
     # Overlap-save: the first taps-1 samples of each block are circularly
     # corrupted; keep the last `block` samples.
-    y = yblocks[..., taps - 1 :]
-    y = y.reshape(*y.shape[:-2], -1)
+    with span("stream.ols.trim"):
+        y = yblocks[..., taps - 1 :]
+        y = y.reshape(*y.shape[:-2], -1)
     return y[..., :t]
 
 
@@ -192,6 +196,7 @@ class PartitionedFIR:
             hr, hi = hr[..., None, :], hi[..., None, :]
         return hr, hi
 
+    @spanned("stream.ols.apply_offline")
     def apply_offline(self, x: torch.Tensor) -> torch.Tensor:
         """Filter whole (..., T) streams: all block spectra from ONE batched
         rfft, the FDL as a causal shift-and-accumulate along the block axis
@@ -208,15 +213,18 @@ class PartitionedFIR:
             if p == 0:
                 xr_p, xi_p = xre, xim
             else:
-                xr_p = F.pad(xre[..., : nb - p, :], (0, 0, p, 0))
-                xi_p = F.pad(xim[..., : nb - p, :], (0, 0, p, 0))
+                with span("stream.ols.fdl_shift"):
+                    xr_p = F.pad(xre[..., : nb - p, :], (0, 0, p, 0))
+                    xi_p = F.pad(xim[..., : nb - p, :], (0, 0, p, 0))
             acc = api.convolve_accumulate_packed(
                 (xr_p, xi_p), self._filter(p, True), ab=acc, scaling=1.0 / self.n
             )
         yfull = api.irfft_packed_unordered(acc[0], acc[1], plan=self.plan, engine=self.engine)
-        y = yfull[..., self.block :].reshape(*x.shape[:-1], nb * self.block)
+        with span("stream.ols.trim"):
+            y = yfull[..., self.block :].reshape(*x.shape[:-1], nb * self.block)
         return y[..., :t]
 
+    @spanned("stream.ols.step_k")
     def step_k(self, state: dict, xk: torch.Tensor) -> tuple[dict, torch.Tensor]:
         """Process K blocks at once: (..., K, block) -> (..., K, block).
         All K spectra come from one batched rfft and the FDL becomes K
@@ -225,12 +233,14 @@ class PartitionedFIR:
         xk = self._on_device(xk)
         k = xk.shape[-2]
         # frame j = [block_{j-1} | block_j], with block_{-1} = prev
-        blocks_all = torch.cat([state["prev"][..., None, :], xk], dim=-2)
-        frames = torch.cat([blocks_all[..., :-1, :], blocks_all[..., 1:, :]], dim=-1)
+        with span("stream.ols.frame"):
+            blocks_all = torch.cat([state["prev"][..., None, :], xk], dim=-2)
+            frames = torch.cat([blocks_all[..., :-1, :], blocks_all[..., 1:, :]], dim=-1)
         xre, xim = api.rfft_packed_unordered(frames, plan=self.plan, engine=self.engine)
         # E rows: spectra of steps t-P .. t+K-1 (ascending)
-        e_re = torch.cat([torch.flip(state["fdl_re"], dims=[-2]), xre], dim=-2)
-        e_im = torch.cat([torch.flip(state["fdl_im"], dims=[-2]), xim], dim=-2)
+        with span("stream.ols.fdl_shift"):
+            e_re = torch.cat([torch.flip(state["fdl_re"], dims=[-2]), xre], dim=-2)
+            e_im = torch.cat([torch.flip(state["fdl_im"], dims=[-2]), xim], dim=-2)
         p_total = self.partitions
         acc = None
         for p in range(p_total):
@@ -244,24 +254,30 @@ class PartitionedFIR:
                 scaling=1.0 / self.n,
             )
         yfull = api.irfft_packed_unordered(acc[0], acc[1], plan=self.plan, engine=self.engine)
+        with span("stream.ols.fdl_shift"):
+            fdl_re = torch.flip(e_re[..., k : k + p_total, :], dims=[-2])
+            fdl_im = torch.flip(e_im[..., k : k + p_total, :], dims=[-2])
         new_state = {
-            "fdl_re": torch.flip(e_re[..., k : k + p_total, :], dims=[-2]),
-            "fdl_im": torch.flip(e_im[..., k : k + p_total, :], dims=[-2]),
+            "fdl_re": fdl_re,
+            "fdl_im": fdl_im,
             "prev": xk[..., -1, :].clone(),  # a copy: the caller may refill xk
         }
         return new_state, yfull[..., self.block :]
 
+    @spanned("stream.ols.step")
     def step(self, state: dict, xblock: torch.Tensor) -> tuple[dict, torch.Tensor]:
         """Process one (..., block) input block -> (..., block) output.
         The caller's state is not modified: the new FDL is a rolled copy,
         into which the new spectrum is written in place."""
         xblock = self._on_device(xblock)
-        frame = torch.cat([state["prev"], xblock], dim=-1)  # (..., n)
+        with span("stream.ols.frame"):
+            frame = torch.cat([state["prev"], xblock], dim=-1)  # (..., n)
         xre, xim = api.rfft_packed_unordered(frame, plan=self.plan, engine=self.engine)
-        fdl_re = torch.roll(state["fdl_re"], 1, dims=-2)
-        fdl_im = torch.roll(state["fdl_im"], 1, dims=-2)
-        fdl_re[..., 0, :] = xre
-        fdl_im[..., 0, :] = xim
+        with span("stream.ols.fdl_shift"):
+            fdl_re = torch.roll(state["fdl_re"], 1, dims=-2)
+            fdl_im = torch.roll(state["fdl_im"], 1, dims=-2)
+            fdl_re[..., 0, :] = xre
+            fdl_im[..., 0, :] = xim
         # y = sum_p fdl[p] * h[p]: P packed convolve-accumulates.
         acc = None
         for p in range(self.partitions):

@@ -1,4 +1,4 @@
 """Utilities of the port: native planner bindings, profiling helpers, the
-H100 roofline calculator."""
+H100 roofline calculator, the spans at the layer boundaries."""
 
-from . import native, profiling, roofline  # noqa: F401
+from . import native, profiling, roofline, tracing  # noqa: F401
