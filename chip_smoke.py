@@ -27,8 +27,9 @@ Phases, each of which asserts:
    ``stream.partitioned_fir_apply(block=1024)``, against a float64 FFT
    convolution (atol 5e-4 and 1e-3), plus ``PartitionedFIR.step_k``
    streaming against the offline result;
-4. K1-K3 carried config 3: every launch count from phase 3 > 0, and
-   ``engine_for`` picks the Hopper engine at the path's sizes;
+4. K1-K3 and the offline FDL's partitioned accumulate carried config 3:
+   every launch count from phase 3 > 0, and ``engine_for`` picks the
+   Hopper engine at the path's sizes;
 5. timing at N=4096, B=1024 (kernel, plain version, cuFFT), informational,
    with K1-K3's launch geometry and resident blocks per SM;
 6. K4 and K5 against their plain versions and float64, bound 2e-7*N:
@@ -51,8 +52,9 @@ Phases, each of which asserts:
 9. a K5-real path: ``PartitionedFIR(h, block=128)`` on config 3's streams
    (N = 256), ``step_k`` against ``partitioned_fir_apply`` and float64;
    both real K5 bodies carried it;
-10. coverage: every kernel record launched on its path, ``engine_for`` at
-    the complex, small and composite sizes;
+10. coverage: every kernel record (``hopper_fft.KERNELS`` and
+    ``convolve.KERNELS``) launched on its path, ``engine_for`` at the
+    complex, small and composite sizes;
 11. timing (informational): K4 at N=4096, B=1024 against ``torch.fft.fft``,
     K5 at N=256, B=32768 against ``torch.fft.ifft`` / ``rfft`` / ``irfft``
     (inverses unscaled, ``norm="forward"``, as the kernels are), each
@@ -94,7 +96,8 @@ Phases, each of which asserts:
     48 kHz (block 4096: N = 8192, P = 24), 8 channels against a float64
     FFT convolution (atol 1e-3), all 64 against the model on the Stockham
     engine, then ``init_state`` and 8 ``step`` calls against the offline
-    output (atol 1e-4); K1 and K2 carried it;
+    output (atol 1e-4); K1, K2 and one launch of the partitioned
+    accumulate carried it;
 17. the STFT on the same audio (n_fft 1024, hop 512): ``spectrogram``,
     ``stft`` -> ``istft`` (round trip, atol 1e-4), 4 channels' frames
     against float64 (2e-7*n_fft*4); K1 and K2 carried it;
@@ -155,6 +158,7 @@ Phases, each of which asserts:
     ``ct.fft`` and cuFFT at N=2^20, B=64 with the all_to_all's share, each
     sharded form's wall beside its unsharded call, and the halo model's
     prediction for config 4 (a model on NVLink's data-sheet rate).
+    The partitioned accumulate carried config 3's and config 4's paths.
 22. the last modules of the port, through the kernels: the native planner
     built from ``native/planner.cpp`` into ``build/native/`` and the
     plans' tables (real 4096, 256 and 2^20, complex 256 and 2^20)
@@ -179,15 +183,27 @@ Phases, each of which asserts:
     then (informational) graph-replay device totals (``op_seconds``) of
     ``spectrogram`` (its work with the window on the card), ``istft``'s
     irfft and config 4's ``step``, beside ``torch.profiler``'s totals.
+23. the offline FDL's kernel (``ops/convolve.convolve_accumulate_partitioned``,
+    ``csrc/partitioned_accumulate.cu``) against its plain version on the
+    same card tensors, max abs error within 1e-5 of the plain output's
+    rms: at the reverb's 64 x 118 x 4096 with P = 24 (a filter per
+    stream), config 3's 4 x 1024 x 1024 at block 1024 (P = 4, shared),
+    one stream of 938 blocks the wrapper splits into runs (P = 24) and
+    P = 80 (passes of 32, shared); one launch a call; a zeroed output and
+    a filter without its last partition must fail. Then (informational)
+    ptxas's registers of each sub-ring count, and at each shape the
+    kernel's time beside its plain version's and its bound (X and H read
+    once, Y written once).
 
-Every kernel time is taken twice (phases 5, 11, 15, 19): ``ms``, CUDA
+Every kernel time is taken twice (phases 5, 11, 15, 19, 23): ``ms``, CUDA
 events around 20 calls from Python (host-inclusive: the wrapper, ctypes
 and the launch), and ``device_ms``, the same 20 calls captured in one CUDA
 graph and replayed (``graph_time_ms``: no host in the loop); the matching
 ``torch.fft`` call likewise (``library_ms``, ``library_device_ms``).
 
-Phases run in the order 1-9, 12-14, 16-18, 20, 21, 22, 10, 11, 15, 19. The
-line before the last is the kernel report as JSON (with each kernel's
+Phases run in the order 1-9, 12-14, 16-18, 20, 21, 22, 23, 10, 11, 15, 19.
+The line before the last is the kernel report as JSON, one entry for each
+record of ``hopper_fft.KERNELS`` and ``convolve.KERNELS`` (with each kernel's
 launches in phase 20's backward passes, ``backward_launches``, on phase
 21's parallel paths, ``parallel_launches``, and on phase 22's paths,
 ``adapter_launches``); the last line is ``{"ok": true,
@@ -1396,22 +1412,24 @@ def recording(module, name: str):
         setattr(module, name, fn)
 
 
-def phase16(models, hf, dev, audio: np.ndarray, ir: np.ndarray) -> tuple[dict[str, int], dict]:
+def phase16(models, hf, convolve, dev, audio: np.ndarray, ir: np.ndarray) -> tuple[dict[str, int], dict]:
     """config 4 as examples/02_convolution_reverb.py deploys it: the model
     built from the numpy IR bank on its default device, the offline FDL on
-    64 channels x 10 s (N = 8192, P = 24, 118 blocks), then init_state and
-    8 step calls. Returns the path's launches and the model's own K1 call
-    (frames in, spectra out) and K2 call (accumulated spectra in, blocks
-    out), recorded on the way."""
+    64 channels x 10 s (N = 8192, P = 24, 118 blocks; one launch of the
+    partitioned accumulate), then init_state and 8 step calls. Returns the
+    path's launches and the model's own K1 call (frames in, spectra out)
+    and K2 call (accumulated spectra in, blocks out), recorded on the way."""
     channels, t = audio.shape
     cfg = models.ConvolverConfig(channels=channels, block=CONFIG4_BLOCK)
     x = torch.from_numpy(audio).to(dev)
     hf.reset_launch_counts()
+    convolve.PARTITIONED.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     conv = models.MultichannelConvolver(ir, cfg)
     with recording(hf, "rfft_packed_kernel") as k1_calls, recording(hf, "irfft_packed_kernel") as k2_calls:
         wet = conv.apply(x)
+    fdl_launches = convolve.PARTITIONED.launches
     state = conv.init_state()
     blocks = []
     for i in range(CONFIG4_STEPS):
@@ -1420,6 +1438,7 @@ def phase16(models, hf, dev, audio: np.ndarray, ir: np.ndarray) -> tuple[dict[st
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in hf.KERNELS}
+    launches[convolve.PARTITIONED.name] = fdl_launches
     nb = -(-t // cfg.block)
     log(f"phase 16 config 4 (MultichannelConvolver, {channels} ch x {t} samples, {ir.shape[-1]}-tap IRs, block "
         f"{cfg.block}: N={2 * cfg.block}, P={conv.fir.partitions}, {nb} blocks) built, applied and stepped "
@@ -1428,6 +1447,7 @@ def phase16(models, hf, dev, audio: np.ndarray, ir: np.ndarray) -> tuple[dict[st
     for k in (hf.K1, hf.K2):
         require(launches[k.name] > 0, f"{k.name} was not launched on config 4's path")
     require(len(k1_calls) == 1 and len(k2_calls) == 1, f"apply made {len(k1_calls)} K1 and {len(k2_calls)} K2 calls")
+    require(fdl_launches == 1, f"apply launched {convolve.PARTITIONED.name} {fdl_launches} times, not once")
     frames = k1_calls[0][0][0]
     require(tuple(frames.shape) == (channels * nb, 2 * cfg.block), f"config 4 frames {tuple(frames.shape)}")
     require(tuple(wet.shape) == audio.shape and bool(torch.isfinite(wet).all()), f"wet {tuple(wet.shape)}")
@@ -2282,8 +2302,8 @@ def dist_fft_checks(parallel, mesh, dev, n: int, rows: int, seed: int) -> dict[s
     return errs
 
 
-def phase21(hf, hs, models, stream, roof, dev, card, x3, h3, ref3: np.ndarray, audio: np.ndarray, ir: np.ndarray,
-            capture: np.ndarray) -> dict[str, int]:
+def phase21(hf, hs, convolve, models, stream, roof, dev, card, x3, h3, ref3: np.ndarray, audio: np.ndarray,
+            ir: np.ndarray, capture: np.ndarray) -> dict[str, int]:
     """The parallel layer's paths on a one-rank NCCL group (a dsp_mesh(1) on
     the card): every local transform runs K1-K5 at full width, the halo
     hop has no operations and each all_to_all is a copy. Returns the
@@ -2294,26 +2314,30 @@ def phase21(hf, hs, models, stream, roof, dev, card, x3, h3, ref3: np.ndarray, a
     t_phase = time.perf_counter()
     parallel.init_local_group("cuda")
     try:
-        launches = phase21_paths(parallel, hf, hs, models, stream, roof, dev, card, x3, h3, ref3, audio, ir, capture)
+        launches = phase21_paths(parallel, hf, hs, convolve, models, stream, roof, dev, card, x3, h3, ref3, audio, ir,
+                                 capture)
     finally:
         dist.destroy_process_group()
     log(f"phase 21 ok in {time.perf_counter() - t_phase:.1f} s; launches {launches}")
     return launches
 
 
-def phase21_paths(parallel, hf, hs, models, stream, roof, dev, card, x3, h3, ref3, audio, ir, capture) -> dict[str, int]:
+def phase21_paths(parallel, hf, hs, convolve, models, stream, roof, dev, card, x3, h3, ref3, audio, ir,
+                  capture) -> dict[str, int]:
     mesh = parallel.dsp_mesh(1)
     cmesh = parallel.dsp_mesh(1, axis=parallel.CHANNEL_AXIS)
     require(mesh.device_type == "cuda" and mesh.size() == 1, f"mesh {mesh}")
-    launches = {k.name: 0 for k in hf.KERNELS}
+    kernels = hf.KERNELS + convolve.KERNELS
+    launches = {k.name: 0 for k in kernels}
 
     def counted(name: str, fn):
-        hf.reset_launch_counts()
+        for k in kernels:
+            k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        got = {k.name: k.launches for k in hf.KERNELS if k.launches}
+        got = {k.name: k.launches for k in kernels if k.launches}
         for k, v in got.items():
             launches[k] += v
         log(f"phase 21 {name}: {time.perf_counter() - t0:.3f} s (first call, host clock); launches {got}")
@@ -2328,7 +2352,7 @@ def phase21_paths(parallel, hf, hs, models, stream, roof, dev, card, x3, h3, ref
         err = max_err(y, ref3)
         log(f"phase 21 config 3 {name}: max abs err vs float64 {err:.3e} (atol {atol})")
         require(err <= atol, f"phase 21 {name}: {err} > {atol}")
-    for k in (hf.K1, hf.K3, hf.K2):
+    for k in (hf.K1, hf.K3, hf.K2, convolve.PARTITIONED):
         require(got.get(k.name, 0) > 0, f"{k.name} was not launched on config 3's sharded path")
 
     # Config 4 at full width: both sharded forms against apply.
@@ -2344,7 +2368,7 @@ def phase21_paths(parallel, hf, hs, models, stream, roof, dev, card, x3, h3, ref
         + ", ".join(f"{k} {v:.3e}" for k, v in errs4.items()) + f" (atol {SHARDED_ATOL})")
     for key, v in errs4.items():
         require(v <= SHARDED_ATOL, f"phase 21 config 4 {key}: {v} > {SHARDED_ATOL}")
-    for k in (hf.K1, hf.K2):
+    for k in (hf.K1, hf.K2, convolve.PARTITIONED):
         require(got.get(k.name, 0) > 0, f"{k.name} was not launched on config 4's sharded paths")
 
     # Config 5: the sharded chain on the 2^24-sample capture.
@@ -2805,6 +2829,112 @@ def phase22(ct, hf, hs, hc, stream, models, dev, card, k1_device_ms: float, audi
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the offline FDL's kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (streams, blocks, slots, partitions, shared filter, what): the reverb's
+# FDL, config 3's at block 1024, one long stream the wrapper splits into
+# runs, and more partitions than a thread holds in registers (3 passes).
+FDL_SHAPES = (
+    (64, 118, 4096, 24, False, "the reverb (config 4)"),
+    (4, 1024, 1024, 4, True, "config 3 at block 1024"),
+    (1, 938, 1024, 24, False, "one stream in runs"),
+    (8, 118, 4096, 80, True, "80 partitions, shared"),
+)
+FDL_GAP = 1e-5  # max |kernel - plain| over the plain output's rms: float32 sums of up to 32 products in another order
+
+
+def fdl_gap(got, want) -> float:
+    """max |got - want| over rms(want), both planes."""
+    g, w = torch.stack([t.double() for t in got]), torch.stack([t.double() for t in want])
+    return float((g - w).abs().max() / w.pow(2).mean().sqrt())
+
+
+def fdl_bound(roof, streams: int, nb: int, m: int, partitions: int, shared: bool):
+    """The partitioned accumulate's bound: X and H read once, Y written
+    once (two float32 planes each); 8 operations a slot for each
+    block-partition product."""
+    planes = 2 * 4 * streams * nb * m
+    filt = 2 * 4 * (1 if shared else streams) * partitions * m
+    products = streams * sum(min(partitions, b + 1) for b in range(nb))
+    return roof.roofline(2 * planes + filt, 8 * products * m)
+
+
+def phase23(_cuda, convolve, roof, lib_path, dev, card) -> tuple[float, dict, object]:
+    """``convolve_accumulate_partitioned`` (one launch of
+    ``csrc/partitioned_accumulate.cu``) against its plain version on the
+    same card tensors at every shape of FDL_SHAPES, within FDL_GAP; a
+    zeroed output and a filter with its last partition dropped must fail
+    the check. Then (informational) ptxas's registers of each sub-ring
+    count and the device time at each shape against its bound. Returns
+    the worst max abs error, the times at the reverb's shape and their
+    bound."""
+    k = convolve.PARTITIONED
+    for line in _cuda.kernel_resources(lib_path, k.name):
+        log(f"phase 23 ptxas {k.name}: {line}")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261018)
+
+    def inputs(streams, nb, m, partitions, shared):
+        x = tuple(torch.randn(streams, nb, m, device=dev, generator=g) for _ in range(2))
+        h = tuple(torch.randn(1 if shared else streams, partitions, m, device=dev, generator=g) / partitions
+                  for _ in range(2))
+        return x, h
+
+    worst = 0.0
+    for i, (streams, nb, m, partitions, shared, what) in enumerate(FDL_SHAPES):
+        x, h = inputs(streams, nb, m, partitions, shared)
+        scale = 1.0 / (2 * m)
+        before = k.launches
+        got = convolve.convolve_accumulate_partitioned(x, h, scale)
+        torch.cuda.synchronize()
+        require(k.launches == before + 1, f"{k.name}: {k.launches - before} launches for one call")
+        want = convolve.convolve_accumulate_partitioned_plain(x, h, scale)
+        gap = fdl_gap(got, want)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        worst = max(worst, err)
+        groups, run = convolve.partitioned_geometry(streams, nb, m, partitions)
+        log(f"phase 23 {what} ({streams} x {nb} x {m}, P={partitions}, {'shared' if shared else 'per-stream'} "
+            f"filter; {groups} sub-rings, runs of {run} blocks): max |kernel - plain| {err:.3e}, "
+            f"{gap:.3e} of rms (limit {FDL_GAP})")
+        require(gap <= FDL_GAP, f"{k.name} at {what}: {gap:.3e} of rms > {FDL_GAP}")
+        if i == 0:
+            zeroed = fdl_gap(tuple(torch.zeros_like(t) for t in got), want)
+            dropped = tuple(t.clone() for t in h)
+            for t in dropped:
+                t[:, -1] = 0
+            short = fdl_gap(convolve.convolve_accumulate_partitioned(x, dropped, scale), want)
+            log(f"phase 23 planted faults: zeroed output {zeroed:.3e}, last partition dropped {short:.3e} of rms")
+            require(zeroed > FDL_GAP and short > FDL_GAP, "a planted fault passed the check")
+        del x, h, got, want
+
+    times = None
+    for i, (streams, nb, m, partitions, shared, what) in enumerate(FDL_SHAPES):
+        xs = [inputs(streams, nb, m, partitions, shared) for _ in range(2)]
+        h = xs[0][1]
+        args = [x for x, _ in xs]
+        scale = 1.0 / (2 * m)
+        bound = fdl_bound(roof, streams, nb, m, partitions, shared)
+
+        def kernel(xr, xi):
+            return convolve.convolve_accumulate_partitioned((xr, xi), h, scale)
+
+        def plain(xr, xi):
+            return convolve.convolve_accumulate_partitioned_plain((xr, xi), h, scale)
+
+        t = kernel_times(kernel, plain, args)
+        log(f"phase 23 {k.name} {what} ({streams} x {nb} x {m}, P={partitions}): kernel {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, bound {bound.ms:.4f} ms ({bound.bound_by}; "
+            f"{100 * bound.ms / t['device_ms']:.1f}% of it) [{card}]")
+        if i == 0:
+            times, reverb_bound = t, bound
+        del xs, h, args
+    torch.cuda.empty_cache()
+    log("phase 23 ok")
+    return worst, times, reverb_bound
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2812,7 +2942,7 @@ def main() -> int:
 
     import chowdsp_fft_tpu_torch as ct
     from chowdsp_fft_tpu_torch import models, stream
-    from chowdsp_fft_tpu_torch.ops import _cuda, autodiff, hopper_cfft, hopper_small, row_passes, tables
+    from chowdsp_fft_tpu_torch.ops import _cuda, autodiff, convolve, hopper_cfft, hopper_small, row_passes, tables
     from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
     from chowdsp_fft_tpu_torch.ops import hopper_fft as hf
     from chowdsp_fft_tpu_torch.utils import roofline as roof
@@ -2870,13 +3000,14 @@ def main() -> int:
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     h = torch.from_numpy(h64.astype(np.float32)).to(dev)
     hf.reset_launch_counts()
+    convolve.PARTITIONED.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     y_ols = stream.fir_filter_ols(x, h, block=8192)
     y_pfir = stream.partitioned_fir_apply(x, h, block=1024)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in hf.KERNELS}
+    launches = {k.name: k.launches for k in hf.KERNELS + convolve.KERNELS}
     log(f"phase 3 main path ran in {wall:.3f} s (first call, host clock); launches {launches}")
     ref = fft_convolve64(x64.astype(np.float32).astype(np.float64), h64.astype(np.float32).astype(np.float64))
     for name, y, atol in (("fir_filter_ols", y_ols, 5e-4), ("partitioned_fir_apply", y_pfir, 1e-3)):
@@ -2900,7 +3031,7 @@ def main() -> int:
     log("phase 3 ok")
 
     # -- phase 4 ------------------------------------------------------------
-    for k in (hf.K1, hf.K2, hf.K3):
+    for k in (hf.K1, hf.K2, hf.K3, convolve.PARTITIONED):
         require(launches[k.name] > 0, f"{k.name} was not launched on the main path")
     for n in (2048, 4096, 16384):
         require(ct.engine_for(n, "real") == "hopper", f"engine_for({n}) = {ct.engine_for(n, 'real')}")
@@ -2961,7 +3092,8 @@ def main() -> int:
     phase14(ct, hc, hf, stream, dev, audio, ir)
 
     # -- phases 16-18: config 4, the STFT, the pipelined kernels -------------
-    _, model_calls = phase16(models, hf, dev, audio, ir)
+    path4c, model_calls = phase16(models, hf, convolve, dev, audio, ir)
+    launches[convolve.PARTITIONED.name] += path4c[convolve.PARTITIONED.name]
     phase17(stream, hf, dev, audio)
     db_errs, db_launches = phase18(ct, hf, hopper_cfft, lib, dev, rng, model_calls)
     errs.update(db_errs)
@@ -2978,14 +3110,19 @@ def main() -> int:
     log(f"phase 20 ok in {time.perf_counter() - t0:.1f} s; backward launches {backward}")
 
     # -- phase 21: the parallel layer on a one-rank NCCL group -----------------
-    parallel_launches = phase21(hf, hopper_small, models, stream, roof, dev, card, x, h, ref, audio, ir, capture)
+    parallel_launches = phase21(hf, hopper_small, convolve, models, stream, roof, dev, card, x, h, ref, audio, ir,
+                                capture)
 
     # -- phase 22: the last modules (planner, plans, merge, adapters, profiling) --
     adapter_launches = phase22(ct, hf, hopper_small, hc, stream, models, dev, card, times[hf.K1.name]["device_ms"],
                                audio, ir)
 
+    # -- phase 23: the offline FDL's kernel ----------------------------------------
+    fdl_err, times[convolve.PARTITIONED.name], fdl_roof = phase23(_cuda, convolve, roof, lib_path, dev, card)
+    errs[convolve.PARTITIONED.name] = fdl_err
+
     # -- phase 10 -------------------------------------------------------------
-    for k in hf.KERNELS:
+    for k in hf.KERNELS + convolve.KERNELS:
         require(launches[k.name] > 0, f"{k.name} was not launched on its path")
     for n, kind in ((256, "complex"), (1024, "complex"), (4096, "complex"), (hf.MAX_CN, "complex"),
                     (8, "complex"), (480, "complex"), (256, "real"), (32, "real"), (16384, "complex"),
@@ -3024,6 +3161,7 @@ def main() -> int:
         hopper_cfft.K4_DB.name: roof.fft_roofline(n, rows, "complex"),
     }
     bounds.update({k.name: times[k.name]["bound"] for k in hc.KERNELS})
+    bounds[convolve.PARTITIONED.name] = fdl_roof
     direct = roof.direct_dft_roofline(*SMALL_TIMED, "complex")
     k5 = times[hopper_small.K5_COMPLEX.name]
     log(f"K5 complex at N={SMALL_TIMED[0]}, B={SMALL_TIMED[1]}: the direct DFT of the old design did "
@@ -3032,7 +3170,7 @@ def main() -> int:
         f"{bounds[hopper_small.K5_COMPLEX.name].ms:.4f} ms ({bounds[hopper_small.K5_COMPLEX.name].bound_by}) [{card}]")
 
     kernels = []
-    for k in hf.KERNELS:
+    for k in hf.KERNELS + convolve.KERNELS:
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name], "max_abs_err": errs[k.name],

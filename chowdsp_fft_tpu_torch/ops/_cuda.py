@@ -113,6 +113,10 @@ _SIGNATURES = {
     "k1db_rfft_packed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "k2db_irfft_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "k4db_cfft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
+    # The offline FDL (ops/convolve): x re/im, h re/im, y re/im, streams,
+    # blocks, slots, partitions, shared filter, sub-rings, run, scale,
+    # stream.
+    "partitioned_accumulate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 }
 
 

@@ -8,6 +8,7 @@ blocks, at the same grain.
 | :class:`IrfftPacked` | ``_pallas_irfft_packed`` :1293, ``_rdc_inv`` :3305 | K5, K2 or the composite inverse | the forward of the cotangent, weighted 2 |
 | :class:`ConvolveIrfftPacked` | ``_pallas_irfft_conv`` :2114 | K3 | the unfused composition's adjoint |
 | :class:`CfftPair` | ``_cfft_pair`` :2905 | K5, K4 or the composite (K6) | the opposite direction, same ``ordered`` |
+| :class:`PartitionedAccumulate` | none (XLA differentiates ``stream/ols.py``'s loop) | ``csrc/partitioned_accumulate.cu`` | the packed product's adjoint per partition, plain torch |
 
 No kernel is written for a backward pass: as in the JAX package, each
 backward runs the forward kernels of the opposite direction, and the glue
@@ -17,9 +18,11 @@ level 1 alone; here the whole real composite sits under
 :class:`RfftPacked` and :class:`IrfftPacked` (as under ``_rdc_fwd`` and
 ``_rdc_inv``), so K7a and K7b need no Function of their own.
 
-Every Function takes a ``plain`` flag: with it, forward and backward run
-the kernels' plain versions on any device, so the plain route and the
-kernels share one rule (a CPU tensor takes the plain versions anyway).
+Every Function of a ported kernel takes a ``plain`` flag: with it,
+forward and backward run the kernels' plain versions on any device, so
+the plain route and the kernels share one rule (a CPU tensor takes the
+plain versions anyway). :class:`PartitionedAccumulate` has no kernel in
+its backward, and its forward is the wrapper on every device.
 The engine entries (``hopper_fft.rfft_packed``, ``irfft_packed``,
 ``convolve_irfft_packed``, ``cfft``, ``cfft_planes``) route through these
 Functions only when grad mode is on and an input requires grad.
@@ -42,7 +45,7 @@ from torch.autograd.function import once_differentiable
 
 # hopper_fft imports this module for its entries; the cycle is between
 # modules only, and the dispatchers are looked up at call time.
-from . import hopper_composite, hopper_fft
+from . import convolve, hopper_composite, hopper_fft
 from ..plans import FFTPlan
 
 __all__ = [
@@ -53,6 +56,7 @@ __all__ = [
     "IrfftPacked",
     "ConvolveIrfftPacked",
     "CfftPair",
+    "PartitionedAccumulate",
 ]
 
 
@@ -193,3 +197,43 @@ class CfftPair(torch.autograd.Function):
         out = hopper_composite.cfft_rows(g, ctx.plan, not ctx.forward, ctx.ordered, ctx.plain)
         da, db = out if ctx.planes else (out, None)
         return da, db, None, None, None, None
+
+
+class PartitionedAccumulate(torch.autograd.Function):
+    """The offline FDL, ``convolve.convolve_accumulate_partitioned``:
+    X (..., nb, M) x2 and H (..., P, M) x2 -> ``Y[b] = scale * sum_p
+    X[b - p] (.) H[p]``. Backward, in plain torch with
+    :func:`packed_product_adjoint`: ``dX[j] = scale * sum_p adj(H[p]) (.)
+    G[j + p]`` and ``dH[p] = scale * sum_{b >= p} adj(X[b - p]) (.) G[b]``,
+    each summed over the dims it was broadcast along (a shared filter's
+    over the streams). Saves X and H. Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, xre, xim, hre, him, scale: float):
+        ctx.scale = scale
+        args = _detached(xre, xim, hre, him)
+        ctx.save_for_backward(*args)
+        return convolve.convolve_accumulate_partitioned(args[:2], args[2:], scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gre, gim):
+        xre, xim, hre, him = ctx.saved_tensors
+        need_x, need_h = any(ctx.needs_input_grad[:2]), any(ctx.needs_input_grad[2:4])
+        nb = gre.shape[-2]
+        dxre, dxim = torch.zeros_like(gre), torch.zeros_like(gim)
+        dhre = gre.new_zeros(*gre.shape[:-2], hre.shape[-2], gre.shape[-1])
+        dhim = torch.zeros_like(dhre)
+        for p in range(min(hre.shape[-2], nb)):
+            g = gre[..., p:, :], gim[..., p:, :]
+            if need_x:
+                dr, di = packed_product_adjoint(*g, hre[..., p, None, :], him[..., p, None, :], ctx.scale)
+                dxre[..., : nb - p, :] += dr
+                dxim[..., : nb - p, :] += di
+            if need_h:
+                dr, di = packed_product_adjoint(*g, xre[..., : nb - p, :], xim[..., : nb - p, :], ctx.scale)
+                dhre[..., p, :] = dr.sum(-2)
+                dhim[..., p, :] = di.sum(-2)
+        dx = (dxre.sum_to_size(xre.shape), dxim.sum_to_size(xim.shape)) if need_x else (None, None)
+        dh = (dhre.sum_to_size(hre.shape), dhim.sum_to_size(him.shape)) if need_h else (None, None)
+        return (*dx, *dh, None)

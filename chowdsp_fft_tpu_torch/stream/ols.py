@@ -4,7 +4,8 @@
 Blocks are framed with static shapes and transformed as one batch; the
 frequency-domain work uses the unordered packed transforms and the packed
 convolve, so no reorder pass is ever paid. The partitioned form keeps a
-frequency-domain delay line (FDL) and accumulates partitions with the
+frequency-domain delay line (FDL): offline, every partition is summed in
+one partitioned accumulate; streaming, partition by partition with the
 packed convolve-accumulate. Results land on the input's device.
 """
 
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import api
+from ..ops.autodiff import PartitionedAccumulate
 from ..utils.tracing import span, spanned
 
 __all__ = [
@@ -199,26 +201,16 @@ class PartitionedFIR:
     @spanned("stream.ols.apply_offline")
     def apply_offline(self, x: torch.Tensor) -> torch.Tensor:
         """Filter whole (..., T) streams: all block spectra from ONE batched
-        rfft, the FDL as a causal shift-and-accumulate along the block axis
-        (the same math as stepping :meth:`step` block by block)."""
+        rfft, the FDL as one causal accumulate of every partition along the
+        block axis (``ops.convolve.convolve_accumulate_partitioned``, a
+        kernel on the card; the same math as stepping :meth:`step` block by
+        block)."""
         x = self._on_device(x)
         t = x.shape[-1]
         nb = -(-t // self.block)
         frames = _frame_overlap(x, self.block, self.block)[..., :nb, :]
         xre, xim = api.rfft_packed_unordered(frames, plan=self.plan, engine=self.engine)
-        acc = None
-        for p in range(min(self.partitions, nb)):
-            # Partitions with no source block (IR longer than the signal)
-            # contribute nothing; p = 0 always runs since nb >= 1.
-            if p == 0:
-                xr_p, xi_p = xre, xim
-            else:
-                with span("stream.ols.fdl_shift"):
-                    xr_p = F.pad(xre[..., : nb - p, :], (0, 0, p, 0))
-                    xi_p = F.pad(xim[..., : nb - p, :], (0, 0, p, 0))
-            acc = api.convolve_accumulate_packed(
-                (xr_p, xi_p), self._filter(p, True), ab=acc, scaling=1.0 / self.n
-            )
+        acc = PartitionedAccumulate.apply(xre, xim, self.h_re, self.h_im, 1.0 / self.n)
         yfull = api.irfft_packed_unordered(acc[0], acc[1], plan=self.plan, engine=self.engine)
         with span("stream.ols.trim"):
             y = yfull[..., self.block :].reshape(*x.shape[:-1], nb * self.block)

@@ -25,13 +25,15 @@ __all__ = ["SPANS", "LAUNCH_SPAN", "span", "spanned"]
 # kernel's name.
 LAUNCH_SPAN = "ops._cuda.launch."
 
-# Every ``_cuda.Kernel``'s name, in ``ops.hopper_fft.KERNELS``' order.
+# Every ``_cuda.Kernel``'s name, in ``ops.hopper_fft.KERNELS``' order, then
+# ``ops.convolve.KERNELS``'.
 _KERNELS = (
     "rfft_packed_kernel", "irfft_packed_kernel", "convolve_irfft_packed_kernel", "cfft_kernel",
     "small_cfft_kernel", "small_rfft_kernel", "small_irfft_kernel",
     "composite_l1_kernel", "composite_l2_kernel", "composite_l2_rev_kernel", "composite_l1_rev_kernel",
     "rfft_cols_kernel", "irfft_cols_kernel",
     "rfft_packed_joint_db_kernel", "irfft_packed_db_kernel", "cfft_db_kernel",
+    "partitioned_accumulate_kernel",
 )
 
 SPANS = (
@@ -45,6 +47,7 @@ SPANS = (
     "stream.ols.fdl_shift",
     "stream.ols.trim",
     "ops.convolve.accumulate_packed",
+    "ops.convolve.accumulate_partitioned",
     "api.fft",
     "api.ifft",
     "api.fft_unordered",

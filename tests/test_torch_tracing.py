@@ -13,7 +13,7 @@ import torch
 
 import chowdsp_fft_tpu_torch as ct
 from chowdsp_fft_tpu_torch import api, models, stream
-from chowdsp_fft_tpu_torch.ops import hopper_fft
+from chowdsp_fft_tpu_torch.ops import convolve, hopper_fft
 from chowdsp_fft_tpu_torch.utils import profiling, tracing
 
 CHANNELS, BLOCK, TAPS, T = 2, 256, 1000, 4096
@@ -75,8 +75,8 @@ def test_the_offline_apply_nests_its_spans(case, tmp_path):
     assert _parent(spans, offline) == "models.convolver.apply" and _parent(spans, apply) is None
     inside = sorted(s["name"] for s in spans if _parent(spans, s) == "stream.ols.apply_offline")
     assert inside == sorted(["stream.ols.frame", "stream.ols.trim", "api.rfft_packed_unordered",
-                             "api.irfft_packed_unordered"]
-                            + ["stream.ols.fdl_shift"] * (P - 1) + ["ops.convolve.accumulate_packed"] * P)
+                             "api.irfft_packed_unordered", "ops.convolve.accumulate_partitioned"])
+    assert "stream.ols.fdl_shift" not in names
     # the direct call's own span, outside the apply
     assert [_parent(spans, s) for s in spans if s["name"] == "api.rfft_packed_unordered"] == \
         ["stream.ols.apply_offline", None]
@@ -129,8 +129,9 @@ def test_outputs_are_the_same_under_a_profiler(case, tmp_path):
 
 def test_every_kernel_has_its_launch_span():
     launch_spans = {s for s in tracing.SPANS if s.startswith(tracing.LAUNCH_SPAN)}
-    assert {k.span for k in hopper_fft.KERNELS} == launch_spans
-    assert all(k.span == tracing.LAUNCH_SPAN + k.name for k in hopper_fft.KERNELS)
+    kernels = hopper_fft.KERNELS + convolve.KERNELS
+    assert {k.span for k in kernels} == launch_spans
+    assert all(k.span == tracing.LAUNCH_SPAN + k.name for k in kernels)
     assert len(set(tracing.SPANS)) == len(tracing.SPANS)
     public = {n for n in api.__all__ if callable(getattr(api, n))}
     assert {s[len("api."):] for s in tracing.SPANS if s.startswith("api.")} <= public
