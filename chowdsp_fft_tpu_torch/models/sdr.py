@@ -25,6 +25,7 @@ from ..parallel.dist_fft import all_to_all
 from ..parallel.mesh import TIME_AXIS, DeviceMesh, axis_group, local_shard, require_mesh_device, sharded
 from ..parallel.sharded import halo_exchange_left
 from ..stream import Channelizer, design_lowpass, fm_demod, polyphase_decimate
+from ..utils.tracing import spanned
 
 __all__ = ["SDRChainConfig", "SDRChain"]
 
@@ -53,6 +54,7 @@ class SDRChain(nn.Module):
         self.register_buffer("audio_lp", design_lowpass(c.audio_taps, 1.0 / c.audio_decimation, device=device))
         self.channelizer = Channelizer(c.channels, c.channel_taps_per_branch, engine=c.engine, device=device)
 
+    @spanned("models.sdr.front_end")
     def front_end(self, iq: torch.Tensor) -> torch.Tensor:
         """Decimating anti-alias front end on the wideband stream; the I/Q
         planes go through one batched decimator call."""
@@ -60,6 +62,7 @@ class SDRChain(nn.Module):
         dec = polyphase_decimate(planes, self.front_lp, self.config.decimation)
         return torch.complex(dec[..., 0, :], dec[..., 1, :])
 
+    @spanned("models.sdr.back_end")
     def back_end(self, channels: torch.Tensor) -> torch.Tensor:
         """Per-channel FM demod + audio filtering. channels: (..., C, S)."""
         c = self.config
@@ -67,6 +70,7 @@ class SDRChain(nn.Module):
         # Decimating filter: computes only the kept output samples.
         return polyphase_decimate(audio, self.audio_lp, c.audio_decimation)
 
+    @spanned("models.sdr.forward")
     def forward(self, iq: torch.Tensor) -> torch.Tensor:
         """(..., T) complex IQ -> (..., C, T/(decim*C*audio_decim)) float32 audio."""
         return self.back_end(self.channelizer(self.front_end(iq)))
@@ -104,6 +108,7 @@ class SDRChain(nn.Module):
         c = self.config
         halo, dropped = self._shard_halo()
 
+        @spanned("models.sdr.sharded_step")
         def step(iq):
             group, d, _ = axis_group(mesh, axis)
             x = local_shard(iq, mesh, axis, -1)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import api
+from ..utils.tracing import span, spanned
 from .polyphase import design_lowpass, fp32_convolutions
 
 __all__ = ["Channelizer", "channelize"]
@@ -45,10 +46,16 @@ class Channelizer(nn.Module):
         self.taps_per_branch = taps_per_branch
         self.engine = engine
         proto = design_lowpass(channels * taps_per_branch, 1.0 / channels, device=device)
-        # Polyphase components: branch p gets proto[p::C], newest-first.
-        self.register_buffer("hpoly", torch.flip(proto.reshape(taps_per_branch, channels).T, (-1,)))
+        self.register_buffer("hpoly", self.polyphase(proto, channels))
         self.plan = api.cached_plan(channels, api.FFT_COMPLEX)
 
+    @staticmethod
+    def polyphase(proto: torch.Tensor, channels: int) -> torch.Tensor:
+        """(C * K,) prototype in natural order -> the (C, K) branch taps
+        that ``hpoly`` holds: branch p gets proto[p::C], newest-first."""
+        return torch.flip(proto.reshape(-1, channels).T, (-1,))
+
+    @spanned("stream.channelizer.forward")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(..., T) real or complex wideband -> (..., C, T//C) complex64
         channel streams (channel c centered at f = c/C of the input rate)."""
@@ -60,17 +67,20 @@ class Channelizer(nn.Module):
         # Branch p at step m sees x[m*C + (C-1-p) - k'*C]: the commutator
         # runs backwards through each block. (steps, C) frames, flipped,
         # then FIR along steps with the (C, K) polyphase taps.
-        branches = torch.flip(x.reshape(*batch_shape, steps, c), (-1,)).transpose(-1, -2)
-        parts = (branches.real, branches.imag) if x.is_complex() else (branches,)
-        xb = torch.stack([p.to(torch.float32) for p in parts]).reshape(-1, c, steps)
+        with span("stream.channelizer.commutate"):
+            branches = torch.flip(x.reshape(*batch_shape, steps, c), (-1,)).transpose(-1, -2)
+            parts = (branches.real, branches.imag) if x.is_complex() else (branches,)
+            xb = torch.stack([p.to(torch.float32) for p in parts]).reshape(-1, c, steps)
+            xb = F.pad(xb, (k - 1, 0))
         # hpoly is stored newest-first: conv1d computes a correlation, so
         # the effective branch filter is hpoly reversed, i.e. proto[j*C + p]
         # as the filter bank requires. (A second flip here would
         # delay-reverse every branch, a bug the JAX package once had.)
-        with fp32_convolutions():
-            filt = F.conv1d(F.pad(xb, (k - 1, 0)), self.hpoly[:, None, :], groups=c)
-        filt = filt.reshape(len(parts), *batch_shape, c, steps)
-        filt = torch.complex(filt[0], filt[1]) if x.is_complex() else filt[0].to(torch.complex64)
+        with span("stream.channelizer.branch_fir"):
+            with fp32_convolutions():
+                filt = F.conv1d(xb, self.hpoly[:, None, :], groups=c)
+            filt = filt.reshape(len(parts), *batch_shape, c, steps)
+            filt = torch.complex(filt[0], filt[1]) if x.is_complex() else filt[0].to(torch.complex64)
 
         # Inverse DFT across the branch axis for every step: batch = (..., steps).
         spec = api.ifft(filt.transpose(-1, -2), plan=self.plan, engine=self.engine)

@@ -7,9 +7,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import spanned
+
 __all__ = ["fm_demod", "am_demod", "dc_block"]
 
 
+@spanned("stream.demod.fm")
 def fm_demod(z: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
     """Quadrature FM discriminator over complex baseband (..., T):
     y[n] = gain * angle(z[n] * conj(z[n-1])) via atan2, y[0] = 0 (zero

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import spanned
 from .ols import _frame_overlap
 
 __all__ = ["polyphase_decimate", "polyphase_interpolate", "design_lowpass", "fp32_convolutions"]
@@ -68,6 +69,7 @@ def _conv_valid(x: torch.Tensor, h: torch.Tensor, stride: int) -> torch.Tensor:
     return out[:, 0, :]
 
 
+@spanned("stream.polyphase.decimate")
 def polyphase_decimate(x: torch.Tensor, h: torch.Tensor, factor: int, block: int = 4096) -> torch.Tensor:
     """Decimate (..., T) by ``factor`` after FIR anti-alias filtering.
 
@@ -103,6 +105,7 @@ def _interp_rows(xb: torch.Tensor, h: torch.Tensor, factor: int) -> torch.Tensor
     return out[:, 0, : length * factor]
 
 
+@spanned("stream.polyphase.interpolate")
 def polyphase_interpolate(x: torch.Tensor, h: torch.Tensor, factor: int, block: int = 4096) -> torch.Tensor:
     """Upsample (..., T) by ``factor`` (zero-stuff + FIR), with gain
     ``factor`` so passband amplitude is preserved.

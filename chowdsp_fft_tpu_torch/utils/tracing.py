@@ -39,6 +39,16 @@ _KERNELS = (
 SPANS = (
     "models.convolver.apply",
     "models.convolver.step",
+    "models.sdr.forward",
+    "models.sdr.front_end",
+    "models.sdr.back_end",
+    "models.sdr.sharded_step",
+    "stream.polyphase.decimate",
+    "stream.polyphase.interpolate",
+    "stream.channelizer.forward",
+    "stream.channelizer.commutate",
+    "stream.channelizer.branch_fir",
+    "stream.demod.fm",
     "stream.ols.apply_offline",
     "stream.ols.step",
     "stream.ols.step_k",

@@ -18,6 +18,7 @@ from chowdsp_fft_tpu_torch.utils import profiling, tracing
 
 CHANNELS, BLOCK, TAPS, T = 2, 256, 1000, 4096
 P = -(-TAPS // BLOCK)
+SDR_CHANNELS, SDR_T = 16, 16384  # the front end frames its input above 2 x 4096 samples
 
 
 @pytest.fixture(scope="module")
@@ -27,6 +28,23 @@ def case():
     x = torch.randn(CHANNELS, T, generator=gen)
     conv = models.MultichannelConvolver(ir, models.ConvolverConfig(channels=CHANNELS, block=BLOCK), device="cpu")
     return conv, x
+
+
+@pytest.fixture(scope="module")
+def sdr_case():
+    gen = torch.Generator().manual_seed(5)
+    iq = torch.complex(torch.randn(SDR_T, generator=gen), torch.randn(SDR_T, generator=gen))
+    return models.SDRChain(models.SDRChainConfig(channels=SDR_CHANNELS), device="cpu"), iq
+
+
+def _calls(model, case, sdr_case):
+    """The calls of each model's case: its entry, and a transform entry."""
+    if model == "sdr":
+        chain, iq = sdr_case
+        return (lambda: chain(iq), lambda: api.ifft(iq.reshape(-1, SDR_CHANNELS)))
+    conv, x = case
+    return (lambda: conv.apply(x), lambda: api.rfft_packed_unordered(x), lambda: ct.irfft_packed(*ct.rfft_packed(x)),
+            lambda: stream.fir_filter_ols(x, conv.fir.h_re[0, 0, :64]))
 
 
 def _spans(log_dir) -> list[dict]:
@@ -54,15 +72,19 @@ def _traced(tmp_path, fn):
     return out, _spans(log_dir)
 
 
-def test_no_span_fires_without_a_profiler(case, monkeypatch):
+@pytest.mark.parametrize("model", ["convolver", "sdr"])
+def test_no_span_fires_without_a_profiler(case, sdr_case, monkeypatch, model):
     def refuse(name):
         raise AssertionError(f"record_function({name!r}) entered with no profiler running")
 
     monkeypatch.setattr(tracing, "record_function", refuse)
-    conv, x = case
-    assert conv.apply(x).shape == (CHANNELS, T)
-    spec_re, _ = api.rfft_packed_unordered(x)
-    assert spec_re.shape == (CHANNELS, T // 2)
+    out = [fn() for fn in _calls(model, case, sdr_case)]
+    if model == "sdr":
+        assert out[0].shape == (SDR_CHANNELS, SDR_T // (2 * SDR_CHANNELS * 4))
+    else:
+        assert out[0].shape == (CHANNELS, T)
+        spec_re, _ = out[1]
+        assert spec_re.shape == (CHANNELS, T // 2)
 
 
 def test_the_offline_apply_nests_its_spans(case, tmp_path):
@@ -116,15 +138,63 @@ def test_fir_filter_ols_writes_its_spans(tmp_path):
                              "api.convolve_irfft_packed", "stream.ols.trim"])
 
 
-def test_outputs_are_the_same_under_a_profiler(case, tmp_path):
-    conv, x = case
-    calls = (lambda: conv.apply(x), lambda: api.rfft_packed_unordered(x), lambda: ct.irfft_packed(*ct.rfft_packed(x)),
-             lambda: stream.fir_filter_ols(x, conv.fir.h_re[0, 0, :64]))
+@pytest.mark.parametrize("model", ["convolver", "sdr"])
+def test_outputs_are_the_same_under_a_profiler(case, sdr_case, tmp_path, model):
+    calls = _calls(model, case, sdr_case)
     plain = [fn() for fn in calls]
     profiled, _ = _traced(tmp_path, lambda: [fn() for fn in calls])
     for a, b in zip(plain, profiled):
         for ta, tb in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(ta, tb)
+
+
+# The spans each SDR span metric reads (portbench/metrics/): every op a
+# chain call launches lies innermost in one of them.
+SDR_METRIC_SPANS = {
+    "sdr_fir_device_ms": {"stream.polyphase.decimate", "stream.channelizer.branch_fir"},
+    "sdr_layout_device_ms": {"stream.ols.frame", "stream.channelizer.commutate", "stream.channelizer.forward",
+                             "models.sdr.front_end", "models.sdr.back_end", "models.sdr.forward"},
+    "channel_fft_device_ms": {"api.ifft", "ops._cuda.launch.small_cfft_kernel"},
+    "demod_device_ms": {"stream.demod.fm"},
+}
+
+
+def test_the_sdr_chain_nests_its_spans(sdr_case, tmp_path):
+    """Each stage's span inside its parent's, as the chain calls them, and
+    every op of the call innermost in a span that one of the four span
+    metrics reads, each span in one metric alone."""
+    from portbench.metrics import channel_fft_device_ms, demod_device_ms, sdr_fir_device_ms, sdr_layout_device_ms
+
+    readers = {"sdr_fir_device_ms": sdr_fir_device_ms, "sdr_layout_device_ms": sdr_layout_device_ms,
+               "channel_fft_device_ms": channel_fft_device_ms, "demod_device_ms": demod_device_ms}
+    assert {name: set(m.SPANS) for name, m in readers.items()} == SDR_METRIC_SPANS
+    chain, iq = sdr_case
+    with profiling.trace(tmp_path / "tr") as log_dir:
+        chain(iq)
+    [path] = list(pathlib.Path(log_dir).glob("trace_*.json"))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"), key=lambda e: (e["ts"], -e["dur"]))
+    assert {s["name"] for s in spans} <= set(tracing.SPANS)
+    parents = sorted((s["name"], _parent(spans, s)) for s in spans if s["name"] != "utils.tracing.import")
+    assert parents == sorted([
+        ("models.sdr.forward", None),
+        ("models.sdr.front_end", "models.sdr.forward"),
+        ("stream.polyphase.decimate", "models.sdr.front_end"),
+        ("stream.ols.frame", "stream.polyphase.decimate"),
+        ("stream.channelizer.forward", "models.sdr.forward"),
+        ("stream.channelizer.commutate", "stream.channelizer.forward"),
+        ("stream.channelizer.branch_fir", "stream.channelizer.forward"),
+        ("api.ifft", "stream.channelizer.forward"),
+        ("models.sdr.back_end", "models.sdr.forward"),
+        ("stream.demod.fm", "models.sdr.back_end"),
+        ("stream.polyphase.decimate", "models.sdr.back_end"),
+    ])
+    read = set().union(*SDR_METRIC_SPANS.values())
+    assert sum(len(v) for v in SDR_METRIC_SPANS.values()) == len(read)
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    assert ops
+    for op in ops:
+        assert _parent(spans, op) in read, op["name"]
 
 
 def test_every_kernel_has_its_launch_span():
@@ -135,6 +205,35 @@ def test_every_kernel_has_its_launch_span():
     assert len(set(tracing.SPANS)) == len(tracing.SPANS)
     public = {n for n in api.__all__ if callable(getattr(api, n))}
     assert {s[len("api."):] for s in tracing.SPANS if s.startswith("api.")} <= public
+
+
+@pytest.mark.cuda
+def test_sdr_device_ops_have_their_spans(tmp_path):
+    """On the card: every device op of a chain call at config 5's widths
+    (C = 256) is launched, by ``correlation``, innermost in a span that
+    one of the four SDR span metrics reads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    chain = models.SDRChain(models.SDRChainConfig(), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    iq = torch.complex(torch.randn(1 << 20, generator=gen, device="cuda"),
+                       torch.randn(1 << 20, generator=gen, device="cuda"))
+    chain(iq)  # build and warm
+    torch.cuda.synchronize()
+    with profiling.trace(tmp_path / "tr"):
+        chain(iq)
+    [path] = list((tmp_path / "tr").glob("trace_*.json"))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"), key=lambda e: (e["ts"], -e["dur"]))
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert any("small_cfft_kernel" in _idents(e["name"]) for e in device)
+    read = set().union(*SDR_METRIC_SPANS.values())
+    for op in device:
+        call = runtime[op["args"]["correlation"]]
+        same_thread = [s for s in spans if s.get("tid") == call.get("tid")]
+        assert _parent(same_thread, call) in read, op["name"]
 
 
 @pytest.mark.cuda
