@@ -45,15 +45,16 @@ Phases, each of which asserts:
    channels) on one 2^24-sample capture of FM carriers plus noise,
    against float64 definitions (scipy ``upfirdn`` decimators, the
    channelizer's mixer definition): channelizer output, the occupied
-   channels' audio, each carrier's power in its channel; K5 carried it;
+   channels' audio, each carrier's power in its channel; K5 and two
+   launches of the polyphase decimator carried it;
 8. a K4 path: ``stream.channelize`` with C = 1024 on the same capture,
    against the mixer definition and against the same channelizer on K4's
    plain version (every bin, 2e-7*C of the peak); K4 carried it;
 9. a K5-real path: ``PartitionedFIR(h, block=128)`` on config 3's streams
    (N = 256), ``step_k`` against ``partitioned_fir_apply`` and float64;
    both real K5 bodies carried it;
-10. coverage: every kernel record (``hopper_fft.KERNELS`` and
-    ``convolve.KERNELS``) launched on its path, ``engine_for`` at the
+10. coverage: every kernel record (``hopper_fft.KERNELS``,
+    ``convolve.KERNELS`` and ``polyphase.KERNELS``) launched on its path, ``engine_for`` at the
     complex, small and composite sizes;
 11. timing (informational): K4 at N=4096, B=1024 against ``torch.fft.fft``,
     K5 at N=256, B=32768 against ``torch.fft.ifft`` / ``rfft`` / ``irfft``
@@ -194,16 +195,31 @@ Phases, each of which asserts:
     ptxas's registers of each sub-ring count, and at each shape the
     kernel's time beside its plain version's and its bound (X and H read
     once, Y written once).
+24. the polyphase decimator (``ops/polyphase.decimate_kernel``,
+    ``csrc/polyphase.cu``) against its plain version (framed cuDNN
+    convolutions) on the same card tensors, max abs error within 1e-5 of
+    the plain output's rms: at config 5's front end (2 x 2^24, f = 2, 64
+    taps) on I and Q planes and on the interleaved capture (a sample
+    stride of 2), its audio filter (256 x 32768, f = 4, 64 taps) on
+    contiguous rows and channel-fastest (a sample stride of 256), odd
+    rows that start off 16-byte boundaries and the domain's corner (f =
+    16, 1024 taps); the library's limits against Python's; one launch a
+    call; a zeroed output and a filter without its last tap must fail.
+    Then (informational) ptxas's registers, and at the chain's shapes the
+    kernel's time beside its plain version's, cuDNN's strided ``conv1d``
+    on the unframed rows (the yardstick, ``library_ms``) and its bound (x
+    read once, y written once), with the gap to the bound.
 
-Every kernel time is taken twice (phases 5, 11, 15, 19, 23): ``ms``, CUDA
+Every kernel time is taken twice (phases 5, 11, 15, 19, 23, 24): ``ms``, CUDA
 events around 20 calls from Python (host-inclusive: the wrapper, ctypes
 and the launch), and ``device_ms``, the same 20 calls captured in one CUDA
 graph and replayed (``graph_time_ms``: no host in the loop); the matching
 ``torch.fft`` call likewise (``library_ms``, ``library_device_ms``).
 
-Phases run in the order 1-9, 12-14, 16-18, 20, 21, 22, 23, 10, 11, 15, 19.
-The line before the last is the kernel report as JSON, one entry for each
-record of ``hopper_fft.KERNELS`` and ``convolve.KERNELS`` (with each kernel's
+Phases run in the order 1-9, 12-14, 16-18, 20, 21, 22, 23, 24, 10, 11, 15,
+19. The line before the last is the kernel report as JSON, one entry for
+each record of ``hopper_fft.KERNELS``, ``convolve.KERNELS`` and
+``polyphase.KERNELS`` (with each kernel's
 launches in phase 20's backward passes, ``backward_launches``, on phase
 21's parallel paths, ``parallel_launches``, and on phase 22's paths,
 ``adapter_launches``); the last line is ``{"ok": true,
@@ -777,18 +793,22 @@ def check_channels(name: str, got: torch.Tensor, z64: np.ndarray, proto64: np.nd
 
 def phase7(hf, models, stream, dev, capture: np.ndarray) -> dict[str, int]:
     from scipy.signal import upfirdn
+    from chowdsp_fft_tpu_torch.ops import polyphase
 
     cfg = models.SDRChainConfig()
     require(cfg.channels == 256, "config 5 is the 256-channel chain")
     chain = models.SDRChain(cfg, device=dev)
     iq = torch.from_numpy(capture).to(dev)
     hf.reset_launch_counts()
+    polyphase.DECIMATE.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     audio = chain(iq)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in hf.KERNELS}
+    launches = {k.name: k.launches for k in hf.KERNELS + polyphase.KERNELS}
+    require(launches[polyphase.DECIMATE.name] == 2, f"config 5 launched the decimator "
+            f"{launches[polyphase.DECIMATE.name]} times, not once for each of its two decimators")
     steps = CONFIG5_SAMPLES // (cfg.decimation * cfg.channels)
     want_shape = (cfg.channels, steps // cfg.audio_decimation)
     log(f"phase 7 config 5 (SDRChain, C=256, 2^24 samples) ran in {wall:.3f} s (first call, host clock); "
@@ -2324,10 +2344,12 @@ def phase21(hf, hs, convolve, models, stream, roof, dev, card, x3, h3, ref3: np.
 
 def phase21_paths(parallel, hf, hs, convolve, models, stream, roof, dev, card, x3, h3, ref3, audio, ir,
                   capture) -> dict[str, int]:
+    from chowdsp_fft_tpu_torch.ops import polyphase
+
     mesh = parallel.dsp_mesh(1)
     cmesh = parallel.dsp_mesh(1, axis=parallel.CHANNEL_AXIS)
     require(mesh.device_type == "cuda" and mesh.size() == 1, f"mesh {mesh}")
-    kernels = hf.KERNELS + convolve.KERNELS
+    kernels = hf.KERNELS + convolve.KERNELS + polyphase.KERNELS
     launches = {k.name: 0 for k in kernels}
 
     def counted(name: str, fn):
@@ -2935,6 +2957,120 @@ def phase23(_cuda, convolve, roof, lib_path, dev, card) -> tuple[float, dict, ob
     return worst, times, reverb_bound
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the polyphase decimator against its plain version
+# ---------------------------------------------------------------------------
+
+# (rows, T, factor, taps, layout, what): config 5's two decimators on
+# contiguous rows and as the chain lays them out (the front end's I/Q
+# interleaved in the capture, the audio filter's input channel-fastest),
+# odd rows that start off 16-byte boundaries, and the domain's corner.
+DECIM_SHAPES = (
+    (2, 1 << 24, 2, 64, "rows", "config 5's front end, I and Q planes"),
+    (2, 1 << 24, 2, 64, "interleaved", "config 5's front end, the interleaved capture"),
+    (256, 32768, 4, 64, "rows", "config 5's audio filter, contiguous rows"),
+    (256, 32768, 4, 64, "channels", "config 5's audio filter, channel-fastest"),
+    (3, 100003, 3, 21, "offset", "odd rows off 16-byte boundaries"),
+    (2, 50000, 16, 1024, "rows", "the domain's corner"),
+)
+DECIM_GAP = 1e-5  # max |kernel - plain| over the plain output's rms: float32 sums of the same taps in another order
+
+
+def decim_rows(rows: int, t: int, layout: str, dev, g) -> torch.Tensor:
+    """(rows, T) float32 rows laid out as ``layout`` says: contiguous, one
+    float past a 16-byte boundary (with an odd T each row starts
+    elsewhere), the two planes of an interleaved complex64 capture, or
+    channel-fastest (a (T, rows) tensor, transposed)."""
+    if layout == "rows":
+        return torch.randn(rows, t, device=dev, generator=g)
+    if layout == "offset":
+        return torch.randn(rows * t + 1, device=dev, generator=g)[1:].view(rows, t)
+    if layout == "interleaved":
+        return torch.view_as_real(torch.randn(t, dtype=torch.complex64, device=dev, generator=g)).T
+    return torch.randn(t, rows, device=dev, generator=g).T
+
+
+def decim_bound(roof, rows: int, t: int, factor: int, taps: int):
+    """The decimator's bound: x and the taps read once, y written once;
+    one FMA (2 operations) a tap for each kept output."""
+    m = t // factor
+    return roof.roofline(4 * (rows * t + rows * m + taps), 2 * rows * m * taps)
+
+
+def phase24(_cuda, polyphase, roof, lib, lib_path, dev, card) -> tuple[float, dict, object]:
+    """``polyphase.decimate_kernel`` (one launch of ``csrc/polyphase.cu``)
+    against ``decimate_plain`` on the same card tensors at every shape
+    and layout of DECIM_SHAPES, within DECIM_GAP; a zeroed output and a
+    filter without its last tap must fail the check. Then
+    (informational) ptxas's registers and, at the chain's shapes, the
+    kernel's time beside its plain version's, cuDNN's ``conv1d`` on the
+    unframed rows and the bound. Returns the worst max abs error, the
+    times at the front end's shape as the chain reads it and their
+    bound."""
+    import torch.nn.functional as F
+
+    k = polyphase.DECIMATE
+    limits = (lib.hopper_decimate_max_taps(), lib.hopper_decimate_max_factor())
+    require(limits == (_cuda.MAX_DECIM_TAPS, _cuda.MAX_DECIM_FACTOR),
+            f"decimator limits {limits} differ from Python's")
+    for line in _cuda.kernel_resources(lib_path, k.name):
+        log(f"phase 24 ptxas {k.name}: {line}")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261019)
+
+    def taps_of(n):
+        return torch.randn(n, device=dev, generator=g) / n**0.5
+
+    worst = 0.0
+    for i, (rows, t, factor, taps, layout, what) in enumerate(DECIM_SHAPES):
+        x, h = decim_rows(rows, t, layout, dev, g), taps_of(taps)
+        before = k.launches
+        got = polyphase.decimate_kernel(x, h, factor)
+        torch.cuda.synchronize()
+        require(k.launches == before + 1, f"{k.name}: {k.launches - before} launches for one call")
+        want = polyphase.decimate_plain(x, h, factor)
+        gap = fdl_gap((got,), (want,))
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        threads, rb, q, smem = polyphase.decimate_geometry(factor, taps, x.stride(-1) == 1, rows)
+        log(f"phase 24 {what} ({rows} x {t}, strides {tuple(x.stride())}, f={factor}, {taps} taps; {threads} "
+            f"threads, {rb} rows a block, {q} taps a phase, {smem} B): max |kernel - plain| {err:.3e}, {gap:.3e} "
+            f"of rms (limit {DECIM_GAP})")
+        require(gap <= DECIM_GAP, f"{k.name} at {what}: {gap:.3e} of rms > {DECIM_GAP}")
+        if i == 0:
+            zeroed = fdl_gap((torch.zeros_like(got),), (want,))
+            short = h.clone()
+            short[-1] = 0
+            dropped = fdl_gap((polyphase.decimate_kernel(x, short, factor),), (want,))
+            log(f"phase 24 planted faults: zeroed output {zeroed:.3e}, last tap dropped {dropped:.3e} of rms")
+            require(zeroed > DECIM_GAP and dropped > DECIM_GAP, "a planted fault passed the check")
+        del x, h, got, want
+
+    times = front_bound = None
+    for rows, t, factor, taps, layout, what in DECIM_SHAPES[:4]:
+        args = [(decim_rows(rows, t, layout, dev, g),) for _ in range(2)]
+        h = taps_of(taps)
+        flipped = torch.flip(h, (-1,))[None, None, :]
+        bound = decim_bound(roof, rows, t, factor, taps)
+
+        def cudnn(x):
+            with polyphase.fp32_convolutions():
+                return F.conv1d(F.pad(x, (taps - 1, 0))[:, None, :], flipped, stride=factor)[:, 0, : t // factor]
+
+        tm = kernel_times(lambda x: polyphase.decimate_kernel(x, h, factor),
+                          lambda x: polyphase.decimate_plain(x, h, factor), args, cudnn)
+        log(f"phase 24 {k.name} {what} ({rows} x {t}, f={factor}, {taps} taps): kernel {tm['ms']:.4f} ms (device "
+            f"{tm['device_ms']:.4f} ms), plain {tm['plain_ms']:.4f} ms, library (cuDNN conv1d, unframed) "
+            f"{tm['library_ms']:.4f} ms (device {tm['library_device_ms']:.4f} ms), bound {bound.ms:.4f} ms "
+            f"({bound.bound_by}; {100 * bound.ms / tm['device_ms']:.1f}% of it, a gap of "
+            f"{tm['device_ms'] / bound.ms:.2f}x) [{card}]")
+        if layout == "interleaved":
+            times, front_bound = tm, bound
+        del args, h
+    torch.cuda.empty_cache()
+    log("phase 24 ok")
+    return worst, times, front_bound
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2942,7 +3078,8 @@ def main() -> int:
 
     import chowdsp_fft_tpu_torch as ct
     from chowdsp_fft_tpu_torch import models, stream
-    from chowdsp_fft_tpu_torch.ops import _cuda, autodiff, convolve, hopper_cfft, hopper_small, row_passes, tables
+    from chowdsp_fft_tpu_torch.ops import _cuda, autodiff, convolve, hopper_cfft, hopper_small, polyphase, row_passes
+    from chowdsp_fft_tpu_torch.ops import tables
     from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
     from chowdsp_fft_tpu_torch.ops import hopper_fft as hf
     from chowdsp_fft_tpu_torch.utils import roofline as roof
@@ -3076,7 +3213,7 @@ def main() -> int:
     # -- phases 7-9: the paths, each read just after it runs -------------------
     capture = make_capture(rng)
     path5 = phase7(hf, models, stream, dev, capture)
-    launches.update({k: v for k, v in path5.items() if k == hopper_small.K5_COMPLEX.name})
+    launches.update({k: v for k, v in path5.items() if k in (hopper_small.K5_COMPLEX.name, polyphase.DECIMATE.name)})
     path4 = phase8(hf, stream, dev, capture)
     launches[hopper_cfft.K4.name] = path4[hopper_cfft.K4.name]
     path_r = phase9(hf, stream, dev, x, h, ref)
@@ -3121,8 +3258,12 @@ def main() -> int:
     fdl_err, times[convolve.PARTITIONED.name], fdl_roof = phase23(_cuda, convolve, roof, lib_path, dev, card)
     errs[convolve.PARTITIONED.name] = fdl_err
 
+    # -- phase 24: the polyphase decimator -------------------------------------
+    errs[polyphase.DECIMATE.name], times[polyphase.DECIMATE.name], decim_roof = phase24(
+        _cuda, polyphase, roof, lib, lib_path, dev, card)
+
     # -- phase 10 -------------------------------------------------------------
-    for k in hf.KERNELS + convolve.KERNELS:
+    for k in hf.KERNELS + convolve.KERNELS + polyphase.KERNELS:
         require(launches[k.name] > 0, f"{k.name} was not launched on its path")
     for n, kind in ((256, "complex"), (1024, "complex"), (4096, "complex"), (hf.MAX_CN, "complex"),
                     (8, "complex"), (480, "complex"), (256, "real"), (32, "real"), (16384, "complex"),
@@ -3162,6 +3303,7 @@ def main() -> int:
     }
     bounds.update({k.name: times[k.name]["bound"] for k in hc.KERNELS})
     bounds[convolve.PARTITIONED.name] = fdl_roof
+    bounds[polyphase.DECIMATE.name] = decim_roof
     direct = roof.direct_dft_roofline(*SMALL_TIMED, "complex")
     k5 = times[hopper_small.K5_COMPLEX.name]
     log(f"K5 complex at N={SMALL_TIMED[0]}, B={SMALL_TIMED[1]}: the direct DFT of the old design did "
@@ -3170,7 +3312,7 @@ def main() -> int:
         f"{bounds[hopper_small.K5_COMPLEX.name].ms:.4f} ms ({bounds[hopper_small.K5_COMPLEX.name].bound_by}) [{card}]")
 
     kernels = []
-    for k in hf.KERNELS + convolve.KERNELS:
+    for k in hf.KERNELS + convolve.KERNELS + polyphase.KERNELS:
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name], "max_abs_err": errs[k.name],

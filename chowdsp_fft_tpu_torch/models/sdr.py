@@ -2,7 +2,8 @@
 ``chowdsp_fft_tpu/models/sdr.py``; BASELINE config 5):
 
     IQ stream (..., T) complex64
-      -> polyphase decimation (float32 convolutions)
+      -> polyphase decimation (one CUDA kernel on the card; strided float32
+         convolutions elsewhere)
       -> polyphase FFT channelizer (complex FFT: K5 at C <= 256, K4 above)
       -> per-channel FM discriminator
       -> audio low-pass + decimate per channel
@@ -57,8 +58,9 @@ class SDRChain(nn.Module):
     @spanned("models.sdr.front_end")
     def front_end(self, iq: torch.Tensor) -> torch.Tensor:
         """Decimating anti-alias front end on the wideband stream; the I/Q
-        planes go through one batched decimator call."""
-        planes = torch.stack([iq.real, iq.imag], dim=-2)
+        planes go through one batched decimator call, read where they lie
+        in the interleaved capture (a (..., 2, T) view)."""
+        planes = torch.view_as_real(iq.resolve_conj()).movedim(-1, -2)
         dec = polyphase_decimate(planes, self.front_lp, self.config.decimation)
         return torch.complex(dec[..., 0, :], dec[..., 1, :])
 

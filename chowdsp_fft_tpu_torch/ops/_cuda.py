@@ -42,6 +42,11 @@ MAX_SMALL_N = 511
 # of 4 or 2 columns. Every composite split up to 2^20 has a balanced pair
 # within it (the largest needed factor is 1080).
 MAX_COL = 2048
+# Longest filter and largest factor of the polyphase decimator
+# (csrc/polyphase.cu): its staged span and reversed taps stay within 48 KB
+# of shared memory at every factor up to the largest.
+MAX_DECIM_TAPS = 1024
+MAX_DECIM_FACTOR = 16
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "hopper"
@@ -49,7 +54,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     f"-DCHOWDSP_MAX_N={MAX_N}", f"-DCHOWDSP_MAX_CN={MAX_CN}", f"-DCHOWDSP_MAX_SMALL_N={MAX_SMALL_N}",
-    f"-DCHOWDSP_MAX_COL={MAX_COL}",
+    f"-DCHOWDSP_MAX_COL={MAX_COL}", f"-DCHOWDSP_MAX_DECIM_TAPS={MAX_DECIM_TAPS}",
+    f"-DCHOWDSP_MAX_DECIM_FACTOR={MAX_DECIM_FACTOR}",
 )
 
 _P = ctypes.c_void_p
@@ -117,6 +123,11 @@ _SIGNATURES = {
     # blocks, slots, partitions, shared filter, sub-rings, run, scale,
     # stream.
     "partitioned_accumulate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # The polyphase decimator (ops/polyphase): x, h, y, rows, T, row and
+    # sample strides, factor, taps, threads, rows a block, stream.
+    "hopper_decimate_max_taps": [],
+    "hopper_decimate_max_factor": [],
+    "polyphase_decimate": [_P, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _I, _P],
 }
 
 
@@ -240,9 +251,10 @@ class Kernel:
 
 
 def check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device,
-          dtype: torch.dtype = torch.float32, align: int = 8):
+          dtype: torch.dtype = torch.float32, align: int = 8, contiguous: bool = True):
     """Refuse what a kernel does not take: another dtype, device or shape,
-    a non-contiguous tensor or one not ``align``-byte aligned (16 for the
+    a non-contiguous tensor (unless the kernel takes strides:
+    ``contiguous=False``) or one not ``align``-byte aligned (16 for the
     pipelined kernels' 16-byte copies), a lazy conjugate or negative view
     (its memory holds the unconjugated values), or one that requires
     grad (the engine entries differentiate, ``ops/autodiff.py``)."""
@@ -252,7 +264,7 @@ def check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.devi
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: expected {align}-byte aligned data")

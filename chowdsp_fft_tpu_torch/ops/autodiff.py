@@ -9,6 +9,7 @@ blocks, at the same grain.
 | :class:`ConvolveIrfftPacked` | ``_pallas_irfft_conv`` :2114 | K3 | the unfused composition's adjoint |
 | :class:`CfftPair` | ``_cfft_pair`` :2905 | K5, K4 or the composite (K6) | the opposite direction, same ``ordered`` |
 | :class:`PartitionedAccumulate` | none (XLA differentiates ``stream/ols.py``'s loop) | ``csrc/partitioned_accumulate.cu`` | the packed product's adjoint per partition, plain torch |
+| :class:`PolyphaseDecimate` | none (XLA differentiates ``lax.conv_general_dilated``) | ``csrc/polyphase.cu`` | a strided transposed correlation with h, plain torch |
 
 No kernel is written for a backward pass: as in the JAX package, each
 backward runs the forward kernels of the opposite direction, and the glue
@@ -21,8 +22,9 @@ level 1 alone; here the whole real composite sits under
 Every Function of a ported kernel takes a ``plain`` flag: with it,
 forward and backward run the kernels' plain versions on any device, so
 the plain route and the kernels share one rule (a CPU tensor takes the
-plain versions anyway). :class:`PartitionedAccumulate` has no kernel in
-its backward, and its forward is the wrapper on every device.
+plain versions anyway). :class:`PartitionedAccumulate` and
+:class:`PolyphaseDecimate` have no kernel in their backward, and their
+forward is the wrapper on every device.
 The engine entries (``hopper_fft.rfft_packed``, ``irfft_packed``,
 ``convolve_irfft_packed``, ``cfft``, ``cfft_planes``) route through these
 Functions only when grad mode is on and an input requires grad.
@@ -41,11 +43,12 @@ real loss with respect to a complex input returns its conjugate. On
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 # hopper_fft imports this module for its entries; the cycle is between
 # modules only, and the dispatchers are looked up at call time.
-from . import convolve, hopper_composite, hopper_fft
+from . import convolve, hopper_composite, hopper_fft, polyphase
 from ..plans import FFTPlan
 
 __all__ = [
@@ -57,6 +60,7 @@ __all__ = [
     "ConvolveIrfftPacked",
     "CfftPair",
     "PartitionedAccumulate",
+    "PolyphaseDecimate",
 ]
 
 
@@ -237,3 +241,38 @@ class PartitionedAccumulate(torch.autograd.Function):
         dx = (dxre.sum_to_size(xre.shape), dxim.sum_to_size(xim.shape)) if need_x else (None, None)
         dh = (dhre.sum_to_size(hre.shape), dhim.sum_to_size(him.shape)) if need_h else (None, None)
         return (*dx, *dh, None)
+
+
+class PolyphaseDecimate(torch.autograd.Function):
+    """The decimator, ``polyphase.decimate``: x (B, T) and h (taps,) ->
+    ``y[b, m] = sum_k h[k] x[b, m f - k]`` (zero state, m < T // f).
+    Backward, in plain torch: ``dx[b, n] = sum_m g[b, m] h[m f - n]``, a
+    strided transposed correlation with h truncated to T, and ``dh[k] =
+    sum_{b, m} g[b, m] x[b, m f - k]``, one strided product a tap. Saves x
+    and h. Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, h, factor: int):
+        ctx.factor = factor
+        x, h = _detached(x, h)
+        ctx.save_for_backward(x, h)
+        return polyphase.decimate(x, h, factor)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, h = ctx.saved_tensors
+        f, taps, (rows, t), m = ctx.factor, h.shape[-1], x.shape, g.shape[-1]
+        dx = dh = None
+        if ctx.needs_input_grad[0]:
+            dx = x.new_zeros(rows, t)
+            if m:
+                with polyphase.fp32_convolutions():
+                    # full[:, j] = sum_m g[:, m] h[m f + taps-1 - j], so dx[:, n] = full[:, n + taps-1]
+                    full = F.conv_transpose1d(g[:, None, :], h.flip(-1)[None, None, :], stride=f)[:, 0]
+                full = full[:, taps - 1 : taps - 1 + t]
+                dx[:, : full.shape[-1]] = full
+        if ctx.needs_input_grad[1]:
+            xp = F.pad(x, (taps - 1, 0))  # xp[:, n + taps-1] = x[:, n], zeros before
+            dh = torch.stack([(g * xp[:, taps - 1 - k :: f][:, :m]).sum() for k in range(taps)])
+        return dx, dh, None

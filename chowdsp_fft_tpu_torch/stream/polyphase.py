@@ -1,41 +1,31 @@
 """Polyphase FIR decimation / interpolation (PyTorch counterpart of
 ``chowdsp_fft_tpu/stream/polyphase.py``).
 
-Part of the SDR receiver chain (BASELINE config 5). The convolutions are
-``torch.nn.functional.conv1d`` / ``conv_transpose1d`` (the JAX package
-leaves them to ``lax.conv_general_dilated``, outside any Pallas kernel).
-On a CUDA tensor they run through cuDNN, which takes float32 convolutions
-through TF32 by default (~1e-3 relative error, the analog of the TPU's
-bf16 default the JAX package overrides with ``Precision.HIGHEST``); every
-convolution here runs under :func:`fp32_convolutions`, which turns TF32
-off for its own duration only.
+Part of the SDR receiver chain (BASELINE config 5). Decimation on a CUDA
+tensor is one hand-written kernel (``ops/polyphase.py``,
+``csrc/polyphase.cu``) that reads the stream where it lies; on the CPU
+it is the plain version, a strided ``torch.nn.functional.conv1d`` on
+overlapped frames. Interpolation is ``conv_transpose1d`` (the JAX package
+leaves both to ``lax.conv_general_dilated``, outside any Pallas kernel).
+On a CUDA tensor that runs through cuDNN, which takes float32
+convolutions through TF32 by default (~1e-3 relative error, the analog of
+the TPU's bf16 default the JAX package overrides with
+``Precision.HIGHEST``); every convolution here runs under
+:func:`fp32_convolutions`, which turns TF32 off for its own duration only.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.autodiff import PolyphaseDecimate, needs_grad
+from ..ops.polyphase import decimate, fp32_convolutions
 from ..utils.tracing import spanned
 from .ols import _frame_overlap
 
 __all__ = ["polyphase_decimate", "polyphase_interpolate", "design_lowpass", "fp32_convolutions"]
-
-
-@contextlib.contextmanager
-def fp32_convolutions():
-    """Run the enclosed cuDNN convolutions in full float32 (no TF32) and
-    restore the caller's setting afterwards."""
-    cudnn = torch.backends.cudnn
-    prev = cudnn.allow_tf32
-    cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32 = prev
 
 
 def design_lowpass(
@@ -62,37 +52,25 @@ def design_lowpass(
     return torch.tensor(h, dtype=torch.float32, device=device)
 
 
-def _conv_valid(x: torch.Tensor, h: torch.Tensor, stride: int) -> torch.Tensor:
-    """Strided valid convolution of (B, T) with (taps,) -> (B, T_out)."""
-    with fp32_convolutions():
-        out = F.conv1d(x[:, None, :], torch.flip(h, (-1,))[None, None, :], stride=stride)
-    return out[:, 0, :]
-
-
 @spanned("stream.polyphase.decimate")
 def polyphase_decimate(x: torch.Tensor, h: torch.Tensor, factor: int, block: int = 4096) -> torch.Tensor:
     """Decimate (..., T) by ``factor`` after FIR anti-alias filtering.
 
     Equivalent to scipy.signal.upfirdn(h, x, 1, factor) restricted to the
-    first T//factor outputs (zero initial state). Long streams are framed
-    into overlapped ``block``-sample rows, so the convolution runs with a
-    large batch dimension."""
+    first T//factor outputs (zero initial state). On a CUDA tensor one
+    kernel launch filters and decimates every row where it lies
+    (``ops.polyphase.decimate_kernel``; through
+    ``autodiff.PolyphaseDecimate`` where grad is needed). Elsewhere long
+    streams are framed into overlapped ``block``-sample rows, so the
+    convolution runs with a large batch dimension."""
     x = torch.as_tensor(x, dtype=torch.float32)
     h = torch.as_tensor(h, dtype=torch.float32, device=x.device)
-    taps = h.shape[-1]
     batch_shape = x.shape[:-1]
-    t = x.shape[-1]
-    xb = x.reshape(-1, t)
-    b = xb.shape[0]
-    if t <= 2 * block:
-        xb = F.pad(xb, (taps - 1, 0))  # zero initial state
-        y = _conv_valid(xb, h, stride=factor)[..., : t // factor]
-        return y.reshape(*batch_shape, -1)
-    blk = block - block % factor  # frame starts stay phase-aligned
-    frames = _frame_overlap(xb, blk, taps - 1)  # (B, nb, taps-1+blk)
-    nb = frames.shape[-2]
-    y = _conv_valid(frames.reshape(b * nb, -1), h, stride=factor)
-    y = y.reshape(b, nb * (blk // factor))[..., : t // factor]
+    xb = x.reshape(-1, x.shape[-1])
+    if xb.is_cuda and needs_grad(xb, h):
+        y = PolyphaseDecimate.apply(xb, h, factor)
+    else:
+        y = decimate(xb, h, factor, block)
     return y.reshape(*batch_shape, -1)
 
 

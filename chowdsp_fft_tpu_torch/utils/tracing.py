@@ -26,7 +26,7 @@ __all__ = ["SPANS", "LAUNCH_SPAN", "span", "spanned"]
 LAUNCH_SPAN = "ops._cuda.launch."
 
 # Every ``_cuda.Kernel``'s name, in ``ops.hopper_fft.KERNELS``' order, then
-# ``ops.convolve.KERNELS``'.
+# ``ops.convolve.KERNELS``' and ``ops.polyphase.KERNELS``'.
 _KERNELS = (
     "rfft_packed_kernel", "irfft_packed_kernel", "convolve_irfft_packed_kernel", "cfft_kernel",
     "small_cfft_kernel", "small_rfft_kernel", "small_irfft_kernel",
@@ -34,6 +34,7 @@ _KERNELS = (
     "rfft_cols_kernel", "irfft_cols_kernel",
     "rfft_packed_joint_db_kernel", "irfft_packed_db_kernel", "cfft_db_kernel",
     "partitioned_accumulate_kernel",
+    "polyphase_decimate_kernel",
 )
 
 SPANS = (

@@ -13,7 +13,7 @@ import torch
 
 import chowdsp_fft_tpu_torch as ct
 from chowdsp_fft_tpu_torch import api, models, stream
-from chowdsp_fft_tpu_torch.ops import convolve, hopper_fft
+from chowdsp_fft_tpu_torch.ops import convolve, hopper_fft, polyphase
 from chowdsp_fft_tpu_torch.utils import profiling, tracing
 
 CHANNELS, BLOCK, TAPS, T = 2, 256, 1000, 4096
@@ -156,17 +156,20 @@ SDR_METRIC_SPANS = {
                              "models.sdr.front_end", "models.sdr.back_end", "models.sdr.forward"},
     "channel_fft_device_ms": {"api.ifft", "ops._cuda.launch.small_cfft_kernel"},
     "demod_device_ms": {"stream.demod.fm"},
+    "decimate_kernel_device_ms": {"ops._cuda.launch.polyphase_decimate_kernel"},
 }
 
 
 def test_the_sdr_chain_nests_its_spans(sdr_case, tmp_path):
     """Each stage's span inside its parent's, as the chain calls them, and
-    every op of the call innermost in a span that one of the four span
+    every op of the call innermost in a span that one of the five span
     metrics reads, each span in one metric alone."""
-    from portbench.metrics import channel_fft_device_ms, demod_device_ms, sdr_fir_device_ms, sdr_layout_device_ms
+    from portbench.metrics import (channel_fft_device_ms, decimate_kernel_device_ms, demod_device_ms,
+                                   sdr_fir_device_ms, sdr_layout_device_ms)
 
     readers = {"sdr_fir_device_ms": sdr_fir_device_ms, "sdr_layout_device_ms": sdr_layout_device_ms,
-               "channel_fft_device_ms": channel_fft_device_ms, "demod_device_ms": demod_device_ms}
+               "channel_fft_device_ms": channel_fft_device_ms, "demod_device_ms": demod_device_ms,
+               "decimate_kernel_device_ms": decimate_kernel_device_ms}
     assert {name: set(m.SPANS) for name, m in readers.items()} == SDR_METRIC_SPANS
     chain, iq = sdr_case
     with profiling.trace(tmp_path / "tr") as log_dir:
@@ -199,7 +202,7 @@ def test_the_sdr_chain_nests_its_spans(sdr_case, tmp_path):
 
 def test_every_kernel_has_its_launch_span():
     launch_spans = {s for s in tracing.SPANS if s.startswith(tracing.LAUNCH_SPAN)}
-    kernels = hopper_fft.KERNELS + convolve.KERNELS
+    kernels = hopper_fft.KERNELS + convolve.KERNELS + polyphase.KERNELS
     assert {k.span for k in kernels} == launch_spans
     assert all(k.span == tracing.LAUNCH_SPAN + k.name for k in kernels)
     assert len(set(tracing.SPANS)) == len(tracing.SPANS)
@@ -211,7 +214,8 @@ def test_every_kernel_has_its_launch_span():
 def test_sdr_device_ops_have_their_spans(tmp_path):
     """On the card: every device op of a chain call at config 5's widths
     (C = 256) is launched, by ``correlation``, innermost in a span that
-    one of the four SDR span metrics reads."""
+    one of the five SDR span metrics reads, the decimators' in their
+    kernel's launch span."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
     chain = models.SDRChain(models.SDRChainConfig(), device="cuda")
@@ -229,6 +233,7 @@ def test_sdr_device_ops_have_their_spans(tmp_path):
                if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     assert any("small_cfft_kernel" in _idents(e["name"]) for e in device)
+    assert sum("polyphase_decimate_kernel" in _idents(e["name"]) for e in device) == 2
     read = set().union(*SDR_METRIC_SPANS.values())
     for op in device:
         call = runtime[op["args"]["correlation"]]
