@@ -293,9 +293,34 @@ def device_perm(perm_fn, n: int, device: str) -> torch.Tensor:
     return torch.from_numpy(perm_fn(n).copy()).to(device)
 
 
-def require_cuda(name: str, t: torch.Tensor):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: the Hopper kernels run on CUDA tensors, got {t.device}")
+def takes_plain(name: str, *xs) -> bool:
+    """The one rule that picks a kernel or its plain version, from where
+    the tensors lie (each of ``xs`` a tensor or a tuple of tensors): True
+    when every one is on the CPU (the plain version runs), False when
+    every one is on one CUDA device (the kernel runs); anything else
+    raises ValueError."""
+    devices = _devices(xs)
+    if all(d.type == "cpu" for d in devices):
+        return True
+    if len(devices) == 1 and next(iter(devices)).type == "cuda":
+        return False
+    raise _off_card(name, devices)
+
+
+def require_cuda(name: str, *xs) -> None:
+    """:func:`takes_plain`'s rule for a kernel entry with no plain route:
+    every one of ``xs`` on one CUDA device, or the same ValueError."""
+    if takes_plain(name, *xs):
+        raise _off_card(name, _devices(xs))
+
+
+def _devices(xs) -> set:
+    return {t.device for x in xs for t in ((x,) if isinstance(x, torch.Tensor) else x)}
+
+
+def _off_card(name: str, devices) -> ValueError:
+    got = ", ".join(sorted(map(str, devices)))
+    return ValueError(f"{name}: the Hopper kernels run on CUDA tensors, got {got}")
 
 
 def require_domain(kernel: Kernel, ok: bool, n: int, kind: str):

@@ -19,12 +19,10 @@ level 1 alone; here the whole real composite sits under
 :class:`RfftPacked` and :class:`IrfftPacked` (as under ``_rdc_fwd`` and
 ``_rdc_inv``), so K7a and K7b need no Function of their own.
 
-Every Function of a ported kernel takes a ``plain`` flag: with it,
-forward and backward run the kernels' plain versions on any device, so
-the plain route and the kernels share one rule (a CPU tensor takes the
-plain versions anyway). :class:`PartitionedAccumulate` and
-:class:`PolyphaseDecimate` have no kernel in their backward, and their
-forward is the wrapper on every device.
+A CPU tensor takes the kernels' plain versions, forward and backward.
+:class:`PartitionedAccumulate` and :class:`PolyphaseDecimate` have no
+kernel in their backward, and their forward is the wrapper on every
+device.
 The engine entries (``hopper_fft.rfft_packed``, ``irfft_packed``,
 ``convolve_irfft_packed``, ``cfft``, ``cfft_planes``) route through these
 Functions only when grad mode is on and an input requires grad.
@@ -117,15 +115,15 @@ class RfftPacked(torch.autograd.Function):
     in every slot but slot 0. Once differentiable."""
 
     @staticmethod
-    def forward(ctx, x, plan: FFTPlan, ordered: bool, plain: bool = False):
-        ctx.plan, ctx.ordered, ctx.plain = plan, ordered, plain
-        return hopper_fft.rfft_rows(*_detached(x), plan, ordered, plain)
+    def forward(ctx, x, plan: FFTPlan, ordered: bool):
+        ctx.plan, ctx.ordered = plan, ordered
+        return hopper_fft.rfft_rows(*_detached(x), plan, ordered)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gre, gim):
         sre, sim = halfspec_weight(gre, gim, 0.5)
-        return hopper_fft.irfft_rows(sre, sim, ctx.plan, ctx.ordered, ctx.plain), None, None, None
+        return hopper_fft.irfft_rows(sre, sim, ctx.plan, ctx.ordered), None, None
 
 
 class IrfftPacked(torch.autograd.Function):
@@ -136,15 +134,15 @@ class IrfftPacked(torch.autograd.Function):
     differentiable."""
 
     @staticmethod
-    def forward(ctx, yre, yim, plan: FFTPlan, ordered: bool, plain: bool = False):
-        ctx.plan, ctx.ordered, ctx.plain = plan, ordered, plain
-        return hopper_fft.irfft_rows(*_detached(yre, yim), plan, ordered, plain)
+    def forward(ctx, yre, yim, plan: FFTPlan, ordered: bool):
+        ctx.plan, ctx.ordered = plan, ordered
+        return hopper_fft.irfft_rows(*_detached(yre, yim), plan, ordered)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        re, im = hopper_fft.rfft_rows(_dense(g), ctx.plan, ctx.ordered, ctx.plain)
-        return (*halfspec_weight(re, im, 2.0), None, None, None)
+        re, im = hopper_fft.rfft_rows(_dense(g), ctx.plan, ctx.ordered)
+        return (*halfspec_weight(re, im, 2.0), None, None)
 
 
 class ConvolveIrfftPacked(torch.autograd.Function):
@@ -157,18 +155,17 @@ class ConvolveIrfftPacked(torch.autograd.Function):
     differentiable."""
 
     @staticmethod
-    def forward(ctx, are, aim, bre, bim, plan: FFTPlan, scale: float, ordered: bool, plain: bool = False):
-        ctx.plan, ctx.scale, ctx.ordered, ctx.plain = plan, scale, ordered, plain
+    def forward(ctx, are, aim, bre, bim, plan: FFTPlan, scale: float, ordered: bool):
+        ctx.plan, ctx.scale, ctx.ordered = plan, scale, ordered
         args = _detached(are, aim, bre, bim)
         ctx.save_for_backward(*args)
-        k3 = hopper_fft.convolve_irfft_packed_plain if plain else hopper_fft.convolve_irfft_packed_kernel
-        return k3(*args, scale, plan, ordered)
+        return hopper_fft.convolve_irfft_packed_kernel(*args, scale, plan, ordered)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         are, aim, bre, bim = ctx.saved_tensors
-        gre, gim = halfspec_weight(*hopper_fft.rfft_rows(_dense(g), ctx.plan, ctx.ordered, ctx.plain), 2.0)
+        gre, gim = halfspec_weight(*hopper_fft.rfft_rows(_dense(g), ctx.plan, ctx.ordered), 2.0)
         da = db = (None, None)
         if any(ctx.needs_input_grad[:2]):
             da = packed_product_adjoint(gre, gim, bre, bim, ctx.scale)
@@ -176,7 +173,7 @@ class ConvolveIrfftPacked(torch.autograd.Function):
             db = packed_product_adjoint(gre, gim, are, aim, ctx.scale)
             if bre.shape[0] != are.shape[0]:
                 db = tuple(t.sum(0, keepdim=True) for t in db)
-        return (*da, *db, None, None, None, None)
+        return (*da, *db, None, None, None)
 
 
 class CfftPair(torch.autograd.Function):
@@ -188,19 +185,19 @@ class CfftPair(torch.autograd.Function):
     differentiable."""
 
     @staticmethod
-    def forward(ctx, a, b, plan: FFTPlan, forward: bool, ordered: bool, plain: bool = False):
-        ctx.plan, ctx.forward, ctx.ordered, ctx.plain = plan, forward, ordered, plain
+    def forward(ctx, a, b, plan: FFTPlan, forward: bool, ordered: bool):
+        ctx.plan, ctx.forward, ctx.ordered = plan, forward, ordered
         ctx.planes = b is not None
         x = _detached(a, b) if ctx.planes else a.detach()
-        return hopper_composite.cfft_rows(x, plan, forward, ordered, plain)
+        return hopper_composite.cfft_rows(x, plan, forward, ordered)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *grads):
         g = tuple(map(_dense, grads)) if ctx.planes else _dense(grads[0])
-        out = hopper_composite.cfft_rows(g, ctx.plan, not ctx.forward, ctx.ordered, ctx.plain)
+        out = hopper_composite.cfft_rows(g, ctx.plan, not ctx.forward, ctx.ordered)
         da, db = out if ctx.planes else (out, None)
-        return da, db, None, None, None, None
+        return da, db, None, None, None
 
 
 class PartitionedAccumulate(torch.autograd.Function):

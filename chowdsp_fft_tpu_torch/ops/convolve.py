@@ -129,9 +129,8 @@ def convolve_accumulate_partitioned(
     xre, xim = x
     hre, him = h
     dev = xre.device
-    if dev.type in ("cpu", "meta"):
+    if dev.type == "meta" or _cuda.takes_plain(PARTITIONED.name, xre):
         return convolve_accumulate_partitioned_plain(x, h, scaling)
-    _cuda.require_cuda(PARTITIONED.name, xre)
     nb, m = xre.shape[-2:]
     partitions = hre.shape[-2]
     lead = torch.broadcast_shapes(xre.shape[:-2], hre.shape[:-2])

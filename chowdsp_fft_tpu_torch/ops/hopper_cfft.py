@@ -30,7 +30,7 @@ import torch
 
 from ..plans import FFT_BACKWARD, FFT_COMPLEX, FFT_FORWARD, FFTPlan
 from . import row_passes, stockham
-from ._cuda import MAX_CN, Kernel, check, device_perm, host_ints, launch, require_cuda, require_domain
+from ._cuda import MAX_CN, Kernel, check, device_perm, host_ints, launch, require_domain, takes_plain
 from .tables import LANES, cfft_inverse_perm, cfft_unordered_perm, is_smooth_multiple
 
 __all__ = ["K4", "K4_DB", "MAX_CN", "in_domain", "cfft_kernel", "cfft_db_kernel", "cfft_plain"]
@@ -57,10 +57,6 @@ def in_domain(n: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def is_cpu(x) -> bool:
-    return all(t.device.type == "cpu" for t in ((x,) if isinstance(x, torch.Tensor) else x))
-
-
 def as_complex(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.complex(x[0], x[1])
 
@@ -83,13 +79,11 @@ def complex_io(name: str, x, shape, out_shape=None, align: int = 8):
     float after the real part."""
     out_shape = shape if out_shape is None else out_shape
     if isinstance(x, torch.Tensor):
-        require_cuda(name, x)
         check(name, x, shape, x.device, torch.complex64, align)
         y = torch.empty(out_shape, dtype=torch.complex64, device=x.device)
         xp, yp = x.data_ptr(), y.data_ptr()
         return x.device, 2, (xp, xp + 4), y, (yp, yp + 4)
     re, im = x
-    require_cuda(name, re)
     check(f"{name} re", re, shape, re.device, align=align)
     check(f"{name} im", im, shape, re.device, align=align)
     yre = torch.empty(out_shape, dtype=torch.float32, device=re.device)
@@ -117,7 +111,7 @@ def cfft_plain(x, plan: FFTPlan, forward: bool = True, ordered: bool = True):
 
 def _cfft(kernel: Kernel, entry: str, x, plan: FFTPlan, forward: bool, ordered: bool, align: int):
     require_domain(kernel, plan.kind == FFT_COMPLEX and in_domain(plan.n), plan.n, plan.kind)
-    if is_cpu(x):
+    if takes_plain(kernel.name, x):
         return cfft_plain(x, plan, forward, ordered)
     rows = shape_of(x)[0]
     dev, stride, src, out, dst = complex_io(kernel.name, x, (rows, plan.n), align=align)

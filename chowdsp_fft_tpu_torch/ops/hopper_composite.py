@@ -53,8 +53,8 @@ import torch
 
 from ..plans import FFT_COMPLEX, FFT_REAL, FFTPlan, cached_plan
 from . import col_passes, hopper_cfft, hopper_small, stockham
-from ._cuda import MAX_COL, MAX_N, Kernel, check, host_ints, launch, require_cuda, require_domain
-from .hopper_cfft import as_complex, complex_io, is_cpu, like, shape_of
+from ._cuda import MAX_COL, MAX_N, Kernel, check, host_ints, launch, require_domain, takes_plain
+from .hopper_cfft import as_complex, complex_io, like, shape_of
 from .layout import packed_planes_to_spectrum, spectrum_to_packed_planes
 from .tables import (
     JAX_MAX_COMPOSITE,
@@ -229,7 +229,7 @@ def level1(x, plan: FFTPlan, forward: bool = True):
     kernel = K6_L1 if forward else K6_L1_REV
     length = plan.n
     require_domain(kernel, plan.kind == FFT_COMPLEX and _col_ok(length), length, plan.kind)
-    if is_cpu(x):
+    if takes_plain(kernel.name, x):
         return level1_plain(x, plan, forward)
     b, d1, d2 = shape_of(x)
     m = d2 if forward else d1
@@ -249,7 +249,7 @@ def level2(x, tw: torch.Tensor, plan: FFTPlan, forward: bool = True):
     kernel = K6_L2 if forward else K6_L2_REV
     length = plan.n
     require_domain(kernel, plan.kind == FFT_COMPLEX and _col_ok(length), length, plan.kind)
-    if is_cpu(x) and tw.device.type == "cpu":
+    if takes_plain(kernel.name, x, tw):
         return level2_plain(x, tw, plan, forward)
     b, c, m = shape_of(x)
     if c != length:
@@ -291,9 +291,8 @@ def _require_real_cols(kernel: Kernel, plan: FFTPlan):
 def rfft_cols(x: torch.Tensor, plan: FFTPlan):
     """K7a on (B, A, C) f32, A = plan.n -> ((B, C, A/2), (B, C, A/2))."""
     _require_real_cols(K7A, plan)
-    if x.device.type == "cpu":
+    if takes_plain(K7A.name, x):
         return rfft_cols_plain(x, plan)
-    require_cuda(K7A.name, x)
     b, a, c = x.shape
     check("x", x, (b, plan.n, c), x.device)
     yre = torch.empty((b, c, a // 2), dtype=torch.float32, device=x.device)
@@ -308,9 +307,8 @@ def rfft_cols(x: torch.Tensor, plan: FFTPlan):
 def irfft_cols(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
     """K7b on packed planes (B, C, A/2), A = plan.n -> (B, A, C) f32."""
     _require_real_cols(K7B, plan)
-    if yre.device.type == "cpu" and yim.device.type == "cpu":
+    if takes_plain(K7B.name, yre, yim):
         return irfft_cols_plain(yre, yim, plan)
-    require_cuda(K7B.name, yre)
     b, c, h = yre.shape
     check("yre", yre, (b, c, plan.n // 2), yre.device)
     check("yim", yim, (b, c, plan.n // 2), yre.device)
@@ -323,26 +321,23 @@ def irfft_cols(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
 
 
 # ---------------------------------------------------------------------------
-# The composites (rows in, rows out); ``plain`` runs every level's plain
-# version, whatever the device
+# The composites (rows in, rows out)
 # ---------------------------------------------------------------------------
 
 
-def cfft_rows(x, plan: FFTPlan, forward: bool = True, ordered: bool = True, plain: bool = False):
+def cfft_rows(x, plan: FFTPlan, forward: bool = True, ordered: bool = True):
     """The complex dispatch (``_cfft_pair_impl``) on (rows, N) complex64
     or a pair of planes: K5 for its sizes and K4 in its domain (natural or
     unordered), the composite above (natural order either way)."""
     n = plan.n
     if hopper_small.in_domain(n):
-        fn = hopper_small.small_cfft_plain if plain else hopper_small.small_cfft_kernel
-        return fn(x, plan, forward)
+        return hopper_small.small_cfft_kernel(x, plan, forward)
     if hopper_cfft.in_domain(n):
-        fn = hopper_cfft.cfft_plain if plain else hopper_cfft.cfft_kernel
-        return fn(x, plan, forward, ordered)
-    return cfft_composite(x, plan, forward, plain)
+        return hopper_cfft.cfft_kernel(x, plan, forward, ordered)
+    return cfft_composite(x, plan, forward)
 
 
-def cfft_composite(x, plan: FFTPlan, forward: bool = True, plain: bool = False):
+def cfft_composite(x, plan: FFTPlan, forward: bool = True):
     """Two-level complex FFT of (rows, N) rows (``_cfft_composite_v2``
     :2741): natural order in, natural order out; returns ``x``'s form."""
     n = plan.n
@@ -350,19 +345,17 @@ def cfft_composite(x, plan: FFTPlan, forward: bool = True, plain: bool = False):
     rows = shape_of(x)[0]
     dev = (x if isinstance(x, torch.Tensor) else x[0]).device
     plan_a, plan_c = cached_plan(a, FFT_COMPLEX), cached_plan(c, FFT_COMPLEX)
-    l1 = level1_plain if plain else level1
-    l2 = level2_plain if plain else level2
     tw = twiddle(n, forward, dev)
     if forward:
-        mid = l1(_view(x, (rows, a, c)), plan_a, True)
-        y = l2(mid, tw, plan_c, True)
+        mid = level1(_view(x, (rows, a, c)), plan_a, True)
+        y = level2(mid, tw, plan_c, True)
     else:
-        mid = l2(_view(x, (rows, c, a)), tw, plan_c, False)
-        y = l1(mid, plan_a, False)
+        mid = level2(_view(x, (rows, c, a)), tw, plan_c, False)
+        y = level1(mid, plan_a, False)
     return _view(y, (rows, n))
 
 
-def rfft_composite(x: torch.Tensor, plan: FFTPlan, plain: bool = False):
+def rfft_composite(x: torch.Tensor, plan: FFTPlan):
     """Two-level real FFT of (rows, N) f32 -> ordered packed planes
     ((rows, N/2) x2) (``_rfft_direct_composite_v2`` :3160)."""
     n = plan.n
@@ -372,20 +365,18 @@ def rfft_composite(x: torch.Tensor, plan: FFTPlan, plain: bool = False):
     nytr, nyti = _nyquist(n, str(x.device))
 
     # Level 1: packed real FFTs of the columns -> (B, C, A/2) planes.
-    cols = rfft_cols_plain if plain else rfft_cols
-    pre, pim = cols(x.reshape(b, a, c), cached_plan(a, FFT_REAL))
+    pre, pim = rfft_cols(x.reshape(b, a, c), cached_plan(a, FFT_REAL))
 
     # The DC and level-1 Nyquist lines (column 0: DC in re, Nyquist in im);
     # the Nyquist line takes the half-bin modulation before its C-FFT.
     dcrow, nyrow = pre[:, :, 0], pim[:, :, 0]
     lines = torch.complex(torch.cat([dcrow, nyrow * nytr]),
                           torch.cat([torch.zeros_like(dcrow), nyrow * nyti]))
-    g = cfft_rows(lines, plan_c, True, True, plain)
+    g = cfft_rows(lines, plan_c, True, True)
     g0, gny = g[:b], g[b:]
 
     # Level 2: twiddle, then ordered C-FFTs down the A/2 columns, in place.
-    l2 = level2_plain if plain else level2
-    gr, gi = l2((pre, pim), real_twiddle(n, True, x.device), plan_c, True)
+    gr, gi = level2((pre, pim), real_twiddle(n, True, x.device), plan_c, True)
 
     # Hermitian assembly: rows k2 < C/2 hold bins k1 + A*k2 for k1 <= A/2
     # directly; k1 in (A/2, A) comes from conj(G[A-k1, C-1-k2]).
@@ -400,7 +391,7 @@ def rfft_composite(x: torch.Tensor, plan: FFTPlan, plain: bool = False):
     return out_r, out_i
 
 
-def irfft_composite(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, plain: bool = False):
+def irfft_composite(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
     """Unscaled inverse of :func:`rfft_composite`: ordered packed planes
     (rows, N/2) x2 -> (rows, N) f32 (``_irfft_direct_composite_v2`` :3213)."""
     n = plan.n
@@ -427,14 +418,12 @@ def irfft_composite(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, plain: 
     # The level-1 Nyquist row in c-space (backward C-FFT, conjugate
     # half-bin modulation), folded into column 0 as fwd(ny_c)/C so that the
     # level-2 inverse emits (DC_c, ny_c) in that column.
-    u = cfft_rows(ny, plan_c, False, True, plain)
+    u = cfft_rows(ny, plan_c, False, True)
     ny_c = u.real * nytr + u.imag * nyti
-    f = cfft_rows(torch.complex(ny_c / float(c), torch.zeros_like(ny_c)), plan_c, True, True, plain)
+    f = cfft_rows(torch.complex(ny_c / float(c), torch.zeros_like(ny_c)), plan_c, True, True)
     grid_r = torch.cat([(col0_r - f.imag)[:, :, None], mids_r], 2)
     grid_i = torch.cat([(col0_i + f.real)[:, :, None], mids_i], 2)
 
     # Level 2 inverse, then the column-blocked real inverse of level 1.
-    l2 = level2_plain if plain else level2
-    pre, pim = l2((grid_r, grid_i), real_twiddle(n, False, yre.device), plan_c, False)
-    cols = irfft_cols_plain if plain else irfft_cols
-    return cols(pre, pim, cached_plan(a, FFT_REAL)).reshape(b, n)
+    pre, pim = level2((grid_r, grid_i), real_twiddle(n, False, yre.device), plan_c, False)
+    return irfft_cols(pre, pim, cached_plan(a, FFT_REAL)).reshape(b, n)

@@ -49,7 +49,7 @@ import torch
 from .. import api as _api
 from ..plans import FFT_COMPLEX, FFT_FORWARD, FFT_REAL, FFTPlan, cached_plan
 from . import autodiff, hopper_cfft, hopper_composite, hopper_small, row_passes, stockham
-from ._cuda import MAX_CN, MAX_N, Kernel, check as _check, device_perm, host_ints, launch, require_cuda, require_domain
+from ._cuda import MAX_CN, MAX_N, Kernel, check as _check, device_perm, host_ints, launch, require_domain, takes_plain
 from .convolve import convolve_accumulate_packed
 from .layout import packed_planes_to_spectrum, spectrum_to_packed_planes
 from .tables import (
@@ -278,9 +278,8 @@ def _require_real_domain(kernel: Kernel, plan: FFTPlan):
 def rfft_packed_kernel(x: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     """K1 on (rows, N) f32 -> ((rows, N/2), (rows, N/2)) f32."""
     _require_real_domain(K1, plan)
-    if x.device.type == "cpu":
+    if takes_plain(K1.name, x):
         return rfft_packed_plain(x, plan, ordered)
-    require_cuda(K1.name, x)
     rows = x.shape[0]
     _check("x", x, (rows, plan.n), x.device)
     yre = torch.empty((rows, plan.n // 2), dtype=torch.float32, device=x.device)
@@ -297,9 +296,8 @@ def _rfft_joint(kernel: Kernel, entry: str, x: torch.Tensor, plan: FFTPlan, orde
     """K1 (``grid``) or K1-db into joint rows: re at [0, N/2), im at
     [N/2, N), row stride N."""
     _require_real_domain(kernel, plan)
-    if x.device.type == "cpu":
+    if takes_plain(kernel.name, x):
         return rfft_packed_joint_plain(x, plan, ordered)
-    require_cuda(kernel.name, x)
     rows, n = x.shape[0], plan.n
     _check("x", x, (rows, n), x.device, align=align)
     y = torch.empty((rows, n), dtype=torch.float32, device=x.device)
@@ -327,9 +325,8 @@ def _irfft(kernel: Kernel, entry: str, yre: torch.Tensor, yim: torch.Tensor, pla
            align: int, grid: bool):
     """K2 (``grid``) or K2-db: packed planes (rows, N/2) x2 -> (rows, N) f32."""
     _require_real_domain(kernel, plan)
-    if yre.device.type == "cpu" and yim.device.type == "cpu":
+    if takes_plain(kernel.name, yre, yim):
         return irfft_packed_plain(yre, yim, plan, ordered)
-    require_cuda(kernel.name, yre)
     rows = yre.shape[0]
     _check("yre", yre, (rows, plan.n // 2), yre.device, align=align)
     _check("yim", yim, (rows, plan.n // 2), yre.device, align=align)
@@ -354,9 +351,8 @@ def irfft_packed_db_kernel(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, 
 def convolve_irfft_packed_kernel(are, aim, bre, bim, scale: float, plan: FFTPlan, ordered: bool = True):
     """K3: A (rows, N/2) x2, B (1 or rows, N/2) x2 -> irfft(scale * A (.) B)."""
     _require_real_domain(K3, plan)
-    if all(t.device.type == "cpu" for t in (are, aim, bre, bim)):
+    if takes_plain(K3.name, are, aim, bre, bim):
         return convolve_irfft_packed_plain(are, aim, bre, bim, scale, plan, ordered)
-    require_cuda(K3.name, are)
     rows, b_rows = are.shape[0], bre.shape[0]
     if b_rows not in (1, rows):
         raise ValueError(f"B batch {b_rows} must be 1 or match A batch {rows}")
@@ -393,27 +389,26 @@ def _plan_for(n: int, plan: FFTPlan | None, kind: str = FFT_REAL) -> FFTPlan:
     return plan
 
 
-def rfft_rows(x: torch.Tensor, plan: FFTPlan, ordered: bool = True, plain: bool = False):
+def rfft_rows(x: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     """The real forward dispatch on (rows, N) f32 rows -> packed planes:
-    K5 for its sizes, K1 in its domain, the composite above; with
-    ``plain`` each one's plain version, whatever the device."""
+    K5 for its sizes, K1 in its domain, the composite above."""
     n = plan.n
     if hopper_small.in_domain(n):
-        return (hopper_small.small_rfft_plain if plain else hopper_small.small_rfft_kernel)(x, plan)
+        return hopper_small.small_rfft_kernel(x, plan)
     if _in_domain(n):
-        return (rfft_packed_plain if plain else rfft_packed_kernel)(x, plan, ordered)
-    return hopper_composite.rfft_composite(x, plan, plain)
+        return rfft_packed_kernel(x, plan, ordered)
+    return hopper_composite.rfft_composite(x, plan)
 
 
-def irfft_rows(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool = True, plain: bool = False):
+def irfft_rows(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, ordered: bool = True):
     """The real inverse dispatch on packed planes (rows, N/2) x2 -> (rows,
-    N) f32, unscaled: K5, K2 or the composite (or their plain versions)."""
+    N) f32, unscaled: K5, K2 or the composite."""
     n = plan.n
     if hopper_small.in_domain(n):
-        return (hopper_small.small_irfft_plain if plain else hopper_small.small_irfft_kernel)(yre, yim, plan)
+        return hopper_small.small_irfft_kernel(yre, yim, plan)
     if _in_domain(n):
-        return (irfft_packed_plain if plain else irfft_packed_kernel)(yre, yim, plan, ordered)
-    return hopper_composite.irfft_composite(yre, yim, plan, plain)
+        return irfft_packed_kernel(yre, yim, plan, ordered)
+    return hopper_composite.irfft_composite(yre, yim, plan)
 
 
 def rfft_packed(x: torch.Tensor, plan: FFTPlan | None = None, ordered: bool = True):
@@ -427,7 +422,7 @@ def rfft_packed(x: torch.Tensor, plan: FFTPlan | None = None, ordered: bool = Tr
     batch_shape = x.shape[:-1]
     rows = _rows(x, n)
     if autodiff.needs_grad(rows):
-        yre, yim = autodiff.RfftPacked.apply(rows, plan, ordered, False)
+        yre, yim = autodiff.RfftPacked.apply(rows, plan, ordered)
     else:
         yre, yim = rfft_rows(rows, plan, ordered)
     return yre.reshape(*batch_shape, n // 2), yim.reshape(*batch_shape, n // 2)
@@ -441,7 +436,7 @@ def irfft_packed(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan | None = No
     batch_shape = yre.shape[:-1]
     rows = _rows(yre, m), _rows(yim, m)
     if autodiff.needs_grad(*rows):
-        x = autodiff.IrfftPacked.apply(*rows, plan, ordered, False)
+        x = autodiff.IrfftPacked.apply(*rows, plan, ordered)
     else:
         x = irfft_rows(*rows, plan, ordered)
     return x.reshape(*batch_shape, 2 * m)
@@ -466,7 +461,7 @@ def convolve_irfft_packed(are, aim, bre, bim, plan: FFTPlan | None = None, scali
     if rows[2].shape[0] not in (1, rows[0].shape[0]):
         raise ValueError(f"B batch {rows[2].shape[0]} must be 1 or match A batch {rows[0].shape[0]}")
     if autodiff.needs_grad(*rows):
-        x = autodiff.ConvolveIrfftPacked.apply(*rows, plan, float(scaling), ordered, False)
+        x = autodiff.ConvolveIrfftPacked.apply(*rows, plan, float(scaling), ordered)
     else:
         x = convolve_irfft_packed_kernel(*rows, float(scaling), plan, ordered)
     return x.reshape(*batch_shape, 2 * m)
@@ -510,7 +505,7 @@ def cfft(x: torch.Tensor, plan: FFTPlan | None = None, direction: str = FFT_FORW
     plan = _plan_for(n, plan, FFT_COMPLEX)
     rows = _rows(x, n, torch.complex64)
     if autodiff.needs_grad(rows):
-        y = autodiff.CfftPair.apply(rows, None, plan, direction == FFT_FORWARD, ordered, False)
+        y = autodiff.CfftPair.apply(rows, None, plan, direction == FFT_FORWARD, ordered)
     else:
         y = hopper_composite.cfft_rows(rows, plan, direction == FFT_FORWARD, ordered)
     return y.reshape(*x.shape[:-1], n)
@@ -523,7 +518,7 @@ def cfft_planes(re: torch.Tensor, im: torch.Tensor, plan: FFTPlan | None = None,
     plan = _plan_for(n, plan, FFT_COMPLEX)
     rows = _rows(re, n), _rows(im, n)
     if autodiff.needs_grad(*rows):
-        yre, yim = autodiff.CfftPair.apply(*rows, plan, direction == FFT_FORWARD, ordered, False)
+        yre, yim = autodiff.CfftPair.apply(*rows, plan, direction == FFT_FORWARD, ordered)
     else:
         yre, yim = hopper_composite.cfft_rows(rows, plan, direction == FFT_FORWARD, ordered)
     return yre.reshape(*re.shape[:-1], n), yim.reshape(*re.shape[:-1], n)

@@ -32,8 +32,8 @@ import functools
 import torch
 
 from ..plans import FFT_COMPLEX, FFT_REAL, FFTPlan
-from ._cuda import MAX_SMALL_N, Kernel, check, launch, require_cuda, require_domain
-from .hopper_cfft import as_complex, complex_io, is_cpu, like, shape_of
+from ._cuda import MAX_SMALL_N, Kernel, check, launch, require_domain, takes_plain
+from .hopper_cfft import as_complex, complex_io, like, shape_of
 from .tables import is_smooth_multiple, small_tables_c, small_tables_r, small_tables_ri
 
 __all__ = [
@@ -170,7 +170,7 @@ def small_irfft_plain(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
 def small_cfft_kernel(x, plan: FFTPlan, forward: bool = True):
     """K5 complex body on (rows, N) complex64 or a (re, im) pair of planes."""
     require_domain(K5_COMPLEX, plan.kind == FFT_COMPLEX and in_domain(plan.n), plan.n, plan.kind)
-    if is_cpu(x):
+    if takes_plain(K5_COMPLEX.name, x):
         return small_cfft_plain(x, plan, forward)
     rows = shape_of(x)[0]
     dev, stride, src, out, dst = complex_io(K5_COMPLEX.name, x, (rows, plan.n))
@@ -183,9 +183,8 @@ def small_cfft_kernel(x, plan: FFTPlan, forward: bool = True):
 def small_rfft_kernel(x: torch.Tensor, plan: FFTPlan):
     """K5 real-forward body: (rows, N) f32 -> ((rows, N/2), (rows, N/2))."""
     require_domain(K5_REAL, plan.kind == FFT_REAL and in_domain(plan.n), plan.n, plan.kind)
-    if x.device.type == "cpu":
+    if takes_plain(K5_REAL.name, x):
         return small_rfft_plain(x, plan)
-    require_cuda(K5_REAL.name, x)
     rows, n = x.shape[0], plan.n
     check("x", x, (rows, n), x.device)
     yre = torch.empty((rows, n // 2), dtype=torch.float32, device=x.device)
@@ -199,9 +198,8 @@ def small_rfft_kernel(x: torch.Tensor, plan: FFTPlan):
 def small_irfft_kernel(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
     """K5 real-inverse body: packed planes (rows, N/2) x2 -> (rows, N) f32."""
     require_domain(K5_REAL_INVERSE, plan.kind == FFT_REAL and in_domain(plan.n), plan.n, plan.kind)
-    if yre.device.type == "cpu" and yim.device.type == "cpu":
+    if takes_plain(K5_REAL_INVERSE.name, yre, yim):
         return small_irfft_plain(yre, yim, plan)
-    require_cuda(K5_REAL_INVERSE.name, yre)
     rows, n = yre.shape[0], plan.n
     check("yre", yre, (rows, n // 2), yre.device)
     check("yim", yim, (rows, n // 2), yre.device)

@@ -86,7 +86,7 @@ def decimate(x: torch.Tensor, h: torch.Tensor, factor: int, block: int = 4096) -
     ``factor`` -> (B, T // factor), zero initial state. A CUDA tensor
     takes :func:`decimate_kernel` (or it raises); the CPU and ``meta``
     take :func:`decimate_plain` with its ``block``."""
-    if x.device.type in ("cpu", "meta"):
+    if x.device.type == "meta" or _cuda.takes_plain(DECIMATE.name, x):
         return decimate_plain(x, h, factor, block)
     return decimate_kernel(x, h, factor)
 

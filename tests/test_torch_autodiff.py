@@ -20,7 +20,8 @@ test_pallas_engine.py's ``test_medium_composite_grad`` (:383),
 ``test_convolve_irfft_fused_grad`` (:491) and ``test_small_n_grad``
 (:846), and test_fft_core.py's ``test_jit_and_grad`` (:212). On the CPU
 every Function runs the kernels' plain versions; the card runs them in
-tests/test_torch_cuda.py and chip_smoke.py's phase 20.
+tests/test_torch_cuda.py (``test_*_gradients_match_plain``, against the
+same Functions on CPU copies).
 """
 
 import jax
@@ -335,13 +336,13 @@ def test_real_rules_equal_native_autograd(n, ordered):
     plan = ct.cached_plan(n, ct.FFT_REAL)
     x = rng.standard_normal((3, n)).astype(np.float32)
     w = _real_cotangents(rng, n, 3, False)
-    got = _native(lambda v: autodiff.RfftPacked.apply(v, plan, ordered, True), x, w=w)
-    want = _native(lambda v: hf.rfft_rows(v, plan, ordered, plain=True), x, w=w)
+    got = _native(lambda v: autodiff.RfftPacked.apply(v, plan, ordered), x, w=w)
+    want = _native(lambda v: hf.rfft_rows(v, plan, ordered), x, w=w)
     assert rel_err(got[0], want[0]) < RULE_RTOL
-    spec = [np_(t) for t in hf.rfft_rows(torch.from_numpy(x), plan, ordered, plain=True)]
+    spec = [np_(t) for t in hf.rfft_rows(torch.from_numpy(x), plan, ordered)]
     w = _real_cotangents(rng, n, 3, True)
-    got = _native(lambda a, b: autodiff.IrfftPacked.apply(a, b, plan, ordered, True), *spec, w=w)
-    want = _native(lambda a, b: hf.irfft_rows(a, b, plan, ordered, plain=True), *spec, w=w)
+    got = _native(lambda a, b: autodiff.IrfftPacked.apply(a, b, plan, ordered), *spec, w=w)
+    want = _native(lambda a, b: hf.irfft_rows(a, b, plan, ordered), *spec, w=w)
     for p, q in zip(got, want):
         assert rel_err(p, q) < RULE_RTOL
 
@@ -355,7 +356,7 @@ def test_convolve_rule_equals_native_autograd(b_rows, ordered):
     a = [rng.standard_normal((3, n // 2)).astype(np.float32) for _ in range(2)]
     b = [rng.standard_normal((b_rows, n // 2)).astype(np.float32) for _ in range(2)]
     w = [torch.tensor(rng.standard_normal((3, n)), dtype=torch.float32)]
-    got = _native(lambda *t: autodiff.ConvolveIrfftPacked.apply(*t, plan, 0.25, ordered, True), *a, *b, w=w)
+    got = _native(lambda *t: autodiff.ConvolveIrfftPacked.apply(*t, plan, 0.25, ordered), *a, *b, w=w)
     want = _native(lambda *t: hf.convolve_irfft_packed_plain(*t, 0.25, plan, ordered), *a, *b, w=w)
     for p, q in zip(got, want):
         assert p.shape == q.shape and rel_err(p, q) < RULE_RTOL
@@ -375,10 +376,10 @@ def test_cfft_rule_equals_native_autograd(n, ordered, forward, planes):
     wr, wi = (torch.tensor(rng.standard_normal((2, n)), dtype=torch.float32) for _ in range(2))
     if planes:
         def rule(a, b):
-            return autodiff.CfftPair.apply(a, b, plan, forward, ordered, True)
+            return autodiff.CfftPair.apply(a, b, plan, forward, ordered)
 
         def plain(a, b):
-            return hc.cfft_rows((a, b), plan, forward, ordered, plain=True)
+            return hc.cfft_rows((a, b), plan, forward, ordered)
 
         got = _native(rule, re, im, w=[wr, wi])
         want = _native(plain, re, im, w=[wr, wi])
@@ -387,9 +388,9 @@ def test_cfft_rule_equals_native_autograd(n, ordered, forward, planes):
             return (y.real * wr + y.imag * wi).sum()
 
         z = (re + 1j * im).astype(np.complex64)
-        got = port_grad(lambda a: loss(autodiff.CfftPair.apply(a, None, plan, forward, ordered, True)), z)
-        want = port_grad(lambda a: loss(hc.cfft_rows(a, plan, forward, ordered, plain=True)), z)
-        planes_grad = _native(lambda a, b: autodiff.CfftPair.apply(a, b, plan, forward, ordered, True),
+        got = port_grad(lambda a: loss(autodiff.CfftPair.apply(a, None, plan, forward, ordered)), z)
+        want = port_grad(lambda a: loss(hc.cfft_rows(a, plan, forward, ordered)), z)
+        planes_grad = _native(lambda a, b: autodiff.CfftPair.apply(a, b, plan, forward, ordered),
                               re, im, w=[wr, wi])
         np.testing.assert_array_equal(got[0], planes_grad[0] + 1j * planes_grad[1])
     for p, q in zip(got, want):

@@ -8,7 +8,8 @@ two-level composite (``_cfft_composite_v2``, Pallas in interpret mode)
 level by level, against its K7a (``_rfft_packed_cols_impl``) and K7b
 (``_irfft_packed_cols_impl``), and K7a's against float64 at every real
 column length. The kernels themselves run on the card only
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+(tests/test_torch_cuda.py: ``test_k6_roles_at_every_length``,
+``test_k7a_at_every_length``, ``test_k7b_at_every_length``)."""
 
 import itertools
 import pathlib
@@ -181,7 +182,7 @@ def test_real_column_wrappers_launch_the_column_engine(monkeypatch, which, a):
     geometry of their role over the C columns (ragged). Driven on meta
     tensors, so only the wrapper's own logic runs."""
     calls = []
-    monkeypatch.setattr(hc, "require_cuda", lambda *args: None)
+    monkeypatch.setattr(hc, "takes_plain", lambda *args: False)
     monkeypatch.setattr(hc, "launch", lambda kernel, entry, dev, *args: calls.append((kernel, entry, args)))
     plan = ct.cached_plan(a, ct.FFT_REAL)
     meta = torch.device("meta")

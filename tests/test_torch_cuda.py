@@ -29,6 +29,17 @@ def rand(shape, dev, seed):
     return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape).astype(np.float32)).to(dev)
 
 
+def on_cpu(fn):
+    """``fn`` on CPU copies of its tensor arguments, where the same call
+    takes the plain versions, its result moved back to the card."""
+    def move(x, where):
+        if isinstance(x, torch.Tensor):
+            return x.to(where)
+        return type(x)(move(t, where) for t in x) if isinstance(x, (tuple, list)) else x
+
+    return lambda *args: move(fn(*move(args, "cpu")), "cuda")
+
+
 def maxerr(a, b):
     if not a.numel():  # no rows: nothing to differ
         return 0.0
@@ -283,9 +294,9 @@ def test_complex_composite_matches_plain(dev, n, rows):
     z = crand((rows, n), dev, n)
     hf.reset_launch_counts()
     y = hc.cfft_composite(z, plan, True)
-    assert maxerr(y, hc.cfft_composite(z, plan, True, plain=True)) <= 2e-7 * n
+    assert maxerr(y, on_cpu(hc.cfft_composite)(z, plan, True)) <= 2e-7 * n
     back = hc.cfft_composite(y, plan, False)
-    assert maxerr(back / n, hc.cfft_composite(y, plan, False, plain=True) / n) <= 2e-7 * n
+    assert maxerr(back / n, on_cpu(hc.cfft_composite)(y, plan, False) / n) <= 2e-7 * n
     assert maxerr(back / n, z) <= 2e-7 * n
     yr, yi = hc.cfft_composite((z.real.contiguous(), z.imag.contiguous()), plan, True)
     assert maxerr(torch.complex(yr, yi), y) == 0.0
@@ -301,10 +312,10 @@ def test_real_composite_matches_plain(dev, n, rows):
     x = rand((rows, n), dev, n)
     hf.reset_launch_counts()
     re, im = hc.rfft_composite(x, plan)
-    pre, pim = hc.rfft_composite(x, plan, plain=True)
+    pre, pim = on_cpu(hc.rfft_composite)(x, plan)
     assert max(maxerr(re, pre), maxerr(im, pim)) <= 2e-7 * n
     back = hc.irfft_composite(re, im, plan)
-    assert maxerr(back / n, hc.irfft_composite(re, im, plan, plain=True) / n) <= 2e-7 * n
+    assert maxerr(back / n, on_cpu(hc.irfft_composite)(re, im, plan) / n) <= 2e-7 * n
     assert maxerr(back / n, x) <= 2e-7 * n
     torch.cuda.synchronize()
     assert all(k.launches > 0 for k in (hc.K7A, hc.K7B, hc.K6_L2, hc.K6_L2_REV))
@@ -328,8 +339,9 @@ COLUMN_LENGTHS, REAL_COLUMN_LENGTHS = hc.column_lengths()
 
 
 def held_bound(want: torch.Tensor, length: int) -> float:
-    """chip_smoke's ``held`` bound for a kernel of transform length
-    ``length`` on its own: 2e-7 * length * rms of the reference."""
+    """The bound for a kernel of transform length ``length`` on its own:
+    2e-7 * length * rms of the reference, so that an output far below
+    unit scale is held below its own size."""
     return 2e-7 * length * float(want.abs().double().pow(2).mean().sqrt())
 
 
@@ -347,7 +359,7 @@ def aligned8(z: torch.Tensor) -> torch.Tensor:
 def test_k6_roles_at_every_length(dev, length):
     """K6 in its four roles at every column length the composite's splits
     produce, 1 and 7 batch rows of a ragged M = 37 columns: complex64, an
-    8-byte aligned complex64 view and planes, each within held's bound of
+    8-byte aligned complex64 view and planes, each within ``held_bound`` of
     its plain version (which a zeroed output fails)."""
     plan = ct.cached_plan(length, ct.FFT_COMPLEX)
     m = 37
@@ -389,7 +401,7 @@ def packed_cols64(x: torch.Tensor, a: int) -> torch.Tensor:
 @pytest.mark.parametrize("a", REAL_COLUMN_LENGTHS)
 def test_k7a_at_every_length(dev, a):
     """K7a at every real column length A, 1 and 7 batch rows of a ragged
-    C = 37 columns of unit-scale samples: within held's bound of its plain
+    C = 37 columns of unit-scale samples: within ``held_bound`` of its plain
     version and of float64 (which a zeroed output and one whose Nyquist
     slot, im[..., 0], is zeroed fail)."""
     plan = ct.cached_plan(a, ct.FFT_REAL)
@@ -410,7 +422,7 @@ def test_k7a_at_every_length(dev, a):
 def test_k7b_at_every_length(dev, a):
     """K7b at every real column length A, 1 and 7 batch rows of a ragged
     C = 37 columns, on the packed spectrum of unit-scale columns: within
-    held's bound of its plain version and of A x (which a zeroed output
+    ``held_bound`` of its plain version and of A x (which a zeroed output
     and a dropped Nyquist slot fail)."""
     plan = ct.cached_plan(a, ct.FFT_REAL)
     for rows in (1, 7):
@@ -484,7 +496,8 @@ def test_db_kernels_refuse_misaligned_input(dev):
 
 # ---------------------------------------------------------------------------
 # Gradients on the card: each autograd Function (ops/autodiff.py) against
-# the same Function on the plain versions, the backward's launches counted
+# the same Function on CPU copies (the plain versions), the backward's
+# launches counted
 # ---------------------------------------------------------------------------
 
 
@@ -526,21 +539,16 @@ def test_real_gradients_match_plain(dev, n, rows, ordered):
     plan = ct.cached_plan(n, ct.FFT_REAL)
     x = rand((rows, n), dev, n)
     u = (rand((rows, n // 2), dev, n + 1), rand((rows, n // 2), dev, n + 2))
-    for plain in (False, True):
-        kernels = [] if plain else real_backward_kernels(n, True)
-        g = vjp_on_card(lambda v: autodiff.RfftPacked.apply(v, plan, ordered, plain), [x], u, kernels)[0]
-        if plain:
-            assert maxerr(g, g_kernel) <= 2e-7 * n * float(torch.cat(u).abs().max())
-        g_kernel = g
+    fn = lambda v: autodiff.RfftPacked.apply(v, plan, ordered)  # noqa: E731
+    g_kernel = vjp_on_card(fn, [x], u, real_backward_kernels(n, True))[0]
+    g = vjp_on_card(on_cpu(fn), [x], u, [])[0]
+    assert maxerr(g, g_kernel) <= 2e-7 * n * float(torch.cat(u).abs().max())
     spec = hf.rfft_rows(x, plan, ordered)
     w = rand((rows, n), dev, n + 3)
-    for plain in (False, True):
-        kernels = [] if plain else real_backward_kernels(n, False)
-        g = vjp_on_card(lambda a, b: autodiff.IrfftPacked.apply(a, b, plan, ordered, plain), list(spec), (w,),
-                        kernels)
-        if plain:
-            assert max(maxerr(a, b) for a, b in zip(g, g_kernel)) <= 2 * 2e-7 * n * float(w.abs().max())
-        g_kernel = g
+    fn = lambda a, b: autodiff.IrfftPacked.apply(a, b, plan, ordered)  # noqa: E731
+    g_kernel = vjp_on_card(fn, list(spec), (w,), real_backward_kernels(n, False))
+    g = vjp_on_card(on_cpu(fn), list(spec), (w,), [])
+    assert max(maxerr(a, b) for a, b in zip(g, g_kernel)) <= 2 * 2e-7 * n * float(w.abs().max())
 
 
 @pytest.mark.parametrize("ordered", [True, False])
@@ -556,10 +564,9 @@ def test_convolve_gradients_match_plain(dev, n, rows, ordered):
     w = rand((rows, n), dev, n + 1)
     for b_rows in (1, rows):
         b = hf.rfft_rows(rand((b_rows, n), dev, n + 2) / n ** 0.5, plan, ordered)
-        got = vjp_on_card(lambda *t: autodiff.ConvolveIrfftPacked.apply(*t, plan, 1.0 / n, ordered, False),
-                          [*a, *b], (w,), [hf.K1])
-        want = vjp_on_card(lambda *t: autodiff.ConvolveIrfftPacked.apply(*t, plan, 1.0 / n, ordered, True),
-                           [*a, *b], (w,), [])
+        fn = lambda *t: autodiff.ConvolveIrfftPacked.apply(*t, plan, 1.0 / n, ordered)  # noqa: E731
+        got = vjp_on_card(fn, [*a, *b], (w,), [hf.K1])
+        want = vjp_on_card(on_cpu(fn), [*a, *b], (w,), [])
         for p, q in zip(got, want):
             assert p.shape == q.shape and maxerr(p, q) <= 2e-7 * n * float(q.abs().max())
 
@@ -588,11 +595,11 @@ def test_complex_gradients_match_plain(dev, n, rows, ordered, forward, planes):
     else:
         inputs, cot = [z], (u,)
 
-    def fn(plain):
-        return lambda *t: autodiff.CfftPair.apply(t[0], t[1] if planes else None, plan, forward, ordered, plain)
+    def fn(*t):
+        return autodiff.CfftPair.apply(t[0], t[1] if planes else None, plan, forward, ordered)
 
-    got = vjp_on_card(fn(False), inputs, cot, kernels)
-    want = vjp_on_card(fn(True), inputs, cot, [])
+    got = vjp_on_card(fn, inputs, cot, kernels)
+    want = vjp_on_card(on_cpu(fn), inputs, cot, [])
     bound = 2e-7 * n * float(torch.view_as_real(u).abs().max())
     assert max(maxerr(p, q) for p, q in zip(got, want)) <= bound
 

@@ -1,7 +1,8 @@
 """The port's profiling helpers on the CPU, structurally: the slope of
 ``op_seconds`` against an injected clock, and ``trace`` writing a Chrome
 trace. No timing thresholds: the times themselves come from the card
-(chip_smoke.py phase 22)."""
+(chip_smoke.py's phase 22: ``op_seconds`` against phase 5's graph time of
+K1)."""
 
 import json
 

@@ -8,7 +8,8 @@ with K3's product, the merge in the first pass's reads, the backward
 passes, the store of 2 z) against float64 and against the JAX package's
 K2/K3 in interpret mode, with the wrappers' launch arguments at every
 size. The kernels themselves run on the card only
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+(tests/test_torch_cuda.py: ``test_k1_at_every_size``,
+``test_k2_k3_at_every_size``, ``test_k4_at_every_size``)."""
 
 import ctypes
 import pathlib
@@ -34,7 +35,7 @@ def test_domains_are_the_kernels():
 
 def test_points_per_thread_is_the_sources():
     """Python's constants are the ones the kernels are built with (the
-    library reports kRowPoints on the card: chip_smoke phase 1)."""
+    library reports kRowPoints on the card: chip_smoke.py's phase 1)."""
     src = (CSRC / "row_passes.cuh").read_text()
     assert int(re.search(r"constexpr int kRowPoints = (\d+);", src).group(1)) == row_passes.POINTS_PER_THREAD
     stockham = (CSRC / "stockham.cuh").read_text()
@@ -349,7 +350,7 @@ def test_row_wrappers_pick_split_order_and_grid(name, call, position_split, grid
     geometry (grid forms only). Driven on meta tensors, so only the
     wrapper's own logic runs."""
     calls = []
-    monkeypatch.setattr(hopper_fft, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(hopper_fft, "takes_plain", lambda *a: False)
     monkeypatch.setattr(hopper_fft, "_launch_rows", lambda *a, **kw: calls.append(kw))
     n, rows = 4096, 7
     plan = ct.cached_plan(n, ct.FFT_REAL)
