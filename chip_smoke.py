@@ -8,10 +8,11 @@ are built from ``chowdsp_fft_tpu_torch/csrc`` into ``build/hopper/`` on
 first use, the native planner from ``native/planner.cpp`` into
 ``build/native/``). Each kernel is checked against its plain version and
 float64 by the tests marked ``cuda`` in tests/test_torch_cuda.py,
-tests/test_torch_tracing.py, tests/test_torch_partitioned_accumulate.py
-and tests/test_torch_polyphase_kernel.py (``python -m pytest -m cuda``
-on those four files; run them first); here each timed kernel is held to
-its plain version once more at the shape its path gives it.
+tests/test_torch_tracing.py, tests/test_torch_partitioned_accumulate.py,
+tests/test_torch_polyphase_kernel.py and tests/test_torch_demod_kernel.py
+(``python -m pytest -m cuda`` on those five files; run them first); here
+each timed kernel is held to its plain version once more at the shape its
+path gives it.
 
 Phases (numbered as PERF.md cites them; there are no phases 2, 6 and
 12), each of which asserts:
@@ -36,8 +37,9 @@ Phases (numbered as PERF.md cites them; there are no phases 2, 6 and
    channels) on one 2^24-sample capture of FM carriers plus noise,
    against float64 definitions (scipy ``upfirdn`` decimators, the
    channelizer's mixer definition): channelizer output, the occupied
-   channels' audio, each carrier's power in its channel; K5 and two
-   launches of the polyphase decimator carried it;
+   channels' audio, each carrier's power in its channel; K5, two
+   launches of the polyphase decimator and one of the FM discriminator
+   carried it;
 8. a K4 path: ``stream.channelize`` with C = 1024 on the same capture,
    against the mixer definition and against the same channelizer on K4's
    plain version (every bin, 2e-7*C of the peak); K4 carried it;
@@ -45,7 +47,8 @@ Phases (numbered as PERF.md cites them; there are no phases 2, 6 and
    (N = 256), ``step_k`` against ``partitioned_fir_apply`` and float64;
    both real K5 bodies carried it;
 10. coverage: every kernel record (``hopper_fft.KERNELS``,
-    ``convolve.KERNELS`` and ``polyphase.KERNELS``) launched on its path,
+    ``convolve.KERNELS``, ``polyphase.KERNELS`` and ``demod.KERNELS``)
+    launched on its path,
     ``engine_for`` at the complex, small and composite sizes;
 11. timing (informational): K4 at N=4096, B=1024 against ``torch.fft.fft``,
     K5 at N=256, B=32768 against ``torch.fft.ifft`` / ``rfft`` / ``irfft``
@@ -155,20 +158,28 @@ Phases (numbered as PERF.md cites them; there are no phases 2, 6 and
     (framed cuDNN convolutions), cuDNN's strided ``conv1d`` on the
     unframed rows (the yardstick, ``library_ms``) and its bound (x read
     once, y written once), with the gap to the bound.
+25. the FM discriminator (``ops/demod.fm_demod_kernel``,
+    ``csrc/demod.cu``): ptxas's registers and spills (none allowed); then
+    (informational) at config 5's 256 x 32768, channel-fastest (the
+    channelizer's output) and on contiguous rows, the kernel's layout and
+    time beside its plain version's (the torch ops, its sample 0 set to
+    the kernel's 0) and its bound (z read once, y written once), with the
+    gap to the bound.
 
-Every timed kernel (phases 5, 11, 15, 19, 23, 24) is first held to its
+Every timed kernel (phases 5, 11, 15, 19, 23-25) is first held to its
 plain version on the same input (``kernel_times``: 2e-7*N at the
 kernel's length and scale, ``held``; the FDL and the decimator within
-1e-5 of the plain output's rms), then timed twice: ``ms``, CUDA events
+1e-5 of the plain output's rms, the discriminator within 5e-7 absolute),
+then timed twice: ``ms``, CUDA events
 around 20 calls from Python (host-inclusive: the wrapper, ctypes and the
 launch), and ``device_ms``, the same 20 calls captured in one CUDA graph
 and replayed (``graph_time_ms``: no host in the loop); the matching
 ``torch.fft`` call likewise (``library_ms``, ``library_device_ms``).
 
-Phases run in the order 1, 3-5, 7-9, 13, 14, 16-18, 20-24, 10, 11, 15,
+Phases run in the order 1, 3-5, 7-9, 13, 14, 16-18, 20-25, 10, 11, 15,
 19. The line before the last is the kernel report as JSON, one entry for
-each record of ``hopper_fft.KERNELS``, ``convolve.KERNELS`` and
-``polyphase.KERNELS`` (with each kernel's ``max_abs_err`` against its
+each record of ``hopper_fft.KERNELS``, ``convolve.KERNELS``,
+``polyphase.KERNELS`` and ``demod.KERNELS`` (with each kernel's ``max_abs_err`` against its
 plain version at its timed shape, its launches in phase 20's training
 slice, ``backward_launches``, on phase 21's parallel paths,
 ``parallel_launches``, and on phase 22's paths, ``adapter_launches``);
@@ -417,22 +428,24 @@ def check_channels(name: str, got: torch.Tensor, z64: np.ndarray, proto64: np.nd
 
 def phase7(hf, models, stream, dev, capture: np.ndarray) -> dict[str, int]:
     from scipy.signal import upfirdn
-    from chowdsp_fft_tpu_torch.ops import polyphase
+    from chowdsp_fft_tpu_torch.ops import demod, polyphase
 
     cfg = models.SDRChainConfig()
     require(cfg.channels == 256, "config 5 is the 256-channel chain")
     chain = models.SDRChain(cfg, device=dev)
     iq = torch.from_numpy(capture).to(dev)
     hf.reset_launch_counts()
-    polyphase.DECIMATE.launches = 0
+    polyphase.DECIMATE.launches = demod.FM_DEMOD.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     audio = chain(iq)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in hf.KERNELS + polyphase.KERNELS}
+    launches = {k.name: k.launches for k in hf.KERNELS + polyphase.KERNELS + demod.KERNELS}
     require(launches[polyphase.DECIMATE.name] == 2, f"config 5 launched the decimator "
             f"{launches[polyphase.DECIMATE.name]} times, not once for each of its two decimators")
+    require(launches[demod.FM_DEMOD.name] == 1,
+            f"config 5 launched the discriminator {launches[demod.FM_DEMOD.name]} times, not once")
     steps = CONFIG5_SAMPLES // (cfg.decimation * cfg.channels)
     want_shape = (cfg.channels, steps // cfg.audio_decimation)
     log(f"phase 7 config 5 (SDRChain, C=256, 2^24 samples) ran in {wall:.3f} s (first call, host clock); "
@@ -465,7 +478,7 @@ def phase7(hf, models, stream, dev, capture: np.ndarray) -> dict[str, int]:
         d = np.zeros(steps)
         d[1:] = np.angle(ref[1:] * np.conj(ref[:-1])) * cfg.fm_gain
         got = stream.fm_demod(bank[ch], gain=cfg.fm_gain).double().cpu().numpy()
-        # (sample 0 has no phase history: atan2 of signed zeros, as in the JAX package)
+        # (sample 0 has no phase history: 0 on the card, atan2 of signed zeros in the JAX package)
         demod_err = max(demod_err, float(np.abs(np.angle(np.exp(1j * (got[1:] - d[1:])))).max()))
         ref_audio = upfirdn(audio_lp, d, 1, cfg.audio_decimation)[: steps // cfg.audio_decimation]
         audio_err = max(audio_err, max_err(audio[ch, AUDIO_SKIP:], ref_audio[AUDIO_SKIP:]))
@@ -1323,12 +1336,12 @@ def phase21(hf, hs, convolve, models, dev, x3, h3, ref3: np.ndarray, audio: np.n
 
 
 def phase21_paths(parallel, hf, hs, convolve, models, dev, x3, h3, ref3, audio, ir, capture) -> dict[str, int]:
-    from chowdsp_fft_tpu_torch.ops import polyphase
+    from chowdsp_fft_tpu_torch.ops import demod, polyphase
 
     mesh = parallel.dsp_mesh(1)
     cmesh = parallel.dsp_mesh(1, axis=parallel.CHANNEL_AXIS)
     require(mesh.device_type == "cuda" and mesh.size() == 1, f"mesh {mesh}")
-    kernels = hf.KERNELS + convolve.KERNELS + polyphase.KERNELS
+    kernels = hf.KERNELS + convolve.KERNELS + polyphase.KERNELS + demod.KERNELS
     launches = {k.name: 0 for k in kernels}
 
     def counted(name: str, fn):
@@ -1948,6 +1961,68 @@ def phase24(_cuda, polyphase, roof, lib, lib_path, dev, card) -> tuple[dict, obj
     return times, front_bound
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: timing of the FM discriminator
+# ---------------------------------------------------------------------------
+
+DEMOD_GAP = 5e-7  # the discriminator's bound, absolute at gain 1: 2 ulp of pi
+# (rows, T, layout, what): config 5's discriminator as the channelizer
+# hands it its input, and on contiguous rows.
+DEMOD_SHAPES = (
+    (256, 32768, "channels", "config 5's discriminator, channel-fastest"),
+    (256, 32768, "rows", "config 5's width, contiguous rows"),
+)
+
+
+def demod_bound(roof, rows: int, t: int):
+    """The discriminator's bound: z (8 bytes a sample) read once, y (4)
+    written once; 8 operations a sample (``portbench/sdr_work.py``)."""
+    return roof.roofline(12 * rows * t, 8 * rows * t)
+
+
+def phase25(_cuda, demod, roof, lib_path, dev, card) -> tuple[dict, object]:
+    """``demod.fm_demod_kernel`` (one launch of ``csrc/demod.cu``): ptxas's
+    registers and spills (a spill fails); then (informational) at the
+    chain's width, the kernel's layout and time beside its plain
+    version's and its bound. Returns the times at the chain's layout and
+    their bound."""
+    k = demod.FM_DEMOD
+    lines = _cuda.kernel_resources(lib_path, k.name)
+    require(bool(lines), f"no ptxas report of {k.name}")
+    for line in lines:
+        log(f"phase 25 ptxas {k.name}: {line}")
+        spills = re.findall(r"(\d+) bytes spill", line)
+        require(all(v == "0" for v in spills), f"{k.name} spills: {line}")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261021)
+
+    def plain(z):  # the torch ops, their sample 0 set to the kernel's 0
+        y = demod.fm_demod_plain(z)
+        y[..., 0] = 0
+        return y
+
+    times = chain_bound = None
+    for rows, t, layout, what in DEMOD_SHAPES:
+        shape = (t, rows) if layout == "channels" else (rows, t)
+        args = [(torch.randn(*shape, dtype=torch.complex64, device=dev, generator=g),) for _ in range(2)]
+        if layout == "channels":
+            args = [(z.T,) for (z,) in args]
+        z = args[0][0]
+        bound = demod_bound(roof, rows, t)
+        tm = kernel_times(demod.fm_demod_kernel, plain, args, bound=lambda rms: DEMOD_GAP)
+        which = demod.demod_layout(rows, z.stride(-2), z.stride(-1))
+        log(f"phase 25 {k.name} {what} ({rows} x {t}, strides {tuple(z.stride())}; layout "
+            f"{'rows-fast' if which == demod.ROWS_FAST else 'time-fast'}): max |kernel - plain| "
+            f"{tm['max_abs_err']:.3e}; kernel {tm['ms']:.4f} ms (device {tm['device_ms']:.4f} ms), plain "
+            f"{tm['plain_ms']:.4f} ms, bound {bound.ms:.4f} ms ({bound.bound_by}; {100 * bound.ms / tm['device_ms']:.1f}% "
+            f"of it, a gap of {tm['device_ms'] / bound.ms:.2f}x) [{card}]")
+        if layout == "channels":
+            times, chain_bound = tm, bound
+        del args, z
+    torch.cuda.empty_cache()
+    return times, chain_bound
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1955,7 +2030,7 @@ def main() -> int:
 
     import chowdsp_fft_tpu_torch as ct
     from chowdsp_fft_tpu_torch import models, stream
-    from chowdsp_fft_tpu_torch.ops import _cuda, convolve, hopper_cfft, hopper_small, polyphase, row_passes
+    from chowdsp_fft_tpu_torch.ops import _cuda, convolve, demod, hopper_cfft, hopper_small, polyphase, row_passes
     from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
     from chowdsp_fft_tpu_torch.ops import hopper_fft as hf
     from chowdsp_fft_tpu_torch.utils import roofline as roof
@@ -2065,7 +2140,8 @@ def main() -> int:
     # -- phases 7-9: the paths, each read just after it runs -------------------
     capture = make_capture(rng)
     path5 = phase7(hf, models, stream, dev, capture)
-    launches.update({k: v for k, v in path5.items() if k in (hopper_small.K5_COMPLEX.name, polyphase.DECIMATE.name)})
+    launches.update({k: v for k, v in path5.items()
+                     if k in (hopper_small.K5_COMPLEX.name, polyphase.DECIMATE.name, demod.FM_DEMOD.name)})
     path4 = phase8(hf, stream, dev, capture)
     launches[hopper_cfft.K4.name] = path4[hopper_cfft.K4.name]
     path_r = phase9(hf, stream, dev, x, h, ref)
@@ -2097,12 +2173,13 @@ def main() -> int:
     adapter_launches = phase22(ct, hf, hopper_small, hc, stream, models, dev, card, times[hf.K1.name]["device_ms"],
                                audio, ir)
 
-    # -- phases 23-24: the two kernels that replace no Pallas kernel -------------
+    # -- phases 23-25: the three kernels that replace no Pallas kernel ---------
     times[convolve.PARTITIONED.name], fdl_roof = phase23(_cuda, convolve, roof, lib_path, dev, card)
     times[polyphase.DECIMATE.name], decim_roof = phase24(_cuda, polyphase, roof, lib, lib_path, dev, card)
+    times[demod.FM_DEMOD.name], demod_roof = phase25(_cuda, demod, roof, lib_path, dev, card)
 
     # -- phase 10 -------------------------------------------------------------
-    for k in hf.KERNELS + convolve.KERNELS + polyphase.KERNELS:
+    for k in hf.KERNELS + convolve.KERNELS + polyphase.KERNELS + demod.KERNELS:
         require(launches[k.name] > 0, f"{k.name} was not launched on its path")
     for n, kind in ((256, "complex"), (1024, "complex"), (4096, "complex"), (hf.MAX_CN, "complex"),
                     (8, "complex"), (480, "complex"), (256, "real"), (32, "real"), (16384, "complex"),
@@ -2142,6 +2219,7 @@ def main() -> int:
     bounds.update({k.name: times[k.name]["bound"] for k in hc.KERNELS})
     bounds[convolve.PARTITIONED.name] = fdl_roof
     bounds[polyphase.DECIMATE.name] = decim_roof
+    bounds[demod.FM_DEMOD.name] = demod_roof
     direct = roof.direct_dft_roofline(*SMALL_TIMED, "complex")
     k5 = times[hopper_small.K5_COMPLEX.name]
     log(f"K5 complex at N={SMALL_TIMED[0]}, B={SMALL_TIMED[1]}: the direct DFT of the old design did "
@@ -2150,7 +2228,7 @@ def main() -> int:
         f"{bounds[hopper_small.K5_COMPLEX.name].ms:.4f} ms ({bounds[hopper_small.K5_COMPLEX.name].bound_by}) [{card}]")
 
     kernels = []
-    for k in hf.KERNELS + convolve.KERNELS + polyphase.KERNELS:
+    for k in hf.KERNELS + convolve.KERNELS + polyphase.KERNELS + demod.KERNELS:
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name], "max_abs_err": times[k.name]["max_abs_err"],

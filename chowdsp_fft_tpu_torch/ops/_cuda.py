@@ -128,6 +128,10 @@ _SIGNATURES = {
     "hopper_decimate_max_taps": [],
     "hopper_decimate_max_factor": [],
     "polyphase_decimate": [_P, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _I, _P],
+    # The FM discriminator (ops/demod): z, y, batch, rows, T, z's batch,
+    # row and sample strides (complex elements), y's (floats), gain,
+    # layout, stream.
+    "fm_demod": [_P, _P, _I, _I, _I, *[ctypes.c_longlong] * 6, ctypes.c_float, _I, _P],
 }
 
 

@@ -10,6 +10,7 @@ blocks, at the same grain.
 | :class:`CfftPair` | ``_cfft_pair`` :2905 | K5, K4 or the composite (K6) | the opposite direction, same ``ordered`` |
 | :class:`PartitionedAccumulate` | none (XLA differentiates ``stream/ols.py``'s loop) | ``csrc/partitioned_accumulate.cu`` | the packed product's adjoint per partition, plain torch |
 | :class:`PolyphaseDecimate` | none (XLA differentiates ``lax.conv_general_dilated``) | ``csrc/polyphase.cu`` | a strided transposed correlation with h, plain torch |
+| :class:`FMDemod` | none (XLA differentiates ``stream/demod.py``'s ops) | ``csrc/demod.cu`` | ``gain * i z / abs(z)^2`` times the cotangent's backward difference, plain torch |
 
 No kernel is written for a backward pass: as in the JAX package, each
 backward runs the forward kernels of the opposite direction, and the glue
@@ -20,9 +21,9 @@ level 1 alone; here the whole real composite sits under
 ``_rdc_inv``), so K7a and K7b need no Function of their own.
 
 A CPU tensor takes the kernels' plain versions, forward and backward.
-:class:`PartitionedAccumulate` and :class:`PolyphaseDecimate` have no
-kernel in their backward, and their forward is the wrapper on every
-device.
+:class:`PartitionedAccumulate`, :class:`PolyphaseDecimate` and
+:class:`FMDemod` have no kernel in their backward, and their forward is
+the wrapper on every device.
 The engine entries (``hopper_fft.rfft_packed``, ``irfft_packed``,
 ``convolve_irfft_packed``, ``cfft``, ``cfft_planes``) route through these
 Functions only when grad mode is on and an input requires grad.
@@ -46,7 +47,7 @@ from torch.autograd.function import once_differentiable
 
 # hopper_fft imports this module for its entries; the cycle is between
 # modules only, and the dispatchers are looked up at call time.
-from . import convolve, hopper_composite, hopper_fft, polyphase
+from . import convolve, demod, hopper_composite, hopper_fft, polyphase
 from ..plans import FFTPlan
 
 __all__ = [
@@ -59,6 +60,7 @@ __all__ = [
     "CfftPair",
     "PartitionedAccumulate",
     "PolyphaseDecimate",
+    "FMDemod",
 ]
 
 
@@ -273,3 +275,36 @@ class PolyphaseDecimate(torch.autograd.Function):
             xp = F.pad(x, (taps - 1, 0))  # xp[:, n + taps-1] = x[:, n], zeros before
             dh = torch.stack([(g * xp[:, taps - 1 - k :: f][:, :m]).sum() for k in range(taps)])
         return dx, dh, None
+
+
+class FMDemod(torch.autograd.Function):
+    """The FM discriminator, ``demod.fm_demod``: z (..., T) complex64 ->
+    ``y[n] = gain * angle(z[n] conj(z[n-1]))`` (y[0] = 0 on the card).
+    Backward, in plain torch: y[n] moves with z[n] by ``gain * Im(dz[n] /
+    z[n])`` and y[n+1] by minus that, so ``dz[n] = gain * i z[n] / abs(z[n])^2
+    * (g[n] - g[n+1])``, with g[0] and g[T] taken as 0 and, as the plain
+    version's autograd gives it, no term of a step whose product z[n]
+    conj(z[n-1]) is zero (nor any at a zero sample). Saves z. Once
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, z, gain: float):
+        ctx.gain = gain
+        (z,) = _detached(z)
+        ctx.save_for_backward(z)
+        return demod.fm_demod(z, gain)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        m2 = z.real * z.real + z.imag * z.imag
+        live = m2 > 0
+        step = live.clone()  # the steps whose product is nonzero: n >= 1, z[n] and z[n-1] nonzero
+        step[..., 0] = False
+        step[..., 1:] &= live[..., :-1]
+        gs = torch.where(step, g.to(m2.dtype), 0)  # the sums in z's precision
+        diff = gs.clone()
+        diff[..., :-1] -= gs[..., 1:]
+        scale = torch.where(live, ctx.gain * diff / m2, 0)
+        return scale * (1j * z), None

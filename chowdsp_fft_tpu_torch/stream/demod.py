@@ -1,12 +1,15 @@
 """Demodulation stages for the SDR chain (PyTorch counterpart of
-``chowdsp_fft_tpu/stream/demod.py``): elementwise torch ops, plus a
-log-depth scan for the DC blocker's recursion."""
+``chowdsp_fft_tpu/stream/demod.py``): the FM discriminator (one CUDA
+kernel on the card, ``ops/demod.py``; torch ops on the CPU), elementwise
+torch ops, and a log-depth scan for the DC blocker's recursion."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..ops import demod
+from ..ops.autodiff import FMDemod, needs_grad
 from ..utils.tracing import spanned
 
 __all__ = ["fm_demod", "am_demod", "dc_block"]
@@ -15,16 +18,16 @@ __all__ = ["fm_demod", "am_demod", "dc_block"]
 @spanned("stream.demod.fm")
 def fm_demod(z: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
     """Quadrature FM discriminator over complex baseband (..., T):
-    y[n] = gain * angle(z[n] * conj(z[n-1])) via atan2, y[0] = 0 (zero
-    phase history). Float32 out."""
+    y[n] = gain * angle(z[n] * conj(z[n-1])) via atan2, y[0] from zero
+    phase history. Float32 out. On a CUDA tensor one kernel launch reads
+    the rows where they lie and writes y[0] = 0
+    (``ops.demod.fm_demod_kernel``; through ``autodiff.FMDemod`` where
+    grad is needed); elsewhere torch ops, whose y[0] is atan2 of signed
+    zeros (0 or +-gain*pi)."""
     z = torch.as_tensor(z).to(torch.complex64)
-    zr, zi = z.real, z.imag
-    pr = F.pad(zr[..., :-1], (1, 0))
-    pi = F.pad(zi[..., :-1], (1, 0))
-    # z[n] * conj(z[n-1])
-    dr = zr * pr + zi * pi
-    di = zi * pr - zr * pi
-    return (gain * torch.atan2(di, dr)).to(torch.float32)
+    if z.is_cuda and needs_grad(z):
+        return FMDemod.apply(z, gain)
+    return demod.fm_demod(z, gain)
 
 
 def am_demod(z: torch.Tensor) -> torch.Tensor:

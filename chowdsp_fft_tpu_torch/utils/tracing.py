@@ -26,7 +26,8 @@ __all__ = ["SPANS", "LAUNCH_SPAN", "span", "spanned"]
 LAUNCH_SPAN = "ops._cuda.launch."
 
 # Every ``_cuda.Kernel``'s name, in ``ops.hopper_fft.KERNELS``' order, then
-# ``ops.convolve.KERNELS``' and ``ops.polyphase.KERNELS``'.
+# ``ops.convolve.KERNELS``', ``ops.polyphase.KERNELS``' and
+# ``ops.demod.KERNELS``'.
 _KERNELS = (
     "rfft_packed_kernel", "irfft_packed_kernel", "convolve_irfft_packed_kernel", "cfft_kernel",
     "small_cfft_kernel", "small_rfft_kernel", "small_irfft_kernel",
@@ -35,6 +36,7 @@ _KERNELS = (
     "rfft_packed_joint_db_kernel", "irfft_packed_db_kernel", "cfft_db_kernel",
     "partitioned_accumulate_kernel",
     "polyphase_decimate_kernel",
+    "fm_demod_kernel",
 )
 
 SPANS = (

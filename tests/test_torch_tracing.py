@@ -13,7 +13,7 @@ import torch
 
 import chowdsp_fft_tpu_torch as ct
 from chowdsp_fft_tpu_torch import api, models, stream
-from chowdsp_fft_tpu_torch.ops import convolve, hopper_fft, polyphase
+from chowdsp_fft_tpu_torch.ops import convolve, demod, hopper_fft, polyphase
 from chowdsp_fft_tpu_torch.utils import profiling, tracing
 
 CHANNELS, BLOCK, TAPS, T = 2, 256, 1000, 4096
@@ -157,19 +157,21 @@ SDR_METRIC_SPANS = {
     "channel_fft_device_ms": {"api.ifft", "ops._cuda.launch.small_cfft_kernel"},
     "demod_device_ms": {"stream.demod.fm"},
     "decimate_kernel_device_ms": {"ops._cuda.launch.polyphase_decimate_kernel"},
+    "demod_kernel_device_ms": {"ops._cuda.launch.fm_demod_kernel"},
 }
 
 
 def test_the_sdr_chain_nests_its_spans(sdr_case, tmp_path):
     """Each stage's span inside its parent's, as the chain calls them, and
-    every op of the call innermost in a span that one of the five span
+    every op of the call innermost in a span that one of the six span
     metrics reads, each span in one metric alone."""
     from portbench.metrics import (channel_fft_device_ms, decimate_kernel_device_ms, demod_device_ms,
-                                   sdr_fir_device_ms, sdr_layout_device_ms)
+                                   demod_kernel_device_ms, sdr_fir_device_ms, sdr_layout_device_ms)
 
     readers = {"sdr_fir_device_ms": sdr_fir_device_ms, "sdr_layout_device_ms": sdr_layout_device_ms,
                "channel_fft_device_ms": channel_fft_device_ms, "demod_device_ms": demod_device_ms,
-               "decimate_kernel_device_ms": decimate_kernel_device_ms}
+               "decimate_kernel_device_ms": decimate_kernel_device_ms,
+               "demod_kernel_device_ms": demod_kernel_device_ms}
     assert {name: set(m.SPANS) for name, m in readers.items()} == SDR_METRIC_SPANS
     chain, iq = sdr_case
     with profiling.trace(tmp_path / "tr") as log_dir:
@@ -202,7 +204,7 @@ def test_the_sdr_chain_nests_its_spans(sdr_case, tmp_path):
 
 def test_every_kernel_has_its_launch_span():
     launch_spans = {s for s in tracing.SPANS if s.startswith(tracing.LAUNCH_SPAN)}
-    kernels = hopper_fft.KERNELS + convolve.KERNELS + polyphase.KERNELS
+    kernels = hopper_fft.KERNELS + convolve.KERNELS + polyphase.KERNELS + demod.KERNELS
     assert {k.span for k in kernels} == launch_spans
     assert all(k.span == tracing.LAUNCH_SPAN + k.name for k in kernels)
     assert len(set(tracing.SPANS)) == len(tracing.SPANS)
@@ -214,8 +216,8 @@ def test_every_kernel_has_its_launch_span():
 def test_sdr_device_ops_have_their_spans(tmp_path):
     """On the card: every device op of a chain call at config 5's widths
     (C = 256) is launched, by ``correlation``, innermost in a span that
-    one of the five SDR span metrics reads, the decimators' in their
-    kernel's launch span."""
+    one of the six SDR span metrics reads, the decimators' and the
+    discriminator's in their kernels' launch spans."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
     chain = models.SDRChain(models.SDRChainConfig(), device="cuda")
@@ -234,6 +236,7 @@ def test_sdr_device_ops_have_their_spans(tmp_path):
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     assert any("small_cfft_kernel" in _idents(e["name"]) for e in device)
     assert sum("polyphase_decimate_kernel" in _idents(e["name"]) for e in device) == 2
+    assert sum("fm_demod_kernel" in _idents(e["name"]) for e in device) == 1
     read = set().union(*SDR_METRIC_SPANS.values())
     for op in device:
         call = runtime[op["args"]["correlation"]]
