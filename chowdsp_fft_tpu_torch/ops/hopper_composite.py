@@ -26,6 +26,12 @@ length-C complex transforms (K5, K4 or this composite, through
 in plain torch as the JAX package has it in XLA. The inverse mirrors it,
 ending in K7b.
 
+Each composite (:func:`cfft_composite`, :func:`rfft_composite`,
+:func:`irfft_composite`) runs in a span ``ops.hopper_composite.<name>``
+(``utils/tracing.py``): its kernels' launches keep their own launch
+spans, so the device ops innermost in a composite's span are its torch
+glue, the Hermitian assembly with its ``cat``s, ``flip``s and products.
+
 Layout: natural order in and out at every batch, so at composite sizes
 the engine's unordered layout is the ordered one (the JAX v2 composite's
 choice, ``_cfft_pair_large`` :2834).
@@ -52,6 +58,7 @@ import functools
 import torch
 
 from ..plans import FFT_COMPLEX, FFT_REAL, FFTPlan, cached_plan
+from ..utils.tracing import spanned
 from . import col_passes, hopper_cfft, hopper_small, stockham
 from ._cuda import MAX_COL, MAX_N, Kernel, check, host_ints, launch, require_domain, takes_plain
 from .hopper_cfft import as_complex, complex_io, like, shape_of
@@ -337,6 +344,7 @@ def cfft_rows(x, plan: FFTPlan, forward: bool = True, ordered: bool = True):
     return cfft_composite(x, plan, forward)
 
 
+@spanned("ops.hopper_composite.cfft_composite")
 def cfft_composite(x, plan: FFTPlan, forward: bool = True):
     """Two-level complex FFT of (rows, N) rows (``_cfft_composite_v2``
     :2741): natural order in, natural order out; returns ``x``'s form."""
@@ -355,6 +363,7 @@ def cfft_composite(x, plan: FFTPlan, forward: bool = True):
     return _view(y, (rows, n))
 
 
+@spanned("ops.hopper_composite.rfft_composite")
 def rfft_composite(x: torch.Tensor, plan: FFTPlan):
     """Two-level real FFT of (rows, N) f32 -> ordered packed planes
     ((rows, N/2) x2) (``_rfft_direct_composite_v2`` :3160)."""
@@ -391,6 +400,7 @@ def rfft_composite(x: torch.Tensor, plan: FFTPlan):
     return out_r, out_i
 
 
+@spanned("ops.hopper_composite.irfft_composite")
 def irfft_composite(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
     """Unscaled inverse of :func:`rfft_composite`: ordered packed planes
     (rows, N/2) x2 -> (rows, N) f32 (``_irfft_direct_composite_v2`` :3213)."""

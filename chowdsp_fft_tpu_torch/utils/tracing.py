@@ -61,6 +61,9 @@ SPANS = (
     "stream.ols.trim",
     "ops.convolve.accumulate_packed",
     "ops.convolve.accumulate_partitioned",
+    "ops.hopper_composite.cfft_composite",
+    "ops.hopper_composite.rfft_composite",
+    "ops.hopper_composite.irfft_composite",
     "api.fft",
     "api.ifft",
     "api.fft_unordered",

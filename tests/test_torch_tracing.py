@@ -2,7 +2,9 @@
 under one, each layer boundary writes its span into the Chrome trace,
 nested by containment, every name in ``tracing.SPANS``; the outputs are
 the same either way. On the card (marked ``cuda``), each port kernel's
-runtime call lies inside the launch span of its own kernel."""
+runtime call lies inside the launch span of its own kernel, and the
+SDR chain's and the long-IR reverb's device ops lie in the spans their
+benchmark metrics read."""
 
 import json
 import pathlib
@@ -19,6 +21,7 @@ from chowdsp_fft_tpu_torch.utils import profiling, tracing
 CHANNELS, BLOCK, TAPS, T = 2, 256, 1000, 4096
 P = -(-TAPS // BLOCK)
 SDR_CHANNELS, SDR_T = 16, 16384  # the front end frames its input above 2 x 4096 samples
+LONGIR_T, LONGIR_TAPS = 48_000, 40_000  # fir_filter_ols's default block: N = 2^18, the real composite
 
 
 @pytest.fixture(scope="module")
@@ -37,11 +40,23 @@ def sdr_case():
     return models.SDRChain(models.SDRChainConfig(channels=SDR_CHANNELS), device="cpu"), iq
 
 
-def _calls(model, case, sdr_case):
+@pytest.fixture(scope="module")
+def longir_case():
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randn(CHANNELS, LONGIR_T, generator=gen)
+    h = torch.randn(CHANNELS, LONGIR_TAPS, generator=gen) * torch.exp(-torch.linspace(0.0, 8.0, LONGIR_TAPS)) / 100
+    return x, h
+
+
+def _calls(model, case, sdr_case, longir_case):
     """The calls of each model's case: its entry, and a transform entry."""
     if model == "sdr":
         chain, iq = sdr_case
         return (lambda: chain(iq), lambda: api.ifft(iq.reshape(-1, SDR_CHANNELS)))
+    if model == "longir":
+        x, h = longir_case
+        padded = torch.nn.functional.pad(h, (0, (1 << 18) - LONGIR_TAPS))
+        return (lambda: stream.fir_filter_ols(x, h), lambda: api.irfft_packed(*api.rfft_packed(padded)))
     conv, x = case
     return (lambda: conv.apply(x), lambda: api.rfft_packed_unordered(x), lambda: ct.irfft_packed(*ct.rfft_packed(x)),
             lambda: stream.fir_filter_ols(x, conv.fir.h_re[0, 0, :64]))
@@ -72,15 +87,18 @@ def _traced(tmp_path, fn):
     return out, _spans(log_dir)
 
 
-@pytest.mark.parametrize("model", ["convolver", "sdr"])
-def test_no_span_fires_without_a_profiler(case, sdr_case, monkeypatch, model):
+@pytest.mark.parametrize("model", ["convolver", "sdr", "longir"])
+def test_no_span_fires_without_a_profiler(case, sdr_case, longir_case, monkeypatch, model):
     def refuse(name):
         raise AssertionError(f"record_function({name!r}) entered with no profiler running")
 
     monkeypatch.setattr(tracing, "record_function", refuse)
-    out = [fn() for fn in _calls(model, case, sdr_case)]
+    out = [fn() for fn in _calls(model, case, sdr_case, longir_case)]
     if model == "sdr":
         assert out[0].shape == (SDR_CHANNELS, SDR_T // (2 * SDR_CHANNELS * 4))
+    elif model == "longir":
+        assert out[0].shape == (CHANNELS, LONGIR_T)
+        assert out[1].shape == (CHANNELS, 1 << 18)
     else:
         assert out[0].shape == (CHANNELS, T)
         spec_re, _ = out[1]
@@ -138,9 +156,32 @@ def test_fir_filter_ols_writes_its_spans(tmp_path):
                              "api.convolve_irfft_packed", "stream.ols.trim"])
 
 
-@pytest.mark.parametrize("model", ["convolver", "sdr"])
-def test_outputs_are_the_same_under_a_profiler(case, sdr_case, tmp_path, model):
-    calls = _calls(model, case, sdr_case)
+def test_fir_filter_ols_on_the_composite_writes_its_spans(longir_case, tmp_path):
+    """Per-channel IRs at N = 2^18: the real composite's two functions in
+    their spans inside the transform entries of ``stream.ols.fir_filter_ols``,
+    each with its kernels' launch spans (none on the CPU) and no other
+    span inside."""
+    x, h = longir_case
+    _, spans = _traced(tmp_path, lambda: stream.fir_filter_ols(x, h))
+    assert {s["name"] for s in spans} <= set(tracing.SPANS)
+    parents = sorted((s["name"], _parent(spans, s)) for s in spans)
+    assert parents == sorted([
+        ("stream.ols.fir_filter_ols", None),
+        ("api.rfft_packed_unordered", "stream.ols.fir_filter_ols"),
+        ("ops.hopper_composite.rfft_composite", "api.rfft_packed_unordered"),
+        ("stream.ols.frame", "stream.ols.fir_filter_ols"),
+        ("api.rfft_packed_unordered", "stream.ols.fir_filter_ols"),
+        ("ops.hopper_composite.rfft_composite", "api.rfft_packed_unordered"),
+        ("ops.convolve.accumulate_packed", "stream.ols.fir_filter_ols"),
+        ("api.irfft_packed_unordered", "stream.ols.fir_filter_ols"),
+        ("ops.hopper_composite.irfft_composite", "api.irfft_packed_unordered"),
+        ("stream.ols.trim", "stream.ols.fir_filter_ols"),
+    ])
+
+
+@pytest.mark.parametrize("model", ["convolver", "sdr", "longir"])
+def test_outputs_are_the_same_under_a_profiler(case, sdr_case, longir_case, tmp_path, model):
+    calls = _calls(model, case, sdr_case, longir_case)
     plain = [fn() for fn in calls]
     profiled, _ = _traced(tmp_path, lambda: [fn() for fn in calls])
     for a, b in zip(plain, profiled):
@@ -242,6 +283,53 @@ def test_sdr_device_ops_have_their_spans(tmp_path):
         call = runtime[op["args"]["correlation"]]
         same_thread = [s for s in spans if s.get("tid") == call.get("tid")]
         assert _parent(same_thread, call) in read, op["name"]
+
+
+@pytest.mark.cuda
+def test_longir_device_ops_have_their_spans(tmp_path):
+    """On the card, at the long-IR cell's widths (64 channels of 480,000
+    samples by 96,000-tap IRs, N = 2^19): every device op of a
+    ``fir_filter_ols`` call is launched, by ``correlation``, inside a
+    program span, and the ops innermost in the spans that the composite's
+    kernel and glue metrics read, the per-channel product, the framing,
+    the trim and the entry's own (the IRs' zero pad) add up to the call's
+    busy time within 0.05%."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    from portbench.metrics import composite_glue_device_ms, composite_kernel_device_ms
+
+    read = {*composite_kernel_device_ms.SPANS, *composite_glue_device_ms.SPANS, "ops.convolve.accumulate_packed",
+            "stream.ols.frame", "stream.ols.trim", "stream.ols.fir_filter_ols"}
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn(64, 480_000, generator=gen, device="cuda")
+    h = torch.randn(64, 96_000, generator=gen, device="cuda") * torch.exp(
+        -torch.linspace(0.0, 8.0, 96_000, device="cuda")) / 100
+    stream.fir_filter_ols(x, h)  # build and warm
+    torch.cuda.synchronize()
+    with profiling.trace(tmp_path / "tr"):
+        stream.fir_filter_ols(x, h)
+    [path] = list((tmp_path / "tr").glob("trace_*.json"))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"), key=lambda e: (e["ts"], -e["dur"]))
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
+    device = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                    key=lambda e: e["ts"])
+    launched = {k: sum(k in _idents(e["name"]) for e in device)
+                for k in ("rfft_col_passes_kernel", "column_passes_kernel", "irfft_col_passes_kernel", "cfft_kernel")}
+    assert launched == {"rfft_col_passes_kernel": 2, "column_passes_kernel": 3, "irfft_col_passes_kernel": 1,
+                        "cfft_kernel": 4}
+    in_read = 0.0
+    for op in device:
+        call = runtime[op["args"]["correlation"]]
+        owner = _parent([s for s in spans if s.get("tid") == call.get("tid")], call)
+        assert owner is not None, op["name"]
+        in_read += op["dur"] if owner in read else 0.0
+    busy, end = 0.0, float("-inf")
+    for op in device:  # the union of the ops' intervals
+        a, b = max(op["ts"], end), op["ts"] + op["dur"]
+        busy, end = busy + max(0.0, b - a), max(end, b)
+    assert in_read == pytest.approx(busy, rel=5e-4)
 
 
 @pytest.mark.cuda
