@@ -22,7 +22,7 @@ Phases (numbered as PERF.md cites them; there are no phases 2, 6 and
    MAX_SMALL_N, MAX_COL) and K5's and the K1-K4 row engine's points per
    thread against Python's, report ptxas's registers and spills of the
    row engine's kernels (K1-K4, K1-db, K2-db, K4-db) and of the column
-   engine's (K6's four roles, K7a, K7b);
+   engine's (K6's four roles and its two packed forms, K7a, K7b);
 3. BASELINE config 3 end to end: a 4096-tap FIR on 4 x 2^20-sample
    streams through ``stream.fir_filter_ols(block=8192)`` and
    ``stream.partitioned_fir_apply(block=1024)``, against a float64 FFT
@@ -69,7 +69,9 @@ Phases (numbered as PERF.md cites them; there are no phases 2, 6 and
     against its plain version, its bound (``utils/roofline.py``) and the
     matching ``torch.fft`` call, with the column engine's launch geometry
     and resident blocks per SM there; K6 level 2 and its reverse on the
-    real composite's planes; K7a at the reverb's shape;
+    real composite's planes; K7a at the reverb's shape; K6 level 2 and
+    l2_rev at the long-IR shape, packed against unpacked (with and without
+    the torch assembly the packed forms replace);
 16. BASELINE config 4 as examples/02_convolution_reverb.py deploys it:
     ``models.MultichannelConvolver`` built from the numpy IR bank (64
     channels, 2 s IRs) on its default device, ``apply`` on 64 x 10 s at
@@ -758,6 +760,7 @@ def phase15(ct, hc, roof, lib, dev, card) -> dict[str, dict]:
         log_times(15, k.name, f"planes of the real composite (B=64, C={rc}, A/2={ra // 2}; bound "
                               f"{planes_bound.ms:.4f} ms, {planes_bound.bound_by})", t, card)
     del grids
+    phase15_packed(ct, hc, roof, lib, dev, card)
     xs = [(torch.randn(rows, n, device=dev),) for _ in range(2)]
     xr3 = [(x.reshape(rows, ra, rc),) for (x,) in xs]
     packed = [hc.rfft_cols(v, pra) for (v,) in xr3]
@@ -788,6 +791,53 @@ def phase15(ct, hc, roof, lib, dev, card) -> dict[str, dict]:
         log_times(15, k.name, f"(N=2^20, B=64; bound {out[k.name]['bound'].ms:.4f} ms, "
                               f"{out[k.name]['bound'].bound_by})", out[k.name], card)
     return out
+
+
+def phase15_packed(ct, hc, roof, lib, dev, card) -> None:
+    """K6 level 2 and l2_rev of the real composite at the long-IR cell's
+    shape (N = 2^19: 192 rows forward, the IRs' and the frames', 128
+    inverse), device ms by graph replay: the packed forms (the path's),
+    the unpacked kernels alone, and the unpacked kernels with the torch
+    assembly they replace, which the packed outputs equal bit for bit;
+    with the packed forms' launch geometry and resident blocks per SM."""
+    from chowdsp_fft_tpu_torch.ops import col_passes
+
+    n = 1 << 19
+    a, c = hc.split_large(n, real=True)
+    plan = ct.cached_plan(c, ct.FFT_COMPLEX)
+    tw, twb = hc.real_twiddle(n, True, dev), hc.real_twiddle(n, False, dev)
+    for rows, fwd in ((192, True), (128, False)):
+        k = hc.K6_L2 if fwd else hc.K6_L2_REV
+        g = col_passes.launch_geometry(plan, rows, a // 2, 4, hc.in_place_role(k, 1))
+        log(f"phase 15 {k.name} packed geometry (L={c}): passes {g.passes}, {g.lanes} columns and {g.threads} threads "
+            f"a block, {g.buffers} tile buffer(s) of {g.smem_bytes} B; "
+            f"{lib.hopper_composite_blocks_per_sm(6 if fwd else 7, g.shape, g.threads, g.smem_bytes)} resident "
+            f"blocks per SM")
+        if fwd:
+            args = [(torch.randn(rows, c, a // 2, device=dev), torch.randn(rows, c, a // 2, device=dev),
+                     torch.randn(2 * rows, c, dtype=torch.complex64, device=dev)) for _ in range(2)]
+            forms = {"packed": lambda r, i, g: hc.level2_packed(r, i, tw, plan, g),
+                     "unpacked": lambda r, i, g: hc.level2((r, i), tw, plan, True),
+                     "unpacked + assembly": lambda r, i, g: hc.hermitian_assembly(*hc.level2((r, i), tw, plan, True),
+                                                                                   g)}
+        else:
+            args = [(torch.randn(rows, n // 2, device=dev), torch.randn(rows, n // 2, device=dev),
+                     torch.randn(rows, c, dtype=torch.complex64, device=dev)) for _ in range(2)]
+            forms = {"packed": lambda r, i, c0: hc.level2_rev_packed(r, i, c0, twb, plan),
+                     "unpacked": lambda r, i, c0: hc.level2((r.view(rows, c, a // 2), i.view(rows, c, a // 2)), twb,
+                                                            plan, False),
+                     "unpacked + assembly": lambda r, i, c0: hc.level2(hc.hermitian_grid(r, i, c0), twb, plan, False)}
+        got, want = forms["packed"](*args[0]), forms["unpacked + assembly"](*args[0])
+        require(all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want)),
+                f"phase 15 {k.name} packed differs from the unpacked kernel with the torch assembly")
+        times = {name: graph_time_ms(fn, args) for name, fn in forms.items()}
+        times["packed, again"] = graph_time_ms(forms["packed"], args)
+        bound = roof.level_roofline(n // 2, rows, c, table_points=n // 2)
+        log(f"phase 15 {k.name} real composite at the long-IR shape (N=2^19, B={rows}, C={c}, A/2={a // 2}; bound "
+            f"{bound.ms:.4f} ms, {bound.bound_by}): device ms "
+            + ", ".join(f"{name} {ms:.4f}" for name, ms in times.items())
+            + f"; packed/unpacked {times['packed'] / times['unpacked']:.3f}, bit for bit the assembly [{card}]")
+        del args
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,11 @@
 //   * K7a: (B, A, C) float32 -> packed planes (B, C, A/2) of the length-A
 //     real DFT of every column, DC in re[0] and Nyquist in im[0]; K7b the
 //     unscaled inverse, (B, C, A/2) planes -> (B, A, C).
+//   * K6 level 2 of the real composite (k6_l2_packed, k6_l2_rev_packed):
+//     the (B, C, A/2) level-2 grid G is stored as, or gathered from, the
+//     ordered packed planes (B, C/2, A) of the length-N = A*C real DFT,
+//     by Hermitian symmetry (PackedColumn); grid column 0 takes the DC and
+//     Nyquist lines' transforms instead (the real composite :3160-3284).
 //
 // What bounds them on the card: bytes. Each kernel reads and writes the
 // whole array once: 16 B per complex point per level, 8 B per real sample
@@ -85,40 +90,166 @@ __device__ __forceinline__ Tile tile_of(int M, int ls) {
 }
 
 
+// How K6 level 2 meets the real composite's ordered packed planes: not at
+// all (the complex roles), storing them (forward) or gathering them
+// (backward).
+enum { kUnpacked = 0, kPackedOut = 1, kPackedIn = 2 };
+
+// Where thread (t, j)'s points l = q*tpc + t (q < 16) of grid column
+// k1 = k0 + j, 0 < k1 < A/2, of the real composite's level-2 grid (C, A/2)
+// lie in a batch row's ordered packed planes (C/2, A): l < C/2 at row l,
+// column k1; l >= C/2, conjugated, at row C-1-l, column A-k1 (bin
+// k1 + A*k2 for k1 > A/2 is conj(G[C-1-k2, A-k1])). That is lo + q*step
+// and hi - q*step, with lo = t*A + k1, hi = C*A - t*A - k1, step = tpc*A.
+// Grid column 0 has no place there: packed columns 0 and A/2 hold the DC
+// and Nyquist lines.
+struct PackedColumn {
+  int C, A, k1, t, tpc;
+  __device__ __forceinline__ int lo() const { return t * A + k1; }
+  __device__ __forceinline__ int hi() const { return C * A - t * A - k1; }
+};
+
+// K6 level 2's forward store from registers into one batch row's packed
+// planes, for grid columns k1 > 0. Where C = 16*tpc (every power of two),
+// points q < 8 are the first half and the rest the second.
+__device__ __forceinline__ void store_packed(const PackedColumn& p, float* re, float* im, const float2* w) {
+  const int lo = p.lo(), hi = p.hi(), step = p.tpc * p.A;
+  if (kRowPoints * p.tpc == p.C) {
+#pragma unroll
+    for (int q = 0; q < kRowPoints / 2; ++q) {
+      re[lo + q * step] = w[q].x;
+      im[lo + q * step] = w[q].y;
+    }
+#pragma unroll
+    for (int q = kRowPoints / 2; q < kRowPoints; ++q) {
+      re[hi - q * step] = w[q].x;
+      im[hi - q * step] = -w[q].y;
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < kRowPoints; ++q) {
+    const int l = q * p.tpc + p.t;
+    const bool low = 2 * l < p.C;
+    const int e = low ? lo + q * step : hi - q * step;
+    if (l < p.C) {
+      re[e] = w[q].x;
+      im[e] = low ? w[q].y : -w[q].y;
+    }
+  }
+}
+
+// Grid column 0 stores none of its own transform: its thread of point
+// l < C/2 writes bins A*l and A*l + A/2 from the DC and Nyquist lines'
+// transforms (dc, ny: C points each), and the global Nyquist
+// X[N/2] = dc[C/2] (real) into im of bin 0.
+__device__ __forceinline__ void store_lines(const PackedColumn& p, float* re, float* im, const float2* dc,
+                                            const float2* ny) {
+#pragma unroll
+  for (int q = 0; q < kRowPoints; ++q) {
+    const int l = q * p.tpc + p.t;
+    if (2 * l < p.C) {
+      const float2 d = __ldg(dc + l), n = __ldg(ny + l);
+      re[l * p.A] = d.x;
+      im[l * p.A] = l == 0 ? __ldg(dc + p.C / 2).x : d.y;
+      re[l * p.A + p.A / 2] = n.x;
+      im[l * p.A + p.A / 2] = n.y;
+    }
+  }
+}
+
+// K6 level 2's backward load into registers from one batch row's packed
+// planes, for grid columns k1 > 0, every load issued before the first is
+// used, split in halves as store_packed's; grid column 0 comes from a (C)
+// column built from the DC and Nyquist lines instead.
+__device__ __forceinline__ void load_packed(const PackedColumn& p, const float* re, const float* im, float2* w) {
+  const int lo = p.lo(), hi = p.hi(), step = p.tpc * p.A;
+  if (kRowPoints * p.tpc == p.C) {
+#pragma unroll
+    for (int q = 0; q < kRowPoints / 2; ++q) w[q] = make_float2(__ldg(re + lo + q * step), __ldg(im + lo + q * step));
+#pragma unroll
+    for (int q = kRowPoints / 2; q < kRowPoints; ++q) {
+      w[q] = make_float2(__ldg(re + hi - q * step), -__ldg(im + hi - q * step));
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < kRowPoints; ++q) {
+    const int l = q * p.tpc + p.t;
+    const bool low = 2 * l < p.C;
+    const int e = low ? lo + q * step : hi - q * step;
+    if (l < p.C) {
+      const float y = __ldg(im + e);
+      w[q] = make_float2(__ldg(re + e), low ? y : -y);
+    }
+  }
+}
+
 // K6. Input (B, L, M) (columns) or (B, M, L) (rows, ROWS_IN), output the
 // same way (ROWS_OUT); TW multiplies by tw[l*M + m] before or after.
 // Thread (t, j) loads points q*tpc + t (q < 16) of column j into
 // registers, every load issued before the first is used, and stores the
-// same points of the transform from registers.
-template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW, int SHAPE>
+// same points of the transform from registers. PACK (level 2 of the real
+// composite, planes, L = C, M = A/2): the output (kPackedOut) or the input
+// (kPackedIn) is the (B, C/2, A) ordered packed planes, grid column 0 in
+// `lines` (kPackedOut: the (2B, C) DC then Nyquist line transforms;
+// kPackedIn: the (B, C) column 0); `lines` is null for kUnpacked.
+template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW, int SHAPE, int PACK = kUnpacked>
 __global__ void __launch_bounds__(col_threads<SHAPE>(), col_min_blocks<SHAPE>())
 column_passes_kernel(const float* __restrict__ xre, const float* __restrict__ xim, float* __restrict__ yre,
                      float* __restrict__ yim, int stride, int L, int M, int ls, ColPlan plan,
-                     const float2* __restrict__ pass_tw, const float2* __restrict__ tw) {
+                     const float2* __restrict__ pass_tw, const float2* __restrict__ tw,
+                     const float2* __restrict__ lines) {
   extern __shared__ float2 smem[];
   const Tile tl = tile_of(M, ls);
   const int cols = min(M - tl.m0, 1 << ls);
   const size_t row = static_cast<size_t>(tl.b) * L * M;
-  const size_t in_at = (row + (ROWS_IN ? static_cast<size_t>(tl.m0) * L : tl.m0)) * stride;
-  const size_t out_at = (row + (ROWS_OUT ? static_cast<size_t>(tl.m0) * L : tl.m0)) * stride;
   const bool il = stride == 2;
-  const Global<ROWS_IN, TW == kTwiddleBefore> in{const_cast<float*>(xre) + in_at, const_cast<float*>(xim) + in_at,
-                                                 L, M, cols, il, tw + tl.m0};
-  const Global<ROWS_OUT, TW == kTwiddleAfter> out{yre + out_at, yim + out_at, L, M, cols, il, tw + tl.m0};
   const int j = threadIdx.x & ((1 << ls) - 1);
   const int t = threadIdx.x >> ls;
   const int tpc = blockDim.x >> ls;
   float2 w[kRowPoints];
+  if constexpr (PACK == kPackedIn) {
 #pragma unroll
-  for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < L ? in(q * tpc + t, j) : make_float2(0.0f, 0.0f);
+    for (int q = 0; q < kRowPoints; ++q) w[q] = make_float2(0.0f, 0.0f);
+    const PackedColumn p{L, 2 * M, tl.m0 + j, t, tpc};
+    if (p.k1 == 0) {
+      const float2* col0 = lines + static_cast<size_t>(tl.b) * L;
+#pragma unroll
+      for (int q = 0; q < kRowPoints; ++q) {
+        if (q * tpc + t < L) w[q] = __ldg(col0 + q * tpc + t);
+      }
+    } else if (j < cols) {
+      load_packed(p, xre + row, xim + row, w);
+    }
+  } else {
+    const size_t in_at = (row + (ROWS_IN ? static_cast<size_t>(tl.m0) * L : tl.m0)) * stride;
+    const Global<ROWS_IN, TW == kTwiddleBefore> in{const_cast<float*>(xre) + in_at,
+                                                   const_cast<float*>(xim) + in_at, L, M, cols, il, tw + tl.m0};
+#pragma unroll
+    for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < L ? in(q * tpc + t, j) : make_float2(0.0f, 0.0f);
+  }
   if constexpr (SHAPE == kColInPlace) {
     run_col_passes_in_place<SIGN>(plan, w, TileBuf{smem, ls}, L, pass_tw, t, tpc, j);
   } else {
     run_col_passes<SIGN>(plan, w, TileBuf{smem, ls}, L, pass_tw, t, tpc, j);
   }
+  if constexpr (PACK == kPackedOut) {
+    const PackedColumn p{L, 2 * M, tl.m0 + j, t, tpc};
+    if (p.k1 == 0) {
+      const int batch = gridDim.x / ((M + (1 << ls) - 1) >> ls);
+      store_lines(p, yre + row, yim + row, lines + static_cast<size_t>(tl.b) * L,
+                  lines + static_cast<size_t>(batch + tl.b) * L);
+    } else if (j < cols) {
+      store_packed(p, yre + row, yim + row, w);
+    }
+  } else {
+    const size_t out_at = (row + (ROWS_OUT ? static_cast<size_t>(tl.m0) * L : tl.m0)) * stride;
+    const Global<ROWS_OUT, TW == kTwiddleAfter> out{yre + out_at, yim + out_at, L, M, cols, il, tw + tl.m0};
 #pragma unroll
-  for (int q = 0; q < kRowPoints; ++q) {
-    if (q * tpc + t < L) out.put(q * tpc + t, j, w[q]);
+    for (int q = 0; q < kRowPoints; ++q) {
+      if (q * tpc + t < L) out.put(q * tpc + t, j, w[q]);
+    }
   }
 }
 
@@ -244,6 +375,10 @@ const void* col_kernel_of(int role) {
     case 3: return reinterpret_cast<const void*>(column_passes_kernel<1, true, false, kNoTwiddle, SHAPE>);
     case 4: return reinterpret_cast<const void*>(irfft_col_passes_kernel<SHAPE>);
     case 5: return reinterpret_cast<const void*>(rfft_col_passes_kernel<SHAPE>);
+    case 6:
+      return reinterpret_cast<const void*>(column_passes_kernel<-1, false, false, kTwiddleBefore, SHAPE, kPackedOut>);
+    case 7:
+      return reinterpret_cast<const void*>(column_passes_kernel<1, false, false, kTwiddleAfter, SHAPE, kPackedIn>);
     default: return nullptr;
   }
 }
@@ -267,12 +402,14 @@ int check_col_launch(int L, int batch, int M, const int* radices, int nstages, c
   return *run ? check_col_geometry(*plan, L, batch, M, ls, threads, smem, grid, shape) : 0;
 }
 
-template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW>
+template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW, int PACK = kUnpacked>
 int launch_column(const float* xre, const float* xim, float* yre, float* yim, int stride, int batch, int L, int M,
                   const int* radices, int nstages, const int* passes, int npasses, const void* pass_tw,
-                  const void* tw, int ls, int threads, int smem, int grid, void* stream) {
+                  const void* tw, int ls, int threads, int smem, int grid, void* stream,
+                  const void* lines = nullptr) {
   if (L < 2 || L > kMaxCol || M < 0 || batch < 0 || (stride != 1 && stride != 2) ||
-      (TW != kNoTwiddle && tw == nullptr))
+      (TW != kNoTwiddle && tw == nullptr) ||
+      (PACK != kUnpacked && (lines == nullptr || stride != 1 || L % 2 || M < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   ColPlan plan;
   bool run;
@@ -280,13 +417,14 @@ int launch_column(const float* xre, const float* xim, float* yre, float* yim, in
   int err = check_col_launch(L, batch, M, radices, nstages, passes, npasses, ls, threads, smem, grid, &plan, &run,
                              &shape);
   if (err || !run) return err;
-  auto kernel = shape == kColNarrow ? column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColNarrow>
-                : shape == kColWide ? column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColWide>
-                                    : column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColInPlace>;
+  auto kernel = shape == kColNarrow ? column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColNarrow, PACK>
+                : shape == kColWide ? column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColWide, PACK>
+                                    : column_passes_kernel<SIGN, ROWS_IN, ROWS_OUT, TW, kColInPlace, PACK>;
   err = set_smem(kernel, smem);
   if (err) return err;
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xre, xim, yre, yim, stride, L, M, ls, plan, static_cast<const float2*>(pass_tw), static_cast<const float2*>(tw));
+      xre, xim, yre, yim, stride, L, M, ls, plan, static_cast<const float2*>(pass_tw), static_cast<const float2*>(tw),
+      static_cast<const float2*>(lines));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,8 +436,8 @@ int hopper_composite_max_col() { return kMaxCol; }
 
 // Blocks of a column-engine kernel resident on one SM at a launch
 // geometry's shape (0 narrow, 1 wide, 2 in place), threads and shared
-// bytes (role 0-3: K6 l1, l2, l2_rev, l1_rev; 4: K7b; 5: K7a); 0 if the
-// query fails.
+// bytes (role 0-3: K6 l1, l2, l2_rev, l1_rev; 4: K7b; 5: K7a; 6, 7: K6 l2,
+// l2_rev on the real composite's packed planes); 0 if the query fails.
 int hopper_composite_blocks_per_sm(int role, int shape, int threads, int smem) {
   const void* kernel = shape < kColNarrow || shape > kColInPlace ? nullptr : col_kernel(role, shape);
   int per_sm = 0;
@@ -340,6 +478,32 @@ int k6_l2_rev(const float* xre, const float* xim, float* yre, float* yim, int st
               const void* tw, int ls, int threads, int smem, int grid, void* stream) {
   return launch_column<1, false, false, kTwiddleAfter>(xre, xim, yre, yim, stride, batch, L, M, radices, nstages,
                                                        passes, npasses, pass_tw, tw, ls, threads, smem, grid, stream);
+}
+
+// K6 level 2 of the real composite, forward: twiddle, then column DFTs of
+// the (B, L, M) planes x (L = C, M = A/2, even C), stored into y as the
+// (B, C/2, A) ordered packed planes of the length-A*C real DFT; `lines` is
+// the (2B, C) complex64 DC (rows < B) and Nyquist (rows >= B) line
+// transforms, which give grid column 0's bins and X[N/2]. The other
+// arguments are k6_l2's, with no element stride (planes only).
+int k6_l2_packed(const float* xre, const float* xim, float* yre, float* yim, const void* lines, int batch, int L,
+                 int M, const int* radices, int nstages, const int* passes, int npasses, const void* pass_tw,
+                 const void* tw, int ls, int threads, int smem, int grid, void* stream) {
+  return launch_column<-1, false, false, kTwiddleBefore, kPackedOut>(xre, xim, yre, yim, 1, batch, L, M, radices,
+                                                                     nstages, passes, npasses, pass_tw, tw, ls,
+                                                                     threads, smem, grid, stream, lines);
+}
+
+// K6 level 2 of the real composite, backward: the (B, L, M) grid gathered
+// from the (B, C/2, A) ordered packed planes x (L = C, M = A/2), its
+// column 0 from `lines`, the (B, C) complex64 column; then inverse column
+// DFTs and the twiddle, stored into the (B, L, M) planes y.
+int k6_l2_rev_packed(const float* xre, const float* xim, float* yre, float* yim, const void* lines, int batch,
+                     int L, int M, const int* radices, int nstages, const int* passes, int npasses,
+                     const void* pass_tw, const void* tw, int ls, int threads, int smem, int grid, void* stream) {
+  return launch_column<1, false, false, kTwiddleAfter, kPackedIn>(xre, xim, yre, yim, 1, batch, L, M, radices,
+                                                                  nstages, passes, npasses, pass_tw, tw, ls, threads,
+                                                                  smem, grid, stream, lines);
 }
 
 // K6 level 1, backward: (B, M, L) rows -> inverse DFTs -> (B, L, M) columns.

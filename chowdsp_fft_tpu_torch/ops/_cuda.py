@@ -99,8 +99,8 @@ _SIGNATURES = {
     "k5_small_irfft": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "hopper_composite_max_col": [],
     # Column-engine blocks resident per SM: role (K6 l1, l2, l2_rev,
-    # l1_rev, K7b, K7a), shape (narrow, wide, in place), threads, shared
-    # bytes.
+    # l1_rev, K7b, K7a, then l2 and l2_rev on packed planes), shape
+    # (narrow, wide, in place), threads, shared bytes.
     "hopper_composite_blocks_per_sm": [_I, _I, _I, _I],
     # K6 roles: x re/im, y re/im, element stride, batch, L, M, radices,
     # nstages, pass plan, npasses, pass twiddles, four-step twiddles (NULL
@@ -108,6 +108,10 @@ _SIGNATURES = {
     # grid), stream.
     **{name: [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P]
        for name in ("k6_l1", "k6_l2", "k6_l2_rev", "k6_l1_rev")},
+    # K6 level 2 of the real composite on its ordered packed planes: the
+    # same, with the DC and Nyquist lines' pointer in the stride's place.
+    **{name: [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P]
+       for name in ("k6_l2_packed", "k6_l2_rev_packed")},
     # K7a: real in, packed re/im out; K7b: packed re/im in, real out; then
     # batch, A, C, radices, nstages, pass plan, npasses, pass twiddles,
     # split twiddles, launch geometry, stream.

@@ -19,18 +19,22 @@ planes) that the wrapper allocates.
 
 The real composite (N = A * C, both even) is K7a, a column-blocked packed
 real FFT of length A from (B, A, C) to (B, C, A/2) planes with DC in
-re[..., 0] and the level-1 Nyquist in im[..., 0]; then K6 ``l2`` on those
-planes with ``tables.rdc_l2_twiddle``; the DC and Nyquist lines as two
-length-C complex transforms (K5, K4 or this composite, through
-:func:`cfft_rows`); and the Hermitian assembly into ordered packed planes,
-in plain torch as the JAX package has it in XLA. The inverse mirrors it,
-ending in K7b.
+re[..., 0] and the level-1 Nyquist in im[..., 0]; the DC and Nyquist
+lines as two length-C complex transforms (K5, K4 or this composite,
+through :func:`cfft_rows`); then K6 ``l2`` on the planes with
+``tables.rdc_l2_twiddle``, whose store is the Hermitian assembly: it
+writes the ordered packed planes (B, C/2, A) by :func:`packed_index`'s
+map, grid column 0 from the lines (:func:`level2_packed`). The inverse
+mirrors it: K6 ``l2_rev`` gathers the grid from the packed planes and a
+column 0 built from the lines (:func:`level2_rev_packed`), then K7b. The
+plain versions of the two packed forms are the JAX package's assembly in
+torch (``cat``s and ``flip``s, as it has it in XLA).
 
 Each composite (:func:`cfft_composite`, :func:`rfft_composite`,
 :func:`irfft_composite`) runs in a span ``ops.hopper_composite.<name>``
 (``utils/tracing.py``): its kernels' launches keep their own launch
 spans, so the device ops innermost in a composite's span are its torch
-glue, the Hermitian assembly with its ``cat``s, ``flip``s and products.
+glue: on the card, the ops on the (B, C) DC and Nyquist lines.
 
 Layout: natural order in and out at every batch, so at composite sizes
 the engine's unordered layout is the ordered one (the JAX v2 composite's
@@ -88,8 +92,15 @@ __all__ = [
     "level2",
     "rfft_cols",
     "irfft_cols",
+    "level2_packed",
+    "level2_rev_packed",
     "level1_plain",
     "level2_plain",
+    "level2_packed_plain",
+    "level2_rev_packed_plain",
+    "hermitian_assembly",
+    "hermitian_grid",
+    "packed_index",
     "rfft_cols_plain",
     "irfft_cols_plain",
     "cfft_composite",
@@ -97,6 +108,7 @@ __all__ = [
     "irfft_composite",
     "cfft_rows",
     "column_lengths",
+    "real_splits",
     "in_place_role",
 ]
 
@@ -116,25 +128,37 @@ def _col_ok(length: int) -> bool:
 
 
 @functools.lru_cache(maxsize=1)
+def _composite_splits() -> tuple[frozenset, frozenset]:
+    """The complex and the real splits (A, C) of every size this engine
+    sends to the composite (up to 2^20)."""
+    smooth = sorted(p2 * p3 * p5 for p2 in (2 ** i for i in range(21)) for p3 in (3 ** i for i in range(13))
+                    for p5 in (5 ** i for i in range(9)) if JAX_MIN_SMALL <= p2 * p3 * p5 <= JAX_MAX_COMPOSITE)
+    complex_splits, real = set(), set()
+    for n in smooth:
+        if hopper_small.in_domain(n):
+            continue
+        if not hopper_cfft.in_domain(n) and jax_has_composite_split(n):
+            complex_splits.add(split_large(n))
+        k1 = 2 * LANES < n <= MAX_N and is_smooth_multiple(n)
+        if n % 2 == 0 and not k1 and jax_has_composite_split(n, real=True):
+            real.add(split_large(n, real=True))
+    return frozenset(complex_splits), frozenset(real)
+
+
+def real_splits() -> tuple[tuple[int, int], ...]:
+    """Every split (A, C) the real composite runs."""
+    return tuple(sorted(_composite_splits()[1]))
+
+
+@functools.lru_cache(maxsize=1)
 def column_lengths() -> tuple[tuple[int, ...], tuple[int, ...]]:
     """Every column length the composite's kernels run, over every size
     this engine sends to the composite (up to 2^20): K6's complex lengths
     (both factors of a complex split and C of a real one) and K7's real
     lengths A."""
-    smooth = sorted(p2 * p3 * p5 for p2 in (2 ** i for i in range(21)) for p3 in (3 ** i for i in range(13))
-                    for p5 in (5 ** i for i in range(9)) if JAX_MIN_SMALL <= p2 * p3 * p5 <= JAX_MAX_COMPOSITE)
-    complex_lengths, real_lengths = set(), set()
-    for n in smooth:
-        if hopper_small.in_domain(n):
-            continue
-        if not hopper_cfft.in_domain(n) and jax_has_composite_split(n):
-            complex_lengths.update(split_large(n))
-        k1 = 2 * LANES < n <= MAX_N and is_smooth_multiple(n)
-        if n % 2 == 0 and not k1 and jax_has_composite_split(n, real=True):
-            a, c = split_large(n, real=True)
-            real_lengths.add(a)
-            complex_lengths.add(c)
-    return tuple(sorted(complex_lengths)), tuple(sorted(real_lengths))
+    complex_splits, real = _composite_splits()
+    complex_lengths = {n for split in complex_splits for n in split} | {c for _, c in real}
+    return tuple(sorted(complex_lengths)), tuple(sorted({a for a, _ in real}))
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +294,127 @@ def level2(x, tw: torch.Tensor, plan: FFTPlan, forward: bool = True):
 
 
 # ---------------------------------------------------------------------------
+# K6 level 2 of the real composite: the Hermitian assembly in its store
+# (forward) and its load (backward)
+# ---------------------------------------------------------------------------
+
+
+def packed_index(c: int, a: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The map by which K6 level 2 of the real composite stores its
+    (C, A/2) grid G into a row's ordered packed planes (C/2, A), and
+    l2_rev gathers it (``csrc/composite_fft.cu`` ``PackedColumn``): for grid
+    columns k1 in [1, A/2), the (C, A/2 - 1) flat positions and whether the
+    point is conjugated there. Point l < C/2 lies at row l, column k1;
+    point l >= C/2 at row C-1-l, column A-k1, conjugated (bin k1 + A*k2
+    for k1 > A/2 is conj(G[C-1-k2, A-k1])). Grid column 0 has no place:
+    packed columns 0 and A/2 hold the DC and Nyquist lines."""
+    l = torch.arange(c)[:, None]
+    k1 = torch.arange(1, a // 2)[None, :]
+    low = l < c // 2
+    return torch.where(low, l * a + k1, (c - 1 - l) * a + a - k1), (~low).expand(c, a // 2 - 1)
+
+
+def hermitian_assembly(gr: torch.Tensor, gi: torch.Tensor, lines: torch.Tensor):
+    """The real composite's level-2 grid planes (B, C, A/2) and its (2B, C)
+    complex64 DC (rows < B) and Nyquist (rows >= B) line transforms ->
+    ordered packed planes ((B, N/2) x2): rows k2 < C/2 hold bins
+    k1 + A*k2 for k1 <= A/2 directly; k1 in (A/2, A) comes from
+    conj(G[C-1-k2, A-k1]); X[N/2] = G_dc[C/2] (real) goes to im[0]."""
+    b, c, half_a = gr.shape
+    c2 = c // 2
+    g0, gny = lines[:b], lines[b:]
+    first_r = torch.cat([g0.real[:, :c2, None], gr[:, :c2, 1:], gny.real[:, :c2, None]], 2)
+    first_i = torch.cat([g0.imag[:, :c2, None], gi[:, :c2, 1:], gny.imag[:, :c2, None]], 2)
+    sec_r = torch.flip(gr[:, c2:, 1:], (1, 2))
+    sec_i = -torch.flip(gi[:, c2:, 1:], (1, 2))
+    out_r = torch.cat([first_r, sec_r], 2).reshape(b, c * half_a)
+    out_i = torch.cat([first_i, sec_i], 2).reshape(b, c * half_a)
+    out_i[:, 0] = g0.real[:, c2]
+    return out_r, out_i
+
+
+def hermitian_grid(yre: torch.Tensor, yim: torch.Tensor, col0: torch.Tensor):
+    """Ordered packed planes ((B, N/2) x2) and the (B, C) complex64 grid
+    column 0 -> the real composite's level-2 grid planes (B, C, A/2) by
+    Hermitian symmetry, the inverse of :func:`hermitian_assembly` on the
+    columns k1 in [1, A/2)."""
+    b, c = col0.shape
+    a = 2 * yre.shape[1] // c
+    pr, pi = yre.reshape(b, c // 2, a), yim.reshape(b, c // 2, a)
+    mids_r = torch.cat([pr[:, :, 1:a // 2], torch.flip(pr[:, :, a // 2 + 1:], (1, 2))], 1)
+    mids_i = torch.cat([pi[:, :, 1:a // 2], -torch.flip(pi[:, :, a // 2 + 1:], (1, 2))], 1)
+    return torch.cat([col0.real[:, :, None], mids_r], 2), torch.cat([col0.imag[:, :, None], mids_i], 2)
+
+
+def level2_packed_plain(pre: torch.Tensor, pim: torch.Tensor, tw: torch.Tensor, plan: FFTPlan, lines: torch.Tensor):
+    """Plain version of :func:`level2_packed`: K6 level 2's plain version,
+    then :func:`hermitian_assembly`."""
+    return hermitian_assembly(*level2_plain((pre, pim), tw, plan, True), lines)
+
+
+def level2_rev_packed_plain(yre: torch.Tensor, yim: torch.Tensor, col0: torch.Tensor, tw: torch.Tensor,
+                            plan: FFTPlan):
+    """Plain version of :func:`level2_rev_packed`: :func:`hermitian_grid`,
+    then K6 level 2's plain version backward."""
+    return level2_plain(hermitian_grid(yre, yim, col0), tw, plan, False)
+
+
+def _require_packed(kernel: Kernel, plan: FFTPlan, c: int, half_a: int):
+    require_domain(kernel, plan.kind == FFT_COMPLEX and _col_ok(plan.n) and plan.n % 2 == 0, plan.n, plan.kind)
+    if c != plan.n or half_a < 1:
+        raise ValueError(f"{kernel.name}: a grid of {c} x {half_a} columns, plan N={plan.n}")
+
+
+def level2_packed(pre: torch.Tensor, pim: torch.Tensor, tw: torch.Tensor, plan: FFTPlan, lines: torch.Tensor):
+    """K6 level 2 of the real composite, forward: the (B, C, A/2) planes
+    after K7a, C = plan.n, twiddled by the (C, A/2) ``tw`` and transformed
+    down their columns, stored as the ordered packed planes ((B, N/2) x2),
+    grid column 0's bins and X[N/2] from ``lines``, the (2B, C) complex64
+    DC and Nyquist line transforms (:func:`hermitian_assembly`'s layout)."""
+    b, c, half_a = pre.shape
+    _require_packed(K6_L2, plan, c, half_a)
+    if takes_plain(K6_L2.name, pre, pim, tw, lines):
+        return level2_packed_plain(pre, pim, tw, plan, lines)
+    dev = pre.device
+    check(f"{K6_L2.name} re", pre, (b, c, half_a), dev)
+    check(f"{K6_L2.name} im", pim, (b, c, half_a), dev)
+    check(f"{K6_L2.name} twiddle", tw, (c, half_a), dev, torch.complex64)
+    check(f"{K6_L2.name} lines", lines, (2 * b, c), dev, torch.complex64)
+    out_r = torch.empty((b, c * half_a), dtype=torch.float32, device=dev)
+    out_i = torch.empty_like(out_r)
+    if b:
+        _launch_columns(K6_L2, "k6_l2_packed", dev, plan, b, half_a, 4, in_place_role(K6_L2, 1),
+                        (pre.data_ptr(), pim.data_ptr(), out_r.data_ptr(), out_i.data_ptr(), lines.data_ptr(), b, c,
+                         half_a), tw.data_ptr())
+    return out_r, out_i
+
+
+def level2_rev_packed(yre: torch.Tensor, yim: torch.Tensor, col0: torch.Tensor, tw: torch.Tensor, plan: FFTPlan):
+    """K6 level 2 of the real composite, backward: the (B, C, A/2) grid,
+    C = plan.n, gathered from the ordered packed planes ((B, N/2) x2) by
+    Hermitian symmetry, its column 0 from ``col0`` ((B, C) complex64),
+    then inverse transforms down its columns and the (C, A/2) ``tw`` ->
+    (B, C, A/2) planes."""
+    b, c = col0.shape
+    half_a = yre.shape[-1] // c if c else 0
+    _require_packed(K6_L2_REV, plan, c, half_a)
+    if takes_plain(K6_L2_REV.name, yre, yim, col0, tw):
+        return level2_rev_packed_plain(yre, yim, col0, tw, plan)
+    dev = yre.device
+    check(f"{K6_L2_REV.name} re", yre, (b, c * half_a), dev)
+    check(f"{K6_L2_REV.name} im", yim, (b, c * half_a), dev)
+    check(f"{K6_L2_REV.name} twiddle", tw, (c, half_a), dev, torch.complex64)
+    check(f"{K6_L2_REV.name} column 0", col0, (b, c), dev, torch.complex64)
+    pre = torch.empty((b, c, half_a), dtype=torch.float32, device=dev)
+    pim = torch.empty_like(pre)
+    if b:
+        _launch_columns(K6_L2_REV, "k6_l2_rev_packed", dev, plan, b, half_a, 4, in_place_role(K6_L2_REV, 1),
+                        (yre.data_ptr(), yim.data_ptr(), pre.data_ptr(), pim.data_ptr(), col0.data_ptr(), b, c,
+                         half_a), tw.data_ptr())
+    return pre, pim
+
+
+# ---------------------------------------------------------------------------
 # K7a, K7b: the real composite's level 1
 # ---------------------------------------------------------------------------
 
@@ -369,7 +514,7 @@ def rfft_composite(x: torch.Tensor, plan: FFTPlan):
     ((rows, N/2) x2) (``_rfft_direct_composite_v2`` :3160)."""
     n = plan.n
     a, c = split_large(n, real=True)
-    b, c2 = x.shape[0], c // 2
+    b = x.shape[0]
     plan_c = cached_plan(c, FFT_COMPLEX)
     nytr, nyti = _nyquist(n, str(x.device))
 
@@ -382,22 +527,10 @@ def rfft_composite(x: torch.Tensor, plan: FFTPlan):
     lines = torch.complex(torch.cat([dcrow, nyrow * nytr]),
                           torch.cat([torch.zeros_like(dcrow), nyrow * nyti]))
     g = cfft_rows(lines, plan_c, True, True)
-    g0, gny = g[:b], g[b:]
 
-    # Level 2: twiddle, then ordered C-FFTs down the A/2 columns, in place.
-    gr, gi = level2((pre, pim), real_twiddle(n, True, x.device), plan_c, True)
-
-    # Hermitian assembly: rows k2 < C/2 hold bins k1 + A*k2 for k1 <= A/2
-    # directly; k1 in (A/2, A) comes from conj(G[A-k1, C-1-k2]).
-    first_r = torch.cat([g0.real[:, :c2, None], gr[:, :c2, 1:], gny.real[:, :c2, None]], 2)
-    first_i = torch.cat([g0.imag[:, :c2, None], gi[:, :c2, 1:], gny.imag[:, :c2, None]], 2)
-    sec_r = torch.flip(gr[:, c2:, 1:], (1, 2))
-    sec_i = -torch.flip(gi[:, c2:, 1:], (1, 2))
-    out_r = torch.cat([first_r, sec_r], 2).reshape(b, n // 2)
-    out_i = torch.cat([first_i, sec_i], 2).reshape(b, n // 2)
-    # The global Nyquist X[N/2] = G_dc[C/2] (real) goes to im[0].
-    out_i[:, 0] = g0.real[:, c2]
-    return out_r, out_i
+    # Level 2: twiddle, then C-FFTs down the A/2 columns, stored as the
+    # ordered packed planes (the Hermitian assembly), column 0 from g.
+    return level2_packed(pre, pim, real_twiddle(n, True, x.device), plan_c, g)
 
 
 @spanned("ops.hopper_composite.irfft_composite")
@@ -411,16 +544,14 @@ def irfft_composite(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
     nytr, nyti = _nyquist(n, str(yre.device))
 
     nyq = yim[:, :1]  # X[N/2]
-    pr = yre.reshape(b, c // 2, a)
-    pi = torch.cat([torch.zeros_like(nyq), yim[:, 1:]], 1).reshape(b, c // 2, a)
+    pr, pi = yre.reshape(b, c // 2, a), yim.reshape(b, c // 2, a)
+    # The DC line's imaginary part, its k2 = 0 (where X[N/2] is packed) zero.
+    pi0 = torch.cat([torch.zeros_like(nyq), pi[:, 1:, 0]], 1)
 
-    # Rebuild the level-2 grid G (B, C, A/2) by Hermitian symmetry.
-    mids_r = torch.cat([pr[:, :, 1:half_a], torch.flip(pr[:, :, half_a + 1:], (1, 2))], 1)
-    mids_i = torch.cat([pi[:, :, 1:half_a], -torch.flip(pi[:, :, half_a + 1:], (1, 2))], 1)
     # Column 0 (DC line): direct rows, then conj-flipped rows with the
     # packed global Nyquist at k2 = C/2.
     col0_r = torch.cat([pr[:, :, 0], nyq, torch.flip(pr[:, 1:, 0], (1,))], 1)
-    col0_i = torch.cat([pi[:, :, 0], torch.zeros_like(nyq), -torch.flip(pi[:, 1:, 0], (1,))], 1)
+    col0_i = torch.cat([pi0, torch.zeros_like(nyq), -torch.flip(pi0[:, 1:], (1,))], 1)
     # Nyquist line (column A/2): direct rows, then conj-flipped rows.
     ny = torch.complex(torch.cat([pr[:, :, half_a], torch.flip(pr[:, :, half_a], (1,))], 1),
                        torch.cat([pi[:, :, half_a], -torch.flip(pi[:, :, half_a], (1,))], 1))
@@ -431,9 +562,9 @@ def irfft_composite(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan):
     u = cfft_rows(ny, plan_c, False, True)
     ny_c = u.real * nytr + u.imag * nyti
     f = cfft_rows(torch.complex(ny_c / float(c), torch.zeros_like(ny_c)), plan_c, True, True)
-    grid_r = torch.cat([(col0_r - f.imag)[:, :, None], mids_r], 2)
-    grid_i = torch.cat([(col0_i + f.real)[:, :, None], mids_i], 2)
+    col0 = torch.complex(col0_r - f.imag, col0_i + f.real)
 
-    # Level 2 inverse, then the column-blocked real inverse of level 1.
-    pre, pim = level2((grid_r, grid_i), real_twiddle(n, False, yre.device), plan_c, False)
+    # Level 2 inverse on the grid gathered from the packed planes by
+    # Hermitian symmetry, then the column-blocked real inverse of level 1.
+    pre, pim = level2_rev_packed(yre, yim, col0, real_twiddle(n, False, yre.device), plan_c)
     return irfft_cols(pre, pim, cached_plan(a, FFT_REAL)).reshape(b, n)

@@ -321,6 +321,140 @@ def test_real_composite_matches_plain(dev, n, rows):
     assert all(k.launches > 0 for k in (hc.K7A, hc.K7B, hc.K6_L2, hc.K6_L2_REV))
 
 
+def unpacked_level2(monkeypatch):
+    """The real composite as it stood before K6 level 2 took over the
+    Hermitian assembly: the unpacked level-2 kernels on the card, with
+    the torch assembly (``hermitian_assembly``, ``hermitian_grid``) on
+    the same device."""
+    monkeypatch.setattr(hc, "level2_packed", lambda pre, pim, tw, plan, lines: hc.hermitian_assembly(
+        *hc.level2((pre, pim), tw, plan, True), lines))
+    monkeypatch.setattr(hc, "level2_rev_packed", lambda yre, yim, col0, tw, plan: hc.level2(
+        hc.hermitian_grid(yre, yim, col0), tw, plan, False))
+
+
+def bits_equal(got, want) -> bool:
+    """``torch.equal`` on each float32 tensor's bits: signs of zeros too."""
+    return all(g.shape == w.shape and torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n,rows", [(1 << 18, 1), (1 << 18, 7), (1 << 19, 1), (1 << 19, 7), (1 << 19, 64),
+                                    (1 << 19, 128), (3 << 18, 1), (3 << 18, 7)])
+def test_packed_level2_equals_the_torch_assembly(dev, n, rows, monkeypatch):
+    """K6 level 2 storing the ordered packed planes, and l2_rev gathering
+    them, bit for bit the unpacked kernels with the torch assembly on the
+    card, through ``rfft_composite`` and ``irfft_composite``; a packed
+    plane with its conjugate half unnegated differs."""
+    plan = ct.cached_plan(n, ct.FFT_REAL)
+    x = rand((rows, n), dev, n + rows)
+    hf.reset_launch_counts()
+    re, im = hc.rfft_composite(x, plan)
+    back = hc.irfft_composite(re, im, plan)
+    torch.cuda.synchronize()
+    assert hc.K6_L2.launches == 1 and hc.K6_L2_REV.launches == 1
+    with monkeypatch.context() as m:
+        unpacked_level2(m)
+        want = hc.rfft_composite(x, plan)
+        want_back = hc.irfft_composite(*want, plan)
+    assert bits_equal((re, im, back), (*want, want_back))
+    a, c = hc.split_large(n, real=True)
+    flipped = im.reshape(rows, c // 2, a).clone()
+    flipped[:, :, a // 2 + 1:] *= -1
+    assert not bits_equal((flipped.reshape(rows, -1),), (want[1],))
+
+
+def test_packed_level2_at_every_real_split(dev, monkeypatch):
+    """The packed forms at every split (A, C) the real composite runs, 3
+    rows: ``level2_packed`` and ``level2_rev_packed`` bit for bit the
+    unpacked kernels with the torch assembly on the card."""
+    for a, c in hc.real_splits():
+        plan = ct.cached_plan(c, ct.FFT_COMPLEX)
+        tw, twb = hc.real_twiddle(a * c, True, dev), hc.real_twiddle(a * c, False, dev)
+        pre, pim = rand((3, c, a // 2), dev, a + c), rand((3, c, a // 2), dev, a + c + 1)
+        lines = crand((6, c), dev, a * c)
+        got = hc.level2_packed(pre, pim, tw, plan, lines)
+        assert bits_equal(got, hc.hermitian_assembly(*hc.level2((pre, pim), tw, plan, True), lines)), (a, c)
+        col0 = crand((3, c), dev, a * c + 1)
+        back = hc.level2_rev_packed(*got, col0, twb, plan)
+        assert bits_equal(back, hc.level2(hc.hermitian_grid(*got, col0), twb, plan, False)), (a, c)
+
+
+def _shapes(dims):
+    """The tensor shapes in a Chrome trace's "Input Dims" (lists of ints,
+    nested for tensor lists)."""
+    if isinstance(dims, list) and all(isinstance(d, int) for d in dims):
+        yield dims
+    elif isinstance(dims, list):
+        for d in dims:
+            yield from _shapes(d)
+
+
+# Profiles one warm real composite round trip of (rows, n) samples on the
+# card, recording the ops' input shapes, into a Chrome trace:
+#     python -c GLUE_PROFILE n rows trace.json
+GLUE_PROFILE = """
+import sys
+import torch
+import chowdsp_fft_tpu_torch as ct
+from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
+
+n, rows, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+plan = ct.cached_plan(n, ct.FFT_REAL)
+x = torch.randn(rows, n, generator=torch.Generator(device="cuda").manual_seed(23), device="cuda")
+hc.irfft_composite(*hc.rfft_composite(x, plan), plan)  # build and warm
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+    hc.irfft_composite(*hc.rfft_composite(x, plan), plan)
+    torch.cuda.synchronize()
+prof.export_chrome_trace(out)
+"""
+
+
+def test_real_composite_glue_has_no_plane_sized_op(dev, tmp_path):
+    """At N = 2^19, 16 rows: every device op that ``rfft_composite`` and
+    ``irfft_composite`` launch innermost in their own spans (their glue)
+    comes from an op whose inputs are at most the (2B, C) lines, far
+    below a packed plane (B, N/2). The profile (``GLUE_PROFILE``) runs in
+    a process of its own: run in the card tests' process, it was followed
+    by device events missing from three later tests' profiles."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    n, rows = 1 << 19, 16
+    c = hc.split_large(n, real=True)[1]
+    trace = tmp_path / "trace.json"
+    subprocess.run([sys.executable, "-c", GLUE_PROFILE, str(n), str(rows), str(trace)], check=True, timeout=600,
+                   cwd=pathlib.Path(__file__).resolve().parents[1])
+    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
+
+    def innermost(among, call):
+        around = [e for e in among if e.get("tid") == call.get("tid") and e["ts"] <= call["ts"]
+                  and call["ts"] + call["dur"] <= e["ts"] + e["dur"]]
+        return min(around, key=lambda e: e["dur"]) if around else None
+
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    glue = {"ops.hopper_composite.rfft_composite", "ops.hopper_composite.irfft_composite"}
+    seen = 0
+    for op in device:
+        call = runtime[op["args"]["correlation"]]
+        span = innermost(spans, call)
+        if span is None or span["name"] not in glue:
+            continue
+        owner = innermost(cpu_ops, call)
+        assert owner is not None, op["name"]
+        largest = max((int(np.prod(s)) for s in _shapes(owner["args"].get("Input Dims", []))), default=0)
+        assert largest <= 2 * rows * c, (owner["name"], owner["args"].get("Input Dims"), op["name"])
+        seen += 1
+    assert seen > 0
+
+
 def test_long_filter_ols_launches_composite(dev):
     """A 6000-tap filter takes N = 2^15, a composite size."""
     from chowdsp_fft_tpu_torch.ops import hopper_composite as hc
