@@ -185,6 +185,18 @@ __device__ __forceinline__ void load_packed(const PackedColumn& p, const float* 
   }
 }
 
+// The column passes on the registers w of thread (t, j): in place in the
+// tile, or between its two buffers.
+template <int SIGN, int SHAPE>
+__device__ __forceinline__ void col_passes(const ColPlan& plan, float2* w, float2* smem, int ls, int L,
+                                           const float2* __restrict__ pass_tw, int t, int tpc, int j) {
+  if constexpr (SHAPE == kColInPlace) {
+    run_col_passes_in_place<SIGN>(plan, w, TileBuf{smem, ls}, L, pass_tw, t, tpc, j);
+  } else {
+    run_col_passes<SIGN>(plan, w, TileBuf{smem, ls}, L, pass_tw, t, tpc, j);
+  }
+}
+
 // K6. Input (B, L, M) (columns) or (B, M, L) (rows, ROWS_IN), output the
 // same way (ROWS_OUT); TW multiplies by tw[l*M + m] before or after.
 // Thread (t, j) loads points q*tpc + t (q < 16) of column j into
@@ -193,7 +205,11 @@ __device__ __forceinline__ void load_packed(const PackedColumn& p, const float* 
 // composite, planes, L = C, M = A/2): the output (kPackedOut) or the input
 // (kPackedIn) is the (B, C/2, A) ordered packed planes, grid column 0 in
 // `lines` (kPackedOut: the (2B, C) DC then Nyquist line transforms;
-// kPackedIn: the (B, C) column 0); `lines` is null for kUnpacked.
+// kPackedIn: the (B, C) column 0); `lines` is null for kUnpacked. The
+// unpacked roles build both global views before the passes: built after
+// them, as the packed forms build theirs, l1 and l1_rev on in-place
+// tiles spill 1.3-2.7x the bytes (ptxas, sm_90a) and l1 runs 10% slower
+// at 2^20 x 64 on an H100.
 template <int SIGN, bool ROWS_IN, bool ROWS_OUT, int TW, int SHAPE, int PACK = kUnpacked>
 __global__ void __launch_bounds__(col_threads<SHAPE>(), col_min_blocks<SHAPE>())
 column_passes_kernel(const float* __restrict__ xre, const float* __restrict__ xim, float* __restrict__ yre,
@@ -205,6 +221,25 @@ column_passes_kernel(const float* __restrict__ xre, const float* __restrict__ xi
   const int cols = min(M - tl.m0, 1 << ls);
   const size_t row = static_cast<size_t>(tl.b) * L * M;
   const bool il = stride == 2;
+  if constexpr (PACK == kUnpacked) {
+    const size_t in_at = (row + (ROWS_IN ? static_cast<size_t>(tl.m0) * L : tl.m0)) * stride;
+    const size_t out_at = (row + (ROWS_OUT ? static_cast<size_t>(tl.m0) * L : tl.m0)) * stride;
+    const Global<ROWS_IN, TW == kTwiddleBefore> in{const_cast<float*>(xre) + in_at,
+                                                   const_cast<float*>(xim) + in_at, L, M, cols, il, tw + tl.m0};
+    const Global<ROWS_OUT, TW == kTwiddleAfter> out{yre + out_at, yim + out_at, L, M, cols, il, tw + tl.m0};
+    const int j = threadIdx.x & ((1 << ls) - 1);
+    const int t = threadIdx.x >> ls;
+    const int tpc = blockDim.x >> ls;
+    float2 w[kRowPoints];
+#pragma unroll
+    for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < L ? in(q * tpc + t, j) : make_float2(0.0f, 0.0f);
+    col_passes<SIGN, SHAPE>(plan, w, smem, ls, L, pass_tw, t, tpc, j);
+#pragma unroll
+    for (int q = 0; q < kRowPoints; ++q) {
+      if (q * tpc + t < L) out.put(q * tpc + t, j, w[q]);
+    }
+    return;
+  }
   const int j = threadIdx.x & ((1 << ls) - 1);
   const int t = threadIdx.x >> ls;
   const int tpc = blockDim.x >> ls;
@@ -229,11 +264,7 @@ column_passes_kernel(const float* __restrict__ xre, const float* __restrict__ xi
 #pragma unroll
     for (int q = 0; q < kRowPoints; ++q) w[q] = q * tpc + t < L ? in(q * tpc + t, j) : make_float2(0.0f, 0.0f);
   }
-  if constexpr (SHAPE == kColInPlace) {
-    run_col_passes_in_place<SIGN>(plan, w, TileBuf{smem, ls}, L, pass_tw, t, tpc, j);
-  } else {
-    run_col_passes<SIGN>(plan, w, TileBuf{smem, ls}, L, pass_tw, t, tpc, j);
-  }
+  col_passes<SIGN, SHAPE>(plan, w, smem, ls, L, pass_tw, t, tpc, j);
   if constexpr (PACK == kPackedOut) {
     const PackedColumn p{L, 2 * M, tl.m0 + j, t, tpc};
     if (p.k1 == 0) {

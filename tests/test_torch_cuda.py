@@ -763,6 +763,114 @@ def test_engine_entries_differentiate_on_card(dev):
 
 
 # ---------------------------------------------------------------------------
+# The benchmark's complex round trip (cfft1048576.b64) at its own shape
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cfft_cell():
+    """64 seeded complex64 unit-variance rows of 2^20, the shape of the
+    benchmark's cell ``cfft1048576.b64``, and the cell's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    import json
+    import pathlib
+
+    config = pathlib.Path(__file__).resolve().parents[1] / "portbench" / "configs" / "cfft1048576.json"
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(64, 1 << 20, dtype=torch.complex64, generator=gen, device="cuda")
+    ct.ifft(ct.fft(x))  # build and warm
+    torch.cuda.synchronize()
+    return x, json.loads(config.read_text())["limits"]
+
+
+def _port_launches():
+    from chowdsp_fft_tpu_torch.ops import convolve, demod, polyphase
+
+    return {k.name: k.launches for k in hf.KERNELS + convolve.KERNELS + polyphase.KERNELS + demod.KERNELS}
+
+
+def test_cfft_cell_launches_the_four_k6_roles(cfft_cell):
+    """``api.fft`` then ``api.ifft`` on 2^20 x 64 complex64 launch K6 l1,
+    l2, l2_rev and l1_rev once each, and nothing else of the port."""
+    x, _ = cfft_cell
+    before = _port_launches()
+    ct.ifft(ct.fft(x, engine="auto"), engine="auto")
+    torch.cuda.synchronize()
+    rose = {k: n - before[k] for k, n in _port_launches().items() if n != before[k]}
+    assert rose == {"composite_l1_kernel": 1, "composite_l2_kernel": 1, "composite_l2_rev_kernel": 1,
+                    "composite_l1_rev_kernel": 1}
+
+
+def test_cfft_cell_against_float64(cfft_cell):
+    """The spectrum against the benchmark's float64 reference and the
+    round trip against N x, within the cell's limits; a zeroed row of the
+    spectrum fails them."""
+    from portbench.reference import compare, complex_fft
+
+    x, limits = cfft_cell
+    n = x.shape[-1]
+
+    def gap(out, ref):
+        return compare.gap(torch.view_as_real(out), torch.view_as_real(ref))
+
+    spec = ct.fft(x)
+    y = ct.ifft(spec)
+    ref = complex_fft.fft(x)
+    assert gap(spec, ref) <= limits["spectrum_gap"]
+    assert gap(y, x.to(torch.complex128) * n) <= limits["roundtrip_gap"]
+    spec[5] = 0
+    assert not gap(spec, ref) <= limits["spectrum_gap"]
+
+
+# Profiles one warm complex round trip of 64 rows of 2^20 (the cell
+# ``cfft1048576.b64``'s call) in the benchmark's call span, through the
+# port's tracer, into a directory:
+#     python -c CFFT_PROFILE trace_dir
+CFFT_PROFILE = """
+import sys
+import torch
+import chowdsp_fft_tpu_torch as ct
+from chowdsp_fft_tpu_torch.utils import profiling
+from portbench import spans
+
+gen = torch.Generator(device="cuda").manual_seed(24)
+x = torch.randn(64, 1 << 20, dtype=torch.complex64, generator=gen, device="cuda")
+ct.ifft(ct.fft(x))  # build and warm
+torch.cuda.synchronize()
+with profiling.trace(sys.argv[1]):
+    with torch.profiler.record_function(spans.CALL):
+        ct.ifft(ct.fft(x))
+"""
+
+
+def test_cfft_cell_levels_cover_the_busy_time(dev, tmp_path):
+    """In a profiled call, every device op lies in a K6 launch span (four
+    kernels, no copy or fill), and the cell's two level metrics' spans
+    add up to the call's busy time within 1%. The profile
+    (``CFFT_PROFILE``) runs in a process of its own, as ``GLUE_PROFILE``
+    does."""
+    import pathlib
+    import subprocess
+    import sys
+
+    from portbench import harness, spans, trace
+    from portbench.metrics import cfft_level1_device_ms, cfft_level2_device_ms
+
+    subprocess.run([sys.executable, "-c", CFFT_PROFILE, str(tmp_path / "tr")], check=True, timeout=600,
+                   cwd=pathlib.Path(__file__).resolve().parents[1])
+    [path] = list((tmp_path / "tr").glob("trace_*.json"))
+    device, host = spans.read_events(path)
+    w = spans.HostWindow(device, host, harness.port_kernel_names())
+    assert len(w.calls) == 1 and len(device) == 4
+    assert all(op.cat == "kernel" and "column_passes_kernel" in op.name for op in device)
+    level1, level2 = w.device_ms(cfft_level1_device_ms.SPANS), w.device_ms(cfft_level2_device_ms.SPANS)
+    busy_ms = 1e3 * sum(b - a for a, b in trace.busy_intervals(device))
+    assert level1 > 0 and level2 > 0
+    assert level1 + level2 == pytest.approx(busy_ms, rel=1e-2)
+
+
+# ---------------------------------------------------------------------------
 # The parallel layer on a one-rank NCCL group (chowdsp_fft_tpu_torch/parallel)
 # ---------------------------------------------------------------------------
 
