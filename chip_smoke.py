@@ -9,8 +9,9 @@ first use, the native planner from ``native/planner.cpp`` into
 ``build/native/``). Each kernel is checked against its plain version and
 float64 by the tests marked ``cuda`` in tests/test_torch_cuda.py,
 tests/test_torch_tracing.py, tests/test_torch_partitioned_accumulate.py,
-tests/test_torch_polyphase_kernel.py and tests/test_torch_demod_kernel.py
-(``python -m pytest -m cuda`` on those five files; run them first); here
+tests/test_torch_polyphase_kernel.py, tests/test_torch_demod_kernel.py and
+tests/test_torch_packed_product.py (``python -m pytest -m cuda`` on those
+six files; run them first); here
 each timed kernel is held to its plain version once more at the shape its
 path gives it.
 
@@ -28,9 +29,11 @@ Phases (numbered as PERF.md cites them; there are no phases 2, 6 and
    ``stream.partitioned_fir_apply(block=1024)``, against a float64 FFT
    convolution (atol 5e-4 and 1e-3), plus ``PartitionedFIR.step_k``
    streaming against the offline result;
-4. K1-K3 and the offline FDL's partitioned accumulate carried config 3:
+4. K1-K3, the offline FDL's partitioned accumulate and (in ``step_k``)
+   the packed product carried config 3:
    every launch count from phase 3 > 0, and ``engine_for`` picks the
-   Hopper engine at the path's sizes;
+   Hopper engine at the path's sizes (the kernels line counts the
+   product's launches from phase 14);
 5. timing at N=4096, B=1024 (kernel, plain version, cuFFT), informational,
    with K1-K3's launch geometry and resident blocks per SM;
 7. BASELINE config 5 at its published width: ``models.SDRChain`` (256
@@ -63,8 +66,10 @@ Phases (numbered as PERF.md cites them; there are no phases 2, 6 and
 14. a convolution reverb: ``stream.fir_filter_ols`` of 64 channels x 10 s
     at 48 kHz with per-channel 2 s impulse responses (N = 2^19), 8
     channels against a float64 FFT convolution and all 64 against the
-    same call on the Stockham engine; K7a, K6 level 2 and its reverse,
-    K7b and the line transforms' K4 carried it;
+    same call on the Stockham engine with the packed product's plain
+    version (no kernel of the port); K7a, K6 level 2 and its reverse, K7b
+    and the line transforms' K4 carried it, and the packed product ran
+    exactly once (the kernels line's count for it);
 15. timing (informational): each composite kernel at config 2's top row
     against its plain version, its bound (``utils/roofline.py``) and the
     matching ``torch.fft`` call, with the column engine's launch geometry
@@ -167,18 +172,26 @@ Phases (numbered as PERF.md cites them; there are no phases 2, 6 and
     time beside its plain version's (the torch ops, its sample 0 set to
     the kernel's 0) and its bound (z read once, y written once), with the
     gap to the bound.
+26. the packed product (``ops/convolve.packed_product_kernel``,
+    ``csrc/packed_product.cu``): ptxas's registers and spills (none
+    allowed); then at the long-IR cell's 64 x 2 x 2^18 with a filter per
+    stream, with a shared filter, and per stream with an accumulator, the
+    kernel bit for bit its plain version (the torch ops), and
+    (informational) its width, frames a unit and grid, its time beside
+    the plain version's and its bound (a, the filter and y once).
 
-Every timed kernel (phases 5, 11, 15, 19, 23-25) is first held to its
+Every timed kernel (phases 5, 11, 15, 19, 23-26) is first held to its
 plain version on the same input (``kernel_times``: 2e-7*N at the
 kernel's length and scale, ``held``; the FDL and the decimator within
-1e-5 of the plain output's rms, the discriminator within 5e-7 absolute),
+1e-5 of the plain output's rms, the discriminator within 5e-7 absolute,
+the packed product bit for bit),
 then timed twice: ``ms``, CUDA events
 around 20 calls from Python (host-inclusive: the wrapper, ctypes and the
 launch), and ``device_ms``, the same 20 calls captured in one CUDA graph
 and replayed (``graph_time_ms``: no host in the loop); the matching
 ``torch.fft`` call likewise (``library_ms``, ``library_device_ms``).
 
-Phases run in the order 1, 3-5, 7-9, 13, 14, 16-18, 20-25, 10, 11, 15,
+Phases run in the order 1, 3-5, 7-9, 13, 14, 16-18, 20-26, 10, 11, 15,
 19. The line before the last is the kernel report as JSON, one entry for
 each record of ``hopper_fft.KERNELS``, ``convolve.KERNELS``,
 ``polyphase.KERNELS`` and ``demod.KERNELS`` (with each kernel's ``max_abs_err`` against its
@@ -663,10 +676,12 @@ def make_reverb(rng) -> tuple[np.ndarray, np.ndarray]:
     return audio.astype(np.float32), ir.astype(np.float32)
 
 
-def phase14(ct, hc, hf, stream, dev, audio: np.ndarray, ir: np.ndarray) -> dict[str, int]:
+def phase14(ct, hc, hf, convolve, stream, dev, audio: np.ndarray, ir: np.ndarray) -> dict[str, int]:
     """stream.fir_filter_ols(audio, ir) with engine="auto": N = 2^19 and
     2 blocks per channel, 128 rows through K7a, K6 level 2, the line
-    transforms (K4 at C = 512), K6 level-2 reverse and K7b."""
+    transforms (K4 at C = 512), K6 level-2 reverse and K7b, and one launch
+    of the packed product; held to float64 and to the Stockham engine with
+    the product's plain version."""
     x = torch.from_numpy(audio).to(dev)
     h = torch.from_numpy(ir).to(dev)
     taps = ir.shape[-1]
@@ -674,25 +689,34 @@ def phase14(ct, hc, hf, stream, dev, audio: np.ndarray, ir: np.ndarray) -> dict[
     a, c = hc.split_large(n, real=True)
     require(n == 1 << 19 and ct.engine_for(n, "real") == "hopper", f"reverb N={n}, {ct.engine_for(n, 'real')}")
     hf.reset_launch_counts()
+    product = convolve.PACKED_PRODUCT
+    product.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     wet = stream.fir_filter_ols(x, h)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in hf.KERNELS}
+    launches = {k.name: k.launches for k in hf.KERNELS + (product,)}
     log(f"phase 14 reverb (64 ch x 10 s, 2 s IRs, N={n} = {a}x{c}) ran in {wall:.3f} s (first call, host clock); "
         f"launches {launches}")
     for k in (hc.K7A, hc.K6_L2, hc.K6_L2_REV, hc.K7B, hf.K4):
         require(launches[k.name] > 0, f"{k.name} was not launched on the reverb path")
+    require(launches[product.name] == 1, f"the reverb launched {product.name} {launches[product.name]} times, not once")
     require(tuple(wet.shape) == audio.shape and bool(torch.isfinite(wet).all()), f"wet {tuple(wet.shape)}")
     got = wet[:8].double().cpu().numpy()
     ref = fft_convolve64(audio[:8].astype(np.float64), ir[:8].astype(np.float64))
     err64 = float(np.abs(got - ref).max())
     rms = float(np.sqrt((ref ** 2).mean()))
-    plain = stream.fir_filter_ols(x, h, engine="stockham")
+    kernel = convolve.packed_product_kernel
+    convolve.packed_product_kernel = convolve.convolve_accumulate_packed_plain
+    try:
+        plain = stream.fir_filter_ols(x, h, engine="stockham")
+    finally:
+        convolve.packed_product_kernel = kernel
+    require(product.launches == 1, f"the Stockham reverb launched {product.name}")
     err_eng = float((wet - plain).abs().max())
     log(f"phase 14 reverb: 8 channels vs float64 max abs err {err64:.3e} (atol {REVERB_ATOL}, wet rms {rms:.3f}); "
-        f"64 channels vs engine=stockham {err_eng:.3e} (atol {REVERB_ENGINE_ATOL})")
+        f"64 channels vs engine=stockham and the plain product {err_eng:.3e} (atol {REVERB_ENGINE_ATOL})")
     require(err64 <= REVERB_ATOL, f"reverb vs float64: {err64} > {REVERB_ATOL}")
     require(err_eng <= REVERB_ENGINE_ATOL, f"reverb vs stockham: {err_eng} > {REVERB_ENGINE_ATOL}")
     log("phase 14 ok")
@@ -2073,6 +2097,81 @@ def phase25(_cuda, demod, roof, lib_path, dev, card) -> tuple[dict, object]:
     return times, chain_bound
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: timing of the packed product
+# ---------------------------------------------------------------------------
+
+# (streams, frames, slots, filter, accumulate, what): the long-IR cell's
+# per-channel product (N = 2^19, a filter per stream over 2 frames), a
+# filter shared by every frame, and the per-stream product with an
+# accumulator (``PartitionedFIR.step_k``'s form).
+PRODUCT_SHAPES = (
+    (64, 2, 1 << 18, "per-stream", False, "the long-IR cell's per-channel product"),
+    (64, 2, 1 << 18, "shared", False, "a shared filter"),
+    (64, 2, 1 << 18, "per-stream", True, "per-stream, accumulated"),
+)
+
+
+def product_bound(roof, streams: int, frames: int, m: int, filt: str, accumulate: bool):
+    """The packed product's bound: a (and the accumulator) read once, the
+    filter read once, y written once, 8 bytes a slot of each; 8 operations
+    a slot (4 products, a sum, a difference, the scale), 2 more with the
+    accumulator."""
+    slots = streams * frames * m
+    filter_rows = streams if filt == "per-stream" else 1
+    return roof.roofline(8 * (slots * (2 + accumulate) + filter_rows * m), (8 + 2 * accumulate) * slots)
+
+
+def phase26(_cuda, convolve, roof, lib_path, dev, card) -> tuple[dict, object]:
+    """``convolve.packed_product_kernel`` (one launch of
+    ``csrc/packed_product.cu``): ptxas's registers and spills (a spill
+    fails); then at each shape of PRODUCT_SHAPES the kernel held to its
+    plain version bit for bit, and (informational) its width, frames a
+    unit and grid, and its time beside the plain version's and its bound.
+    Returns the times at the long-IR shape and their bound."""
+    k = convolve.PACKED_PRODUCT
+    lines = _cuda.kernel_resources(lib_path, k.name)
+    require(bool(lines), f"no ptxas report of {k.name}")
+    for line in lines:
+        log(f"phase 26 ptxas {k.name}: {line}")
+        spills = re.findall(r"(\d+) bytes spill", line)
+        require(all(v == "0" for v in spills), f"{k.name} spills: {line}")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261025)
+
+    def planes(*shape):
+        return tuple(torch.randn(*shape, device=dev, generator=g) for _ in range(2))
+
+    times = long_ir_bound = None
+    for i, (streams, frames, m, filt, accumulate, what) in enumerate(PRODUCT_SHAPES):
+        h = planes(streams, 1, m) if filt == "per-stream" else planes(m)
+        ab = planes(streams, frames, m) if accumulate else None
+        args = [planes(streams, frames, m) for _ in range(2)]
+        scale = 1.0 / (2 * m)
+        bound = product_bound(roof, streams, frames, m, filt, accumulate)
+
+        def kernel(xr, xi):
+            return convolve.packed_product_kernel((xr, xi), h, ab, scale)
+
+        def plain(xr, xi):
+            return convolve.convolve_accumulate_packed_plain((xr, xi), h, ab, scale)
+
+        t = kernel_times(kernel, plain, args, bound=lambda rms: 0.0)
+        ops, outer, inner = convolve.product_operands(torch.Size((streams, frames, m)), args[0], h, ab)
+        width = convolve.product_width(m, ops)
+        unit_frames, blocks = convolve.product_geometry(outer, inner, m // width)
+        log(f"phase 26 {k.name} {what} ({streams} x {frames} x {m}, {filt} filter"
+            f"{', accumulated' if accumulate else ''}; {width} slots and {unit_frames} frames a unit, {blocks} "
+            f"blocks): bit for bit the plain version; kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
+            f"plain {t['plain_ms']:.4f} ms, bound {bound.ms:.4f} ms ({bound.bound_by}; "
+            f"{100 * bound.ms / t['device_ms']:.1f}% of it) [{card}]")
+        if i == 0:
+            times, long_ir_bound = t, bound
+        del args, h, ab
+    torch.cuda.empty_cache()
+    return times, long_ir_bound
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2122,7 +2221,7 @@ def main() -> int:
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     h = torch.from_numpy(h64.astype(np.float32)).to(dev)
     hf.reset_launch_counts()
-    convolve.PARTITIONED.launches = 0
+    convolve.PARTITIONED.launches = convolve.PACKED_PRODUCT.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     y_ols = stream.fir_filter_ols(x, h, block=8192)
@@ -2148,13 +2247,16 @@ def main() -> int:
         outs.append(yk.reshape(s, -1))
     y_stream = torch.cat(outs, -1)
     err = float((y_stream - y_pfir[:, : y_stream.shape[-1]]).abs().max())
-    log(f"phase 3 step_k x{chunks} (K={k_blocks}) vs offline: max abs err {err:.3e}")
+    step_k_products = convolve.PACKED_PRODUCT.launches
+    log(f"phase 3 step_k x{chunks} (K={k_blocks}) vs offline: max abs err {err:.3e}; packed product launches "
+        f"{step_k_products}")
     require(err <= 1e-5, f"step_k streaming disagrees with offline: {err}")
     log("phase 3 ok")
 
     # -- phase 4 ------------------------------------------------------------
     for k in (hf.K1, hf.K2, hf.K3, convolve.PARTITIONED):
         require(launches[k.name] > 0, f"{k.name} was not launched on the main path")
+    require(step_k_products > 0, f"{convolve.PACKED_PRODUCT.name} was not launched by step_k")
     for n in (2048, 4096, 16384):
         require(ct.engine_for(n, "real") == "hopper", f"engine_for({n}) = {ct.engine_for(n, 'real')}")
     log("phase 4 ok: every kernel carried the path")
@@ -2203,7 +2305,8 @@ def main() -> int:
     for k in hc.KERNELS:
         launches[k.name] = path2[k.name]
     audio, ir = make_reverb(rng)
-    phase14(ct, hc, hf, stream, dev, audio, ir)
+    launches[convolve.PACKED_PRODUCT.name] = phase14(ct, hc, hf, convolve, stream, dev, audio, ir)[
+        convolve.PACKED_PRODUCT.name]
 
     # -- phases 16-18: config 4, the STFT, the pipelined kernels -------------
     path4c, model_calls = phase16(models, hf, convolve, dev, audio, ir)
@@ -2223,10 +2326,11 @@ def main() -> int:
     adapter_launches = phase22(ct, hf, hopper_small, hc, stream, models, dev, card, times[hf.K1.name]["device_ms"],
                                audio, ir)
 
-    # -- phases 23-25: the three kernels that replace no Pallas kernel ---------
+    # -- phases 23-26: the four kernels that replace no Pallas kernel ----------
     times[convolve.PARTITIONED.name], fdl_roof = phase23(_cuda, convolve, roof, lib_path, dev, card)
     times[polyphase.DECIMATE.name], decim_roof = phase24(_cuda, polyphase, roof, lib, lib_path, dev, card)
     times[demod.FM_DEMOD.name], demod_roof = phase25(_cuda, demod, roof, lib_path, dev, card)
+    times[convolve.PACKED_PRODUCT.name], product_roof = phase26(_cuda, convolve, roof, lib_path, dev, card)
 
     # -- phase 10 -------------------------------------------------------------
     for k in hf.KERNELS + convolve.KERNELS + polyphase.KERNELS + demod.KERNELS:
@@ -2270,6 +2374,7 @@ def main() -> int:
     bounds[convolve.PARTITIONED.name] = fdl_roof
     bounds[polyphase.DECIMATE.name] = decim_roof
     bounds[demod.FM_DEMOD.name] = demod_roof
+    bounds[convolve.PACKED_PRODUCT.name] = product_roof
     direct = roof.direct_dft_roofline(*SMALL_TIMED, "complex")
     k5 = times[hopper_small.K5_COMPLEX.name]
     log(f"K5 complex at N={SMALL_TIMED[0]}, B={SMALL_TIMED[1]}: the direct DFT of the old design did "

@@ -127,6 +127,10 @@ _SIGNATURES = {
     # blocks, slots, partitions, shared filter, sub-rings, run, scale,
     # stream.
     "partitioned_accumulate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # The packed product (ops/convolve): a, b, ab re/im (ab NULL: none), y
+    # re/im, outer, inner, slots, frames a unit, width, scale, scale's
+    # device pointer (NULL: the number), blocks, stream.
+    "packed_product": [*[_P] * 8, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, ctypes.c_float, _P, _I, _P],
     # The polyphase decimator (ops/polyphase): x, h, y, rows, T, row and
     # sample strides, factor, taps, threads, rows a block, stream.
     "hopper_decimate_max_taps": [],

@@ -8,6 +8,7 @@ blocks, at the same grain.
 | :class:`IrfftPacked` | ``_pallas_irfft_packed`` :1293, ``_rdc_inv`` :3305 | K5, K2 or the composite inverse | the forward of the cotangent, weighted 2 |
 | :class:`ConvolveIrfftPacked` | ``_pallas_irfft_conv`` :2114 | K3 | the unfused composition's adjoint |
 | :class:`CfftPair` | ``_cfft_pair`` :2905 | K5, K4 or the composite (K6) | the opposite direction, same ``ordered`` |
+| :class:`PackedProduct` | none (XLA differentiates ``ops/convolve.py``'s ops) | ``csrc/packed_product.cu`` | the packed product's adjoint, plain torch; ``ab``'s gradient passes through |
 | :class:`PartitionedAccumulate` | none (XLA differentiates ``stream/ols.py``'s loop) | ``csrc/partitioned_accumulate.cu`` | the packed product's adjoint per partition, plain torch |
 | :class:`PolyphaseDecimate` | none (XLA differentiates ``lax.conv_general_dilated``) | ``csrc/polyphase.cu`` | a strided transposed correlation with h, plain torch |
 | :class:`FMDemod` | none (XLA differentiates ``stream/demod.py``'s ops) | ``csrc/demod.cu`` | ``gain * i z / abs(z)^2`` times the cotangent's backward difference, plain torch |
@@ -21,9 +22,11 @@ level 1 alone; here the whole real composite sits under
 ``_rdc_inv``), so K7a and K7b need no Function of their own.
 
 A CPU tensor takes the kernels' plain versions, forward and backward.
-:class:`PartitionedAccumulate`, :class:`PolyphaseDecimate` and
-:class:`FMDemod` have no kernel in their backward, and their forward is
-the wrapper on every device.
+:class:`PackedProduct`, :class:`PartitionedAccumulate`,
+:class:`PolyphaseDecimate` and :class:`FMDemod` have no kernel in their
+backward. The last three's forward is the wrapper on every device;
+:class:`PackedProduct`'s is the kernel wrapper, since
+``convolve_accumulate_packed`` enters it only where the kernel runs.
 The engine entries (``hopper_fft.rfft_packed``, ``irfft_packed``,
 ``convolve_irfft_packed``, ``cfft``, ``cfft_planes``) route through these
 Functions only when grad mode is on and an input requires grad.
@@ -58,6 +61,7 @@ __all__ = [
     "IrfftPacked",
     "ConvolveIrfftPacked",
     "CfftPair",
+    "PackedProduct",
     "PartitionedAccumulate",
     "PolyphaseDecimate",
     "FMDemod",
@@ -200,6 +204,39 @@ class CfftPair(torch.autograd.Function):
         out = hopper_composite.cfft_rows(g, ctx.plan, not ctx.forward, ctx.ordered)
         da, db = out if ctx.planes else (out, None)
         return da, db, None, None, None
+
+
+class PackedProduct(torch.autograd.Function):
+    """The packed product, ``convolve.convolve_accumulate_packed``: planes
+    A, B (broadcasting against A) and an optional accumulator C (None,
+    None) -> ``C + scale * A (.) B``. Backward, in plain torch with
+    :func:`packed_product_adjoint`: A's and B's gradients each summed over
+    the dims it was broadcast along (a filter's over the frames), C's the
+    cotangent, summed likewise; ``scale`` (a number or a one-element tensor)
+    gets none. Saves A and B. Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, are, aim, bre, bim, cre, cim, scale):
+        ab = None if cre is None else _detached(cre, cim)
+        ctx.ab_shape = None if ab is None else ab[0].shape
+        ctx.scale = scale.detach().reshape(()) if isinstance(scale, torch.Tensor) else scale
+        args = _detached(are, aim, bre, bim)
+        ctx.save_for_backward(*args)
+        return convolve.packed_product_kernel(args[:2], args[2:], ab, scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gre, gim):
+        are, aim, bre, bim = ctx.saved_tensors
+        scale = ctx.scale.to(gre.device, gre.dtype) if isinstance(ctx.scale, torch.Tensor) else ctx.scale
+        da = db = dc = (None, None)
+        if any(ctx.needs_input_grad[:2]):
+            da = tuple(t.sum_to_size(are.shape) for t in packed_product_adjoint(gre, gim, bre, bim, scale))
+        if any(ctx.needs_input_grad[2:4]):
+            db = tuple(t.sum_to_size(bre.shape) for t in packed_product_adjoint(gre, gim, are, aim, scale))
+        if any(ctx.needs_input_grad[4:6]):
+            dc = gre.sum_to_size(ctx.ab_shape), gim.sum_to_size(ctx.ab_shape)
+        return (*da, *db, *dc, None)
 
 
 class PartitionedAccumulate(torch.autograd.Function):

@@ -50,7 +50,7 @@ from .. import api as _api
 from ..plans import FFT_COMPLEX, FFT_FORWARD, FFT_REAL, FFTPlan, cached_plan
 from . import autodiff, hopper_cfft, hopper_composite, hopper_small, row_passes, stockham
 from ._cuda import MAX_CN, MAX_N, Kernel, check as _check, device_perm, host_ints, launch, require_domain, takes_plain
-from .convolve import convolve_accumulate_packed
+from .convolve import convolve_accumulate_packed, convolve_accumulate_packed_plain
 from .layout import packed_planes_to_spectrum, spectrum_to_packed_planes
 from .tables import (
     JAX_MAX_N,
@@ -235,7 +235,7 @@ def irfft_packed_plain(yre: torch.Tensor, yim: torch.Tensor, plan: FFTPlan, orde
 
 def convolve_irfft_packed_plain(are, aim, bre, bim, scale: float, plan: FFTPlan, ordered: bool = True):
     """Plain version of K3: irfft(scale * A (.) B) with the bin-0 patch-up."""
-    pr, pi = convolve_accumulate_packed((are, aim), (bre, bim), scaling=scale)
+    pr, pi = convolve_accumulate_packed_plain((are, aim), (bre, bim), scaling=scale)
     return irfft_packed_plain(pr, pi, plan, ordered)
 
 

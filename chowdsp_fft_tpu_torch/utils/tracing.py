@@ -34,7 +34,7 @@ _KERNELS = (
     "composite_l1_kernel", "composite_l2_kernel", "composite_l2_rev_kernel", "composite_l1_rev_kernel",
     "rfft_cols_kernel", "irfft_cols_kernel",
     "rfft_packed_joint_db_kernel", "irfft_packed_db_kernel", "cfft_db_kernel",
-    "partitioned_accumulate_kernel",
+    "partitioned_accumulate_kernel", "packed_product_kernel",
     "polyphase_decimate_kernel",
     "fm_demod_kernel",
 )

@@ -195,7 +195,7 @@ def test_geometry():
 
 
 def test_records():
-    assert convolve.KERNELS == (convolve.PARTITIONED,)
+    assert convolve.KERNELS == (convolve.PARTITIONED, convolve.PACKED_PRODUCT)
     assert convolve.PARTITIONED not in hf.KERNELS
     assert convolve.PARTITIONED.source.endswith("csrc/partitioned_accumulate.cu")
 

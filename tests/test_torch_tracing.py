@@ -291,15 +291,16 @@ def test_longir_device_ops_have_their_spans(tmp_path):
     samples by 96,000-tap IRs, N = 2^19): every device op of a
     ``fir_filter_ols`` call is launched, by ``correlation``, inside a
     program span, and the ops innermost in the spans that the composite's
-    kernel and glue metrics read, the per-channel product, the framing,
+    kernel and glue metrics read, the per-channel product (its kernel's
+    launch span on the card), the framing,
     the trim and the entry's own (the IRs' zero pad) add up to the call's
     busy time within 0.05%."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-    from portbench.metrics import composite_glue_device_ms, composite_kernel_device_ms
+    from portbench.metrics import composite_glue_device_ms, composite_kernel_device_ms, packed_product_kernel_device_ms
 
     read = {*composite_kernel_device_ms.SPANS, *composite_glue_device_ms.SPANS, "ops.convolve.accumulate_packed",
-            "stream.ols.frame", "stream.ols.trim", "stream.ols.fir_filter_ols"}
+            *packed_product_kernel_device_ms.SPANS, "stream.ols.frame", "stream.ols.trim", "stream.ols.fir_filter_ols"}
     gen = torch.Generator(device="cuda").manual_seed(22)
     x = torch.randn(64, 480_000, generator=gen, device="cuda")
     h = torch.randn(64, 96_000, generator=gen, device="cuda") * torch.exp(
