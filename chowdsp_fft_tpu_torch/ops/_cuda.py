@@ -26,7 +26,7 @@ import tempfile
 
 import torch
 
-from ..utils.tracing import LAUNCH_SPAN, span
+from ..utils.tracing import launch_span, span
 
 # Largest real N of K1-K3: two padded N/2-point buffers, 8.25N bytes.
 MAX_N = 16384
@@ -250,7 +250,8 @@ def library() -> ctypes.CDLL:
 class Kernel:
     """A kernel's identity and its launch count (incremented once per
     launch of the CUDA kernel, never by the plain version). ``span`` names
-    the span around each launch."""
+    the span around each launch, which the record adds to
+    ``tracing.SPANS``."""
 
     name: str
     source: str
@@ -259,7 +260,7 @@ class Kernel:
     span: str = dataclasses.field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        self.span = LAUNCH_SPAN + self.name
+        self.span = launch_span(self.name)
 
 
 def check(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device,
